@@ -9,15 +9,18 @@ Layout (same paths as the JAX package):
     core/      resize and bilinear sampling (plain torch ops)
     ops/       hand-written CUDA kernels and their plain torch versions
     csrc/      CUDA C++ sources of those kernels (built with nvcc at first use)
-    models/    GMFlow matcher, EfficientNet encoder, UNet decoder, DMSCT
+    models/    GMFlow matcher, EfficientNet encoder, UNet decoder, DMSCT;
+               ResB layers, parallax attention, DCMCS3DI
     methods/   video / batched serving entry point
-    run/       DMSCT module, batch prediction, CLI
+    run/       DMSCT and DCMCS3DI modules, batch prediction, CLI
     tools/     weight bridge from the JAX parameter tree
 
 Public functions keep the JAX package's channel-last (NHWC) layout; the
 convolutions inside the modules run on permuted (channels-last) views.
 
-Slice ported so far: DMSCT f32 inference (``predict --method dmsct``).
+Slices ported so far: DMSCT f32 inference (``predict --method dmsct``);
+DCMCS3DI inference in f32 and bf16 (``predict --method dcmcs3di``, and the
+kernel route of ``models/dcmcs3di.py`` for 1080p).
 """
 
 __version__ = "0.1.0"

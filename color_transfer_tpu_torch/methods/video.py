@@ -3,13 +3,13 @@ color_transfer_tpu/methods/video.py's ``color_transfer_between_videos``.
 
 Frames are independent work items: the clip runs in chunks of
 ``batch_size`` frames through the module's ``eval_forward`` on one device.
-The classical methods and DCMCS3DI are not ported yet.
+The classical methods are not ported yet.
 """
 
 import numpy as np
 import torch
 
-DEEP_METHODS = ("dmsct",)
+DEEP_METHODS = ("dcmcs3di", "dmsct")
 
 
 def default_device():
@@ -29,12 +29,15 @@ def build_deep(method, module=None, variables=None, module_kwargs=None,
         raise NotImplementedError(
             "ckpt_path: restoring the JAX package's orbax checkpoints is not "
             "ported yet; convert the variables with "
-            "tools/convert.dmsct_state_dict_from_jax and pass variables="
+            "tools/convert.py (dmsct_state_dict_from_jax, "
+            "dcmcs3di_state_dict_from_jax) and pass variables="
         )
     if module is None:
-        from color_transfer_tpu_torch.run.modules import DMSCTModule
+        from color_transfer_tpu_torch.run import modules
 
-        module = DMSCTModule(**dict(module_kwargs or {}))
+        cls = {"dcmcs3di": modules.DCMCS3DIModule,
+               "dmsct": modules.DMSCTModule}[method]
+        module = cls(**dict(module_kwargs or {}))
     if variables is None:
         variables = module.init_eval_variables(seed=0, device=device)
     return module, variables
@@ -49,7 +52,7 @@ def color_transfer_between_videos(target_frames, reference_frames,
     Args:
       target_frames / reference_frames: (T, H, W, 3) float arrays or tensors
         in [0, 1].
-      method: "dmsct" (the only ported method).
+      method: "dmsct" or "dcmcs3di" (the ported methods).
       batch_size: frames per forward; None means 1, the per-device default
         of the JAX package's deep serving.
       device: where the model runs; None picks CUDA when available. Given

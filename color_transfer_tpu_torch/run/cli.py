@@ -5,8 +5,9 @@
         --input_dir "Real-World Dataset/Test" --output_dir corrected/
 
 ``--model.<name> <value>`` passes a keyword to the method's module, e.g.
-``--model.matcher_num_layers 2``; values are parsed as Python literals
-(``true``/``false``/``null`` too) and otherwise kept as strings.
+``--model.matcher_num_layers 2`` (DMSCT) or ``--model.compute_dtype
+bfloat16`` (DCMCS3DI); an unknown name raises. Values are parsed as Python
+literals (``true``/``false``/``null`` too) and otherwise kept as strings.
 """
 
 import argparse

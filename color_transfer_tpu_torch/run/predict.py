@@ -3,8 +3,9 @@ color_transfer_tpu/run/predict.py for the ported methods:
 
     python -m color_transfer_tpu_torch.cli predict --method dmsct \
         --target T.png --reference R.png --output OUT.png
-    python -m color_transfer_tpu_torch.cli predict --method dmsct \
-        --input_dir "Real-World Dataset/Test" --output_dir corrected/
+    python -m color_transfer_tpu_torch.cli predict --method dcmcs3di \
+        --input_dir "Real-World Dataset/Test" --output_dir corrected/ \
+        --model.compute_dtype bfloat16
 
 Directory mode walks the reference dataset layout: the corrected view is
 ``*_LD.*`` (the real-world distorted target) when present, else ``*_L.*``;

@@ -1,14 +1,17 @@
-"""Weight bridge: the JAX package's DMSCT variables -> this port's state_dict.
+"""Weight bridge: the JAX package's DMSCT and DCMCS3DI variables -> this
+port's state_dicts.
 
 The port names its parameters in the reference torch layout (unimatch,
-efficientnet-pytorch, smp), the layout color_transfer_tpu's
-``tools/convert_checkpoints.convert_dmsct`` maps onto the JAX tree; this
-module is that map's inverse, written against plain nested dicts of numpy
-arrays so it needs nothing from the JAX package:
+efficientnet-pytorch, smp, pasmnet), the layout color_transfer_tpu's
+``tools/convert_checkpoints.convert_dmsct`` and ``convert_dcmcs3di`` map
+onto the JAX tree; this module is those maps' inverse, written against
+plain nested dicts of numpy arrays so it needs nothing from the JAX
+package:
 
     params, batch_stats  (flax trees, numpy leaves)
         -> dmsct_state_dict_from_jax -> {name: torch.Tensor}
         -> DMSCT.load_state_dict(..., strict=True)
+    params -> dcmcs3di_state_dict_from_jax -> DCMCS3DI.load_state_dict
 
 Layout transforms: flax conv (kh, kw, I, O) -> torch (O, I, kh, kw) (the
 depthwise (kh, kw, 1, C) -> (C, 1, kh, kw) is the same transpose); flax
@@ -132,4 +135,32 @@ def dmsct_state_dict_from_jax(params, batch_stats, encoder_name="efficientnet-b2
         sd.conv(f"decoder.blocks.{i}.conv1.0", blk["conv1"])
         sd.conv(f"decoder.blocks.{i}.conv2.0", blk["conv2"])
     sd.conv("head.0", params["head"]["conv"])
+    return dict(sd)
+
+
+def _resb(sd, key, mod):
+    """A ResB's Conv_0 / Conv_1 (each a layers.Conv around nn.Conv) ->
+    body.0 / body.2."""
+    sd.conv(f"{key}.body.0", mod["Conv_0"]["Conv_0"])
+    sd.conv(f"{key}.body.2", mod["Conv_1"]["Conv_0"])
+
+
+def dcmcs3di_state_dict_from_jax(params):
+    """JAX DCMCS3DI params (nested dicts of arrays) -> state_dict of
+    models.dcmcs3di.DCMCS3DI (float32 CPU tensors); the layer counts are
+    read from the tree."""
+    sd = _StateDict()
+    ext, mat, tra = params["extraction"], params["matcher"], params["transfer"]
+    sd.conv("extraction.0", ext["Conv_0"]["Conv_0"])
+    for i in range(sum(k.startswith("ResB_") for k in ext)):
+        _resb(sd, f"extraction.{i + 1}", ext[f"ResB_{i}"])
+    _resb(sd, "matcher.head", mat["head"])
+    for name in ("query", "key", "value"):
+        sd.conv(f"matcher.{name}", mat[name]["Conv_0"])
+    n = sum(k.startswith("ResB_") for k in tra)
+    sd.conv("transfer.0", tra["Conv_0"]["Conv_0"])
+    for i in range(n):
+        _resb(sd, f"transfer.{i + 1}", tra[f"ResB_{i}"])
+    sd.conv(f"transfer.{n + 1}", tra["Conv_1"]["Conv_0"])
+    sd.conv(f"transfer.{n + 2}", tra["Conv_2"]["Conv_0"])
     return dict(sd)

@@ -18,10 +18,11 @@ import torch
 
 from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
 from color_transfer_tpu_torch.run import cli
-from color_transfer_tpu_torch.run.modules import DMSCTModule
+from color_transfer_tpu_torch.run.modules import DCMCS3DIModule, DMSCTModule
 from color_transfer_tpu_torch.run.predict import collect_pairs, predict_pairs
 
 KW = dict(matcher_num_layers=1, matcher_num_reg_refine=1)
+DC_KW = dict(extraction_layers=1, transfer_layers=1, channels=8)
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -182,3 +183,66 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "color_transfer_tpu_torch.run.cli" in modules
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_dcmcs3di_video_matches_model_call(clip, compute_dtype):
+    """color_transfer_between_videos(method="dcmcs3di") runs the JAX
+    module's call, the materialised matcher at inference, frame by frame,
+    on the seed-0 weights: equal to the model called on each frame."""
+    t, r = clip
+    module = DCMCS3DIModule(**DC_KW, compute_dtype=compute_dtype)
+    out = color_transfer_between_videos(t, r, method="dcmcs3di", device="cpu",
+                                        module_kwargs=dict(DC_KW, compute_dtype=compute_dtype))
+    assert out.shape == (3, 32, 48, 3) and out.dtype == torch.float32
+    variables = module.init_eval_variables(seed=0)
+    with torch.no_grad():
+        for i in range(len(t)):
+            want, _ = torch.func.functional_call(
+                module.model, variables,
+                (torch.from_numpy(t[i : i + 1]), torch.from_numpy(r[i : i + 1])),
+                {"inference": True},
+            )
+            torch.testing.assert_close(out[i : i + 1], want, atol=0, rtol=0)
+
+
+def test_dcmcs3di_init_is_uniform_and_seeded():
+    """init_eval_variables: U(+-1/sqrt(fan_in)) for kernels and biases,
+    the same for one seed, another for another seed."""
+    module = DCMCS3DIModule(**DC_KW)
+    a, b = module.init_eval_variables(seed=0), module.init_eval_variables(seed=0)
+    c = module.init_eval_variables(seed=1)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["extraction.0.weight"], c["extraction.0.weight"])
+    for name in ("extraction.0", "transfer.0", "matcher.query", "transfer.3"):
+        w, bias = a[f"{name}.weight"], a[f"{name}.bias"]
+        bound = w[0].numel() ** -0.5
+        assert float(w.abs().max()) <= bound and float(bias.abs().max()) <= bound
+        assert float(w.abs().max()) > 0.5 * bound and float(bias.abs().max()) > 0
+
+
+def test_dcmcs3di_module_kwargs():
+    assert DCMCS3DIModule(**DC_KW, compute_dtype="bfloat16").model.compute_dtype \
+        == torch.bfloat16
+    assert DCMCS3DIModule(**DC_KW).model.compute_dtype is None
+    with pytest.raises(ValueError):
+        DCMCS3DIModule(**DC_KW, compute_dtype="bogus")
+    with pytest.raises(TypeError):
+        DCMCS3DIModule(**DC_KW, matcher_num_layers=1)
+
+
+def test_cli_predict_dcmcs3di(tmp_path, clip, capsys):
+    t, r = clip
+    _write_pair(tmp_path, "0000", t[0], r[0])
+    out = tmp_path / "corrected.png"
+    args = [
+        "predict", "--method", "dcmcs3di", "--target", str(tmp_path / "0000_LD.png"),
+        "--reference", str(tmp_path / "0000_R.png"), "--output", str(out),
+        "--device", "cpu", "--model.extraction_layers", "1",
+        "--model.transfer_layers=1", "--model.channels", "8",
+        "--model.compute_dtype", "bfloat16",
+    ]
+    assert cli.main(args) == 0 and out.exists()
+    assert str(out) in capsys.readouterr().out
+    with pytest.raises(TypeError):  # an unknown --model.X keeps raising
+        cli.main(args + ["--model.bogus", "1"])

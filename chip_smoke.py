@@ -5,8 +5,9 @@
 Phases (any failure raises and the script exits non-zero; there is no CPU
 fallback):
   1. probe    — card name and power limit, CUDA/nvcc versions; TF32 off.
-  2. build    — nvcc builds csrc/local_corr.cu, resb_chain.cu and
-                row_attention.cu for sm_90a, all three at once.
+  2. build    — nvcc builds csrc/local_corr.cu, resb_chain.cu,
+                row_attention.cu, idt_apply.cu and regrain_stencil.cu for
+                sm_90a, all five at once.
   3. kernels  — each kernel against its plain torch version on the card,
                 at the main paths' shapes and at a ragged small shape, with
                 timings (CUDA events, warmed up): B1 local correlation; B6
@@ -31,6 +32,19 @@ fallback):
                 busy share, the bf16-against-f32 pair PSNR; then the f32
                 model with precise row attention on a small pair, stage by
                 stage, against the CPU run.
+  6. classical — B3 (IDT transport apply) at a 1080p chunk (8, 3, 2073600)
+                and a ragged N, B4 (regrain sweeps) at 1080p level 0 (nbit
+                4), the smallest 1080p level 34x60 (nbit 64) and 13x22
+                (nbit 7), each against its plain version and timed; then
+                all five classical methods (Reinhard, CCS, MK, IDT,
+                grading) serve 8 synthetic 1080x1920 frames per frame
+                through color_transfer_between_videos, MK also in global
+                mode: exact launch counts (B3 4 per chunk for IDT and
+                grading, B4 6 per chunk for grading, no other kernel),
+                output checks, warm ms/frame, peak memory, busy share, the
+                grading chunk's device split between IDT and regrain; then
+                each method on a small clip on the card against the CPU,
+                with the same (default, seed 42) rotations on both sides.
 The line before the last is a JSON object with per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -52,7 +66,7 @@ KERNEL_RTOL = 1e-4
 # CPU fed the same inputs (see check_small).
 STAGE_RTOL = 1e-4
 FRAMES, HEIGHT, WIDTH = 2, 1080, 1920
-KERNELS = ("local_corr", "resb_chain", "row_attention")
+KERNELS = ("local_corr", "resb_chain", "row_attention", "idt_apply", "regrain_stencil")
 # DCMCS3DI at the reference recipe's full width.
 EXTRACTION_LAYERS, TRANSFER_LAYERS, CHANNELS = 18, 6, 64
 # B6 in bf16 against its plain version: both round to bf16 at the same
@@ -61,6 +75,25 @@ EXTRACTION_LAYERS, TRANSFER_LAYERS, CHANNELS = 18, 6, 64
 # Through the 18-block chain the flips feed the next convs and compound:
 # 32 ulps there.
 BF16_BLOCK_ULPS, BF16_CHAIN_ULPS = 4, 32
+# The classical path: the JAX package's default chunk of 8 frames, IDT's 4
+# rotations, and the regrain pyramid's 6 levels at 1080p (1080x1920 down to
+# 34x60).
+CLASSICAL = ("reinhard", "correlated_color_space", "monge_kantorovitch", "idt",
+             "automated_color_grading")
+CLASSICAL_FRAMES, N_ITER, LEVELS = 8, 4, 6
+# B3 and B4 against their plain versions: the kernels round operation by
+# operation as the plain versions do (IEEE division, no FMA contraction), so
+# they agree to rounding: B3 within 1e-6 * bins (bin units; 4 ulps at the top
+# value 255), B4 within 1e-6 of max(1, max|ref|).
+B3_LINE, B4_LINE = 1e-6, 1e-6
+# Card against CPU on a small clip. The linear methods: 1e-4 (sums over the
+# frame in another order, cuSOLVER's eigensolver against LAPACK's). IDT and
+# grading are chaotic under rounding (a sample within an ulp of a bin edge
+# moves to the next bin, and one table entry by up to a bin): one bin of the
+# joint range of [0, 1]^3 projections, sqrt(3)/255, at most, and 1e-4 on
+# average, the lines of the CPU tests against JAX.
+SMALL_LINEAR_ATOL = 1e-4
+SMALL_IDT_MAX, SMALL_IDT_MEAN = 3**0.5 / 255, 1e-4
 
 
 def _log(*args):
@@ -300,10 +333,17 @@ def check_row_attention(g):
 
 def _wrappers():
     """The kernel wrappers, each with its ``launches`` count."""
-    from color_transfer_tpu_torch.ops import conv_chain, local_corr, row_attention
+    from color_transfer_tpu_torch.ops import (
+        conv_chain,
+        idt_apply,
+        local_corr,
+        regrain_stencil,
+        row_attention,
+    )
 
     return (local_corr.local_correlation_with_flow, conv_chain.resb_chain,
-            row_attention.row_attention_warp)
+            row_attention.row_attention_warp, idt_apply.transport_apply,
+            regrain_stencil.regrain_sweeps)
 
 
 def _reset_launches():
@@ -341,8 +381,8 @@ def serve(rows):
     counts = _launches()
     launches = counts["local_correlation_with_flow"]
     _log(f"serve: output {tuple(out.shape)}, launches {counts}")
-    if counts["resb_chain"] or counts["row_attention_warp"]:
-        raise AssertionError("DMSCT launched a DCMCS3DI kernel")
+    if any(n for name, n in counts.items() if name != "local_correlation_with_flow"):
+        raise AssertionError("DMSCT launched another path's kernel")
     if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -613,7 +653,8 @@ def serve_dcmcs3di(rows, target, reference):
         _log(f"{label}: output {tuple(out.shape)}, launches {counts}")
         b6 = 0 if recipe is None else 2 * (EXTRACTION_LAYERS + TRANSFER_LAYERS) * FRAMES
         want = {"local_correlation_with_flow": 0, "resb_chain": b6,
-                "row_attention_warp": 2 * FRAMES}
+                "row_attention_warp": 2 * FRAMES, "transport_apply": 0,
+                "regrain_sweeps": 0}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, expected {want}")
         if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3):
@@ -690,6 +731,169 @@ def check_small_dcmcs3di(module, variables, target, reference):
     )
 
 
+def check_classical_kernels(g):
+    """B3 and B4 against their plain versions at the 1080p chunk's shapes and
+    at ragged ones, timed (CUDA events). Lines: B3_LINE * bins for B3 (bin
+    units), B4_LINE * max(1, max|ref|) for B4. Returns their two rows."""
+    from color_transfer_tpu_torch.ops import idt_apply as ia
+    from color_transfer_tpu_torch.ops import regrain_stencil as rs
+
+    rows = []
+    bins = 255
+    for frames, n in ((CLASSICAL_FRAMES, HEIGHT * WIDTH), (2, 4099)):
+        # Monotone tables in bin units; samples also below grid_lo and above
+        # right_edge.
+        fp = torch.sort(torch.rand(frames, 3, bins, generator=g) * bins, dim=-1).values.cuda()
+        lo = (torch.rand(frames, 3, generator=g) * 0.4 - 0.5).cuda()
+        step = (0.004 + torch.rand(frames, 3, generator=g) * 0.004).cuda()
+        right_edge = lo + step * (bins - 1)
+        x = (torch.rand(frames, 3, n, generator=g) * 1.8 - 0.7).cuda()
+        args = (x, lo, step, fp, right_edge)
+        got, want = ia.transport_apply(*args), ia.transport_apply_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ms = _time_ms(lambda: ia.transport_apply(*args))
+        plain_ms = _time_ms(lambda: ia.transport_apply_plain(*args))
+        _log(f"idt_apply (B3) {tuple(x.shape)} bins {bins}: max|d|={err:.3e} (line "
+             f"{B3_LINE * bins:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not err <= B3_LINE * bins:
+            raise AssertionError(f"idt_apply kernel disagrees at {tuple(x.shape)}: {err}")
+        if not rows:
+            rows.append({"name": "transport_apply", "route": "cuda",
+                         "source": "color_transfer_tpu_torch/csrc/idt_apply.cu",
+                         "replaces": "color_transfer_tpu/methods/iterative.py:137",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        del x, got, want, args
+    for frames, h, w, nbit in ((CLASSICAL_FRAMES, HEIGHT, WIDTH, 4),
+                               (CLASSICAL_FRAMES, 34, 60, 64), (1, 13, 22, 7)):
+        out0 = torch.rand(frames, h, w, 3, generator=g).cuda()
+        const = torch.rand(frames, h, w, 3, generator=g).cuda()
+        phis = (torch.rand(frames, 4, h, w, generator=g) * 15).cuda()
+        inv_den = (0.8 / (phis.sum(dim=1) + 1.0)).contiguous()
+        args = (out0, const, phis, inv_den, nbit)
+        got, want = rs.regrain_sweeps(*args), rs.regrain_sweeps_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        line = B4_LINE * max(1.0, float(want.abs().max()))
+        ms = _time_ms(lambda: rs.regrain_sweeps(*args))
+        plain_ms = _time_ms(lambda: rs.regrain_sweeps_plain(*args), iters=5)
+        _log(f"regrain_sweeps (B4) ({frames}, {h}, {w}, 3) nbit {nbit}: max|d|={err:.3e} "
+             f"(line {line:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not err <= line:
+            raise AssertionError(f"regrain_sweeps kernel disagrees at {(frames, h, w)}: {err}")
+        if len(rows) == 1:  # 1080p level 0 is the reported shape
+            rows.append({"name": "regrain_sweeps", "route": "cuda",
+                         "source": "color_transfer_tpu_torch/csrc/regrain_stencil.cu",
+                         "replaces": "color_transfer_tpu/ops/regrain_stencil.py:27",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        del out0, const, phis, inv_den, got, want, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _classical_clip(frames, h, w, seed=1):
+    """Smooth synthetic scenes (a low-frequency field, upsampled) and a
+    shifted, gamma- and colour-cast reference."""
+    rng = np.random.default_rng(seed)
+    low = rng.uniform(0, 1, (frames, 3, 34, 60)).astype(np.float32)
+    scene = torch.nn.functional.interpolate(
+        torch.from_numpy(low), size=(h, w + 16), mode="bilinear", align_corners=False,
+    ).permute(0, 2, 3, 1)
+    cast = torch.tensor([0.9, 1.0, 0.75])
+    target = scene[:, :, :w].contiguous()
+    reference = (scene[:, :, 16:] ** 1.4 * cast + 0.05).clamp(0, 1).contiguous()
+    return target, reference
+
+
+def serve_classical(rows):
+    """The five classical methods on 8 1080p frames (MK also in global
+    mode) through color_transfer_between_videos: launch counts reset before
+    each run and checked exactly, output checks, warm ms/frame, peak memory,
+    busy share; for grading the device split between IDT and regrain."""
+    from color_transfer_tpu_torch.methods import iterative
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+
+    target, reference = (x.cuda() for x in _classical_clip(CLASSICAL_FRAMES, HEIGHT, WIDTH))
+    runs = [(m, True) for m in CLASSICAL] + [("monge_kantorovitch", False)]
+    for method, per_frame in runs:
+        label = f"{method}{'' if per_frame else ' (global)'}"
+
+        def clip():
+            return color_transfer_between_videos(target, reference, method=method,
+                                                 per_frame=per_frame)
+
+        _reset_launches()
+        out = clip()
+        torch.cuda.synchronize()
+        counts = _launches()
+        want = dict.fromkeys(counts, 0)
+        if method in ("idt", "automated_color_grading"):
+            want["transport_apply"] = N_ITER
+        if method == "automated_color_grading":
+            want["regrain_sweeps"] = LEVELS
+            rows[3]["launches"] = counts["transport_apply"]
+            rows[4]["launches"] = counts["regrain_sweeps"]
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        if tuple(out.shape) != (CLASSICAL_FRAMES, HEIGHT, WIDTH, 3):
+            raise AssertionError(f"{label}: output shape {tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        lo, hi = float(out.min()), float(out.max())
+        if lo < 0.0 or hi > 1.0:
+            raise AssertionError(f"{label}: output outside [0, 1]")
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip()
+        torch.cuda.synchronize()
+        ms_frame = (time.perf_counter() - t0) * 1e3 / CLASSICAL_FRAMES
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy_ms = _device_busy_ms(clip, top=5)
+        _log(f"{label}: launches {counts}, output range [{lo:.4f}, {hi:.4f}], warm pass "
+             f"{ms_frame:.2f} ms/frame, peak memory {peak:.2f} GiB ({CLASSICAL_FRAMES} x "
+             f"{HEIGHT}x{WIDTH} f32 chunk), device busy {busy_ms / CLASSICAL_FRAMES:.2f} ms/frame, busy share "
+             f"{busy_ms / CLASSICAL_FRAMES / ms_frame:.3f}")
+        if method == "automated_color_grading":
+            owner = "color_transfer_tpu_torch.methods.iterative"
+            stages = _stage_ms(None, clip, stages=(), functions=(
+                ("grading", iterative.automated_color_grading, "batched"),
+                ("idt", owner, "iterative_distribution_transfer_batched"),
+                ("idt transport B3", owner, "transport_apply"),
+                ("regrain sweeps B4", owner, "regrain_sweeps"),
+            ))
+            per = {k: v / CLASSICAL_FRAMES for k, v in stages.items()}
+            _log(f"{label}: device ms/frame: IDT {per['idt']:.3f} (B3 "
+                 f"{per['idt transport B3']:.3f}), regrain {per['grading'] - per['idt']:.3f} "
+                 f"(B4 {per['regrain sweeps B4']:.3f}), grading {per['grading']:.3f}")
+
+
+def check_small_classical():
+    """Each classical method on a small clip, on the card against the CPU,
+    the default (seed 42) rotations on both sides. Lines: SMALL_LINEAR_ATOL
+    for the linear methods; IDT and grading as the CPU tests hold them
+    against JAX (max SMALL_IDT_MAX, mean SMALL_IDT_MEAN)."""
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+
+    target, reference = _classical_clip(2, 135, 240, seed=2)
+    report = []
+    for method in CLASSICAL:
+        cpu = color_transfer_between_videos(target, reference, method=method, device="cpu")
+        card = color_transfer_between_videos(target, reference, method=method,
+                                             device="cuda").cpu()
+        d = (card - cpu).abs()
+        err, mean = float(d.max()), float(d.mean())
+        report.append(f"{method} max {err:.2e} mean {mean:.2e}")
+        if method in ("idt", "automated_color_grading"):
+            ok = err <= SMALL_IDT_MAX and mean <= SMALL_IDT_MEAN
+        else:
+            ok = err <= SMALL_LINEAR_ATOL
+        if not ok:
+            raise AssertionError(f"{method}: card disagrees with the CPU: max {err}, mean {mean}")
+    _log(f"classical: small clip {tuple(target.shape)}, card against CPU: " + ", ".join(report))
+
+
 def main():
     probe()
     build()
@@ -699,6 +903,11 @@ def main():
     del module, variables
     torch.cuda.empty_cache()
     check_small_dcmcs3di(*serve_dcmcs3di(rows, target, reference), target, reference)
+    del target, reference
+    torch.cuda.empty_cache()
+    rows += check_classical_kernels(torch.Generator().manual_seed(1))
+    serve_classical(rows)
+    check_small_classical()
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

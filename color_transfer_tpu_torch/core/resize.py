@@ -1,5 +1,6 @@
 """Resize primitives with torch ``F.interpolate`` parity — the port of
-color_transfer_tpu/core/resize.py (the subset DMSCT serving runs).
+color_transfer_tpu/core/resize.py (the subset DMSCT serving and the regrain
+pyramid run).
 
 All resize functions operate on the two trailing axes of ``(..., H, W)``
 tensors, exactly as the JAX versions do, and use the same float32 source
@@ -7,6 +8,8 @@ coordinate arithmetic so the two packages agree to rounding.
 """
 
 import torch
+
+from color_transfer_tpu_torch.core.blur import gaussian_blur
 
 
 def _axis_resize_bilinear(x, out_size, axis, align_corners):
@@ -52,6 +55,22 @@ def resize_nearest(x, out_hw):
     ix = torch.clamp((torch.arange(out_w, device=x.device) * in_w) // out_w,
                      max=in_w - 1)
     return x.index_select(x.ndim - 2, iy).index_select(x.ndim - 1, ix)
+
+
+def resize_antialias(x, out_hw):
+    """skimage.transform.resize parity: bilinear (align_corners=False) after
+    a Gaussian anti-alias prefilter when downscaling, sigma = max(0,
+    (in/out - 1) / 2) per axis and a kernel of 2 * int(4 sigma + 0.5) + 1."""
+    out_h, out_w = out_hw
+    in_h, in_w = x.shape[-2], x.shape[-1]
+    sig_h = max(0.0, (in_h / out_h - 1.0) / 2.0)
+    sig_w = max(0.0, (in_w / out_w - 1.0) / 2.0)
+    if sig_h > 1e-8 or sig_w > 1e-8:
+        sig_h, sig_w = max(sig_h, 1e-8), max(sig_w, 1e-8)
+        kh = 2 * int(4.0 * sig_h + 0.5) + 1
+        kw = 2 * int(4.0 * sig_w + 0.5) + 1
+        x = gaussian_blur(x, (kh, kw), (sig_h, sig_w))
+    return resize_bilinear(x, out_hw, align_corners=False)
 
 
 def upsample_flow_bilinear(flow, factor):

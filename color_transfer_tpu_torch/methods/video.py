@@ -1,13 +1,24 @@
-"""Video / batched serving — the deep branch of
-color_transfer_tpu/methods/video.py's ``color_transfer_between_videos``.
+"""Video / batched serving — port of color_transfer_tpu/methods/video.py's
+``color_transfer_between_videos`` on one device.
 
 Frames are independent work items: the clip runs in chunks of
-``batch_size`` frames through the module's ``eval_forward`` on one device.
-The classical methods are not ported yet.
+``batch_size`` frames. A classical method (any name of ``methods``'
+registry) runs each chunk through its batched form, which the JAX package
+gets from ``jax.vmap``; its output is clipped to [0, 1]. Two statistics
+modes, as in the JAX package:
+  * per_frame (default): each frame matched against its own reference
+    frame;
+  * global: every frame matched against reference frame 0 (temporally
+    stable for the global/linear methods).
+A deep method ("dcmcs3di", "dmsct") runs each chunk through its module's
+``eval_forward``.
 """
 
 import numpy as np
 import torch
+
+from color_transfer_tpu_torch import methods
+from color_transfer_tpu_torch.core.precision import full_f32_inference
 
 DEEP_METHODS = ("dcmcs3di", "dmsct")
 
@@ -21,10 +32,7 @@ def build_deep(method, module=None, variables=None, module_kwargs=None,
     """Resolve (module, variables) for a deep method: prebuilt > random init
     (seed 0). Raises NotImplementedError for what is not ported yet."""
     if method not in DEEP_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to the torch package yet "
-            f"(ported: {', '.join(DEEP_METHODS)})"
-        )
+        raise ValueError(f"{method!r} is not a deep method ({', '.join(DEEP_METHODS)})")
     if ckpt_path is not None:
         raise NotImplementedError(
             "ckpt_path: restoring the JAX package's orbax checkpoints is not "
@@ -44,41 +52,64 @@ def build_deep(method, module=None, variables=None, module_kwargs=None,
 
 
 def color_transfer_between_videos(target_frames, reference_frames,
-                                  method="dmsct", batch_size=None, device=None,
-                                  ckpt_path=None, module=None, variables=None,
-                                  module_kwargs=None):
+                                  method="monge_kantorovitch", batch_size=None,
+                                  device=None, per_frame=True, ckpt_path=None,
+                                  module=None, variables=None, module_kwargs=None):
     """Transfer colour from reference_frames onto target_frames.
 
     Args:
       target_frames / reference_frames: (T, H, W, 3) float arrays or tensors
         in [0, 1].
-      method: "dmsct" or "dcmcs3di" (the ported methods).
-      batch_size: frames per forward; None means 1, the per-device default
-        of the JAX package's deep serving.
-      device: where the model runs; None picks CUDA when available. Given
+      method: a registry name (``methods.available_methods()``) or a deep
+        method, "dmsct" or "dcmcs3di".
+      batch_size: frames per chunk; None means 8 for the classical methods
+        and 1 for the deep ones, the JAX package's per-device defaults.
+      device: where the chunks run; None picks CUDA when available. Given
         ``variables`` run on their own device.
-      ckpt_path / module / variables / module_kwargs: where the weights come
-        from (see build_deep).
+      per_frame: classical methods only; False matches every frame against
+        reference frame 0.
+      ckpt_path / module / variables / module_kwargs: deep methods only —
+        where the weights come from (see build_deep); the classical methods
+        have no parameters and ignore them.
 
     Returns (T, H, W, 3) corrected frames, a float32 tensor on the device.
     """
-    if variables is not None:
+    deep = method in DEEP_METHODS
+    if deep and variables is not None:
         device = next(iter(variables.values())).device
     device = torch.device(device or default_device())
-    module, variables = build_deep(method, module, variables, module_kwargs,
-                                   ckpt_path, device)
-    batch_size = batch_size or 1
+    batch_size = batch_size or (1 if deep else 8)
 
     def as_tensor(frames):
         if isinstance(frames, np.ndarray):
             frames = torch.from_numpy(frames)
         return frames.to(device=device, dtype=torch.float32)
 
+    r0 = None  # the fixed reference of global mode
+    if deep:
+        module, variables = build_deep(method, module, variables, module_kwargs,
+                                       ckpt_path, device)
+
+        def run(t, r):
+            return module.eval_forward(variables, {"target": t, "reference": r})
+    else:
+        fn = methods.get_method(method)
+        batched = getattr(fn, "batched", None)
+        if not per_frame:
+            r0 = as_tensor(reference_frames[:1])
+
+        def run(t, r):
+            with full_f32_inference():
+                if batched is not None:
+                    out = batched(t, r)
+                else:
+                    r = r.expand(t.shape[0], *r.shape[1:])
+                    out = torch.stack([fn(t[i], r[i]) for i in range(t.shape[0])])
+            return out.clamp(0.0, 1.0)
+
     outputs = []
     for start in range(0, target_frames.shape[0], batch_size):
-        batch = {
-            "target": as_tensor(target_frames[start : start + batch_size]),
-            "reference": as_tensor(reference_frames[start : start + batch_size]),
-        }
-        outputs.append(module.eval_forward(variables, batch))
+        t = as_tensor(target_frames[start : start + batch_size])
+        r = as_tensor(reference_frames[start : start + batch_size]) if r0 is None else r0
+        outputs.append(run(t, r))
     return torch.cat(outputs, dim=0)

@@ -3,8 +3,11 @@
 
     python -m color_transfer_tpu_torch.cli predict --method dmsct \
         --input_dir "Real-World Dataset/Test" --output_dir corrected/
+    python -m color_transfer_tpu_torch.cli predict --method automated_color_grading \
+        --target T.png --reference R.png --output OUT.png
 
-``--model.<name> <value>`` passes a keyword to the method's module, e.g.
+``--method`` defaults to monge_kantorovitch, as in the JAX package.
+``--model.<name> <value>`` passes a keyword to a deep method's module, e.g.
 ``--model.matcher_num_layers 2`` (DMSCT) or ``--model.compute_dtype
 bfloat16`` (DCMCS3DI); an unknown name raises. Values are parsed as Python
 literals (``true``/``false``/``null`` too) and otherwise kept as strings.
@@ -29,7 +32,8 @@ def _value(text):
 def _parse(argv):
     parser = argparse.ArgumentParser(prog="color_transfer_tpu_torch.cli")
     parser.add_argument("subcommand", choices=["predict"])
-    parser.add_argument("--method", default="dmsct")
+    parser.add_argument("--method", default="monge_kantorovitch",
+                        help="registry name of a classical method, or dmsct / dcmcs3di")
     parser.add_argument("--ckpt_path", default=None)
     parser.add_argument("--target", default=None)
     parser.add_argument("--reference", default=None)
@@ -37,7 +41,8 @@ def _parse(argv):
     parser.add_argument("--input_dir", default=None)
     parser.add_argument("--output_dir", default=None)
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="frames per forward (default 1)")
+                        help="frames per chunk (default 8 for the classical "
+                             "methods, 1 for the deep ones)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda when available)")
     args, unknown = parser.parse_known_args(argv)

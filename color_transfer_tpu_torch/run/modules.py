@@ -12,26 +12,12 @@ of flax's ``apply``), so one module serves any set of weights without
 copying them into it.
 """
 
-import contextlib
-
 import torch
 
+from color_transfer_tpu_torch.core.precision import full_f32_inference
 from color_transfer_tpu_torch.models.dcmcs3di import DCMCS3DI
 from color_transfer_tpu_torch.models.dmsct import DMSCT
 from color_transfer_tpu_torch.models.layers import init_uniform_
-
-
-@contextlib.contextmanager
-def full_f32_inference():
-    """``no_grad`` with cuDNN's TF32 convolutions (on by default in
-    PyTorch) off; matrix products are f32 by PyTorch's default. The
-    caller's cuDNN settings are back afterwards."""
-    cudnn = torch.backends.cudnn
-    with torch.no_grad(), cudnn.flags(
-        enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-        deterministic=cudnn.deterministic, allow_tf32=False,
-    ):
-        yield
 
 
 def random_state_dict(model, seed=0):

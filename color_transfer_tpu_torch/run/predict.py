@@ -1,6 +1,8 @@
 """Batch prediction — correct stereo pairs from the CLI; port of
-color_transfer_tpu/run/predict.py for the ported methods:
+color_transfer_tpu/run/predict.py:
 
+    python -m color_transfer_tpu_torch.cli predict --method monge_kantorovitch \
+        --target T.png --reference R.png --output OUT.png
     python -m color_transfer_tpu_torch.cli predict --method dmsct \
         --target T.png --reference R.png --output OUT.png
     python -m color_transfer_tpu_torch.cli predict --method dcmcs3di \
@@ -51,13 +53,15 @@ def collect_pairs(input_dir):
     return pairs
 
 
-def predict_pairs(pairs, output_dir, method="dmsct", ckpt_path=None,
+def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None,
                   module_kwargs=None, batch_size=None, device=None):
     """Correct (target_path, reference_path, out_rel) triples into
     output_dir. Pairs are grouped by image shape and each group runs as one
-    clip; the module and its variables are built once. Returns the written
-    paths."""
+    clip, in chunks of ``batch_size`` frames (None: 8 for the classical
+    methods, 1 for the deep ones); a deep method's module and variables are
+    built once. Returns the written paths."""
     from color_transfer_tpu_torch.methods.video import (
+        DEEP_METHODS,
         build_deep,
         color_transfer_between_videos,
         default_device,
@@ -65,8 +69,11 @@ def predict_pairs(pairs, output_dir, method="dmsct", ckpt_path=None,
 
     if not pairs:
         return []
-    module, variables = build_deep(method, None, None, module_kwargs, ckpt_path,
-                                   device or default_device())
+    device = device or default_device()
+    module = variables = None
+    if method in DEEP_METHODS:
+        module, variables = build_deep(method, None, None, module_kwargs, ckpt_path,
+                                       device)
     groups = {}
     for target, ref, rel in pairs:
         t = _read_float(target)
@@ -83,7 +90,7 @@ def predict_pairs(pairs, output_dir, method="dmsct", ckpt_path=None,
         out = color_transfer_between_videos(
             np.stack([t for t, _, _ in items]),
             np.stack([r for _, r, _ in items]),
-            method=method, batch_size=batch_size, module=module,
+            method=method, batch_size=batch_size, device=device, module=module,
             variables=variables,
         )
         out = out.cpu().numpy()
@@ -97,8 +104,18 @@ def predict_pairs(pairs, output_dir, method="dmsct", ckpt_path=None,
 def run_predict(args, model_init_args=None):
     """The ``predict`` subcommand: single-pair mode (--target/--reference/--output) or
     directory mode (--input_dir/--output_dir)."""
-    kwargs = dict(method=args.method, ckpt_path=args.ckpt_path,
-                  module_kwargs=dict(model_init_args or {}),
+    from color_transfer_tpu_torch.methods.video import DEEP_METHODS
+
+    deep = args.method in DEEP_METHODS
+    if args.ckpt_path and not deep:
+        import warnings
+
+        warnings.warn(
+            f"--ckpt_path ignored: method '{args.method}' is parameterless",
+            stacklevel=1,
+        )
+    kwargs = dict(method=args.method, ckpt_path=args.ckpt_path if deep else None,
+                  module_kwargs=dict(model_init_args or {}) if deep else None,
                   batch_size=args.batch_size, device=args.device)
     if args.target or args.reference or args.output:
         if not (args.target and args.reference and args.output):

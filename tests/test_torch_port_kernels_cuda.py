@@ -8,7 +8,9 @@ package, so it runs on a machine with torch alone:
         tests/test_torch_port_kernels_cuda.py
 
 Lines: f32 max|d| <= 1e-4 * max(1, max|ref|) (sums in another order);
-bf16 as stated at each test.
+bf16 as stated at each test. B3 and B4 round operation by operation as
+their plain versions do (IEEE division, no FMA contraction): B3 within
+1e-6 * bins (4 ulps at the table's top value), B4 within 1e-6 of values ~1.
 """
 
 import math
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from color_transfer_tpu_torch.ops import conv_chain as cc
+from color_transfer_tpu_torch.ops import idt_apply as ia
 from color_transfer_tpu_torch.ops import local_corr as lc
+from color_transfer_tpu_torch.ops import regrain_stencil as rs
 from color_transfer_tpu_torch.ops import row_attention as ra
 
 pytestmark = pytest.mark.cuda
@@ -94,6 +98,49 @@ def test_row_attention(gen, precise, shape):
     assert _rel_err(cs, want_cs) <= 1e-4 and _rel_err(cs_only, want_cs) <= 1e-4
 
 
+def _idt_tables(gen, rows, bins):
+    """Monotone tables in bin units on per-row grids, and samples that also
+    fall below grid_lo and above right_edge."""
+    fp = torch.sort(torch.rand(rows, bins, generator=gen) * bins, dim=-1).values
+    grid_lo = torch.rand(rows, generator=gen) * 0.4 - 0.5
+    step = 0.004 + torch.rand(rows, generator=gen) * 0.004
+    right_edge = grid_lo + step * (bins - 1)
+    return [t.cuda() for t in (grid_lo, step, fp, right_edge)]
+
+
+@pytest.mark.parametrize("frames,n,bins", [(8, 1080 * 1920, 255), (2, 4099, 255),
+                                           (1, 1000, 64), (1, 517, 256)])
+def test_idt_apply(gen, frames, n, bins):
+    """B3 at a 1080p chunk (8 frames x 3 axes), at a ragged N (scalar
+    loads) and at other table sizes."""
+    grid_lo, step, fp, right_edge = _idt_tables(gen, frames * 3, bins)
+    x = (torch.rand(frames * 3, n, generator=gen) * 1.8 - 0.7).cuda()
+    x[:, 0], x[:, 1] = grid_lo, right_edge
+    shape = (frames, 3)
+    args = [t.reshape(*shape, *t.shape[1:]) for t in (x, grid_lo, step, fp, right_edge)]
+    before = ia.transport_apply.launches
+    got = ia.transport_apply(*args)
+    want = ia.transport_apply_plain(*args)
+    assert ia.transport_apply.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-6 * bins
+
+
+@pytest.mark.parametrize("frames,h,w,nbit", [(1, 1080, 1920, 4), (8, 34, 60, 64),
+                                             (2, 13, 22, 7), (1, 1, 5, 3)])
+def test_regrain_sweeps(gen, frames, h, w, nbit):
+    """B4 at 1080p level 0, the smallest 1080p level with its 64 sweeps,
+    JAX's odd 13 x 22 case and a one-row image."""
+    out0 = torch.rand(frames, h, w, 3, generator=gen).cuda()
+    const = torch.rand(frames, h, w, 3, generator=gen).cuda()
+    phis = (torch.rand(frames, 4, h, w, generator=gen) * 15).cuda()
+    invd = (0.8 / (phis.sum(1) + torch.rand(frames, h, w, generator=gen).cuda() + 1e-6))
+    before = rs.regrain_sweeps.launches
+    got = rs.regrain_sweeps(out0, const, phis, invd.contiguous(), nbit)
+    want = rs.regrain_sweeps_plain(out0, const, phis, invd, nbit)
+    assert rs.regrain_sweeps.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
+
+
 def test_no_fallback_on_bad_input(gen):
     """A CUDA tensor the kernel does not take raises; it never reaches the
     plain version."""
@@ -102,3 +149,11 @@ def test_no_fallback_on_bad_input(gen):
         cc.resb_chain(x, _randn(gen, 1, 2, 3, 3, 8, 8), _randn(gen, 1, 2, 8))
     with pytest.raises(ValueError):
         ra.row_attention_warp(x, x, x, 0.125)
+    table = torch.zeros(1, 300, device="cuda")
+    with pytest.raises(ValueError):  # more than 256 bins
+        ia.transport_apply(torch.zeros(1, 8, device="cuda"), table[:, 0], table[:, 0],
+                           table, table[:, 0])
+    img = torch.zeros(1, 4, 5, 3, device="cuda")
+    with pytest.raises(ValueError):  # phis in the wrong layout
+        rs.regrain_sweeps(img, img, torch.zeros(1, 4, 5, 4, device="cuda"),
+                          torch.zeros(1, 4, 5, device="cuda"), 2)

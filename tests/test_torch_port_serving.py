@@ -91,16 +91,16 @@ def test_eval_forward_turns_tf32_off(module, clip, variables):
 def test_video_default_variables_are_seeded(module, clip, per_frame):
     """Without variables the clip runs on the seed-0 random init."""
     t, r = clip
-    out = color_transfer_between_videos(t[:1], r[:1], module=module, device="cpu")
+    out = color_transfer_between_videos(t[:1], r[:1], method="dmsct", module=module,
+                                        device="cpu")
     torch.testing.assert_close(out, per_frame[0], atol=0, rtol=0)
 
 
 def test_unported_paths_raise(module, clip):
     t, r = clip
     with pytest.raises(NotImplementedError):
-        color_transfer_between_videos(t, r, method="monge_kantorovitch")
-    with pytest.raises(NotImplementedError):
-        color_transfer_between_videos(t, r, module=module, ckpt_path="ckpt/best")
+        color_transfer_between_videos(t, r, method="dmsct", module=module,
+                                      ckpt_path="ckpt/best")
     with pytest.raises(NotImplementedError):
         DMSCTModule(encoder_weights="imagenet")
 
@@ -128,7 +128,8 @@ def test_predict_pairs_writes_pngs(tmp_path, clip):
         "scene1/0000_C.png", "scene1/0001_C.png", "scene2/0000_C.png"
     ]
     assert pairs[0][0].name == "0000_LD.png" and pairs[1][0].name == "0001_L.png"
-    written = predict_pairs(pairs, tmp_path / "out", module_kwargs=KW, device="cpu")
+    written = predict_pairs(pairs, tmp_path / "out", method="dmsct", module_kwargs=KW,
+                            device="cpu")
     assert sorted(p.relative_to(tmp_path / "out").as_posix() for p in written) == [
         "scene1/0000_C.png", "scene1/0001_C.png", "scene2/0000_C.png"
     ]
@@ -156,7 +157,7 @@ def test_cli_model_args():
         "--model.decoder_channels=[64, 32]", "--model.encoder_weights", "null",
         "--model.encoder_name", "efficientnet-b0",
     ])
-    assert args.method == "dmsct"
+    assert args.method == "monge_kantorovitch"  # the JAX package's default
     assert model_args == {"matcher_num_layers": 2, "decoder_channels": [64, 32],
                           "encoder_weights": None, "encoder_name": "efficientnet-b0"}
     with pytest.raises(SystemExit):

@@ -45,15 +45,33 @@ fallback):
                 grading chunk's device split between IDT and regrain; then
                 each method on a small clip on the card against the CPU,
                 with the same (default, seed 42) rotations on both sides.
-The line before the last is a JSON object with per-kernel results; the last
-line is {"ok": true, "device": {...}}.
+  7. training — B7 (the warp adjoint) against its plain version at DMSCT's
+                four training levels (batch 12, 256x480 crops) and at ragged
+                shapes, timed beside its bound, the plain version and one
+                ``index_add_``; the backward of flow_warp_batched against
+                autograd of the plain gather; then ``fit`` through the CLI at
+                the full width of configs/dmsct.yaml on a synthetic dataset
+                (24 train, 12 validation pairs at 288x512; batch 12, crops
+                256x480, 2 epochs): warm ms/step, peak memory, B7 launches
+                (4 per step), the device split by span and the top kernels
+                of one step, busy share, the matcher bit-unchanged, the
+                corrector and BN statistics moved, the checkpoints; predict
+                from the best checkpoint; then the corrector's train step on
+                the card against the CPU with the matcher's output fed in.
+The line before the last is a JSON object with per-kernel results (each
+kernel's time, its plain version's, a library call's where one computes
+the same function, and its bound on the card: the larger of its bytes over
+3.35 TB/s and its operations over the data-sheet rate of their type); the
+last line is {"ok": true, "device": {...}}.
 """
 
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -66,7 +84,8 @@ KERNEL_RTOL = 1e-4
 # CPU fed the same inputs (see check_small).
 STAGE_RTOL = 1e-4
 FRAMES, HEIGHT, WIDTH = 2, 1080, 1920
-KERNELS = ("local_corr", "resb_chain", "row_attention", "idt_apply", "regrain_stencil")
+KERNELS = ("local_corr", "resb_chain", "row_attention", "idt_apply", "regrain_stencil",
+           "warp_adjoint")
 # DCMCS3DI at the reference recipe's full width.
 EXTRACTION_LAYERS, TRANSFER_LAYERS, CHANNELS = 18, 6, 64
 # B6 in bf16 against its plain version: both round to bf16 at the same
@@ -94,6 +113,46 @@ B3_LINE, B4_LINE = 1e-6, 1e-6
 # average, the lines of the CPU tests against JAX.
 SMALL_LINEAR_ATOL = 1e-4
 SMALL_IDT_MAX, SMALL_IDT_MEAN = 3**0.5 / 255, 1e-4
+# NVIDIA H100 SXM data-sheet peaks at its 700 W limit (dense): device memory
+# 3.35 TB/s; 67 TFLOP/s in float32 outside the tensor cores, 989 TFLOP/s in
+# bf16 on them. A kernel's bound is the larger of its bytes (each input read
+# once, each output written once) over the memory rate and its operations
+# over the rate of their type.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+# DMSCT training at the configs/dmsct.yaml recipe: batch 12, 256x480 crops;
+# the corrector's warp levels 1-4 (B, H, W, C) on efficientnet-b2.
+TRAIN_BATCH, TRAIN_CROP = 12, (256, 480)
+B7_SHAPES = ((12, 128, 240, 32), (12, 64, 120, 24), (12, 32, 60, 48), (12, 16, 30, 120))
+# B7 against its plain version: float atomics add in an order that changes
+# from run to run, so sums of up to hundreds of f32 terms (clamped samples
+# pile onto the border corners) round differently: 1e-5 of max(1, max|ref|).
+B7_LINE = 1e-5
+# The corrector's train step on the card against the CPU (the matcher's
+# output fed to both): loss within 1e-5 relative; each gradient's distance
+# from a float64 run of the step, relative to its tensor's max|ref| (floored
+# at 1e-2 of the model's largest gradient: a BatchNorm bias that feeds only
+# train-mode BatchNorms has a gradient that vanishes analytically), at most
+# TRAIN_F64_RATIO times the CPU float32 run's distance plus 1e-5. The
+# backward of flow_warp_batched against autograd: 1e-4 of scale.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_F64_RATIO = 1e-5, 1e-4, 4.0
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by) for ``bytes_moved`` bytes and ``ops`` {type:
+    operations}."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = max((n / PEAK_OPS_PER_S[k] * 1e3 for k, n in ops.items()), default=0.0)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _with_bound(row, bytes_moved, ops, library_ms):
+    row["bound_ms"], row["bound_by"] = bound(bytes_moved, ops)
+    row["library_ms"] = library_ms
+    _log(f"{row['name']}: bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
+    return row
 
 
 def _log(*args):
@@ -206,6 +265,14 @@ def check_kernels():
                 "ms": ms,
                 "plain_ms": plain_ms,
             }
+            # f0, f1, flow read, the (2r+1)^2 outputs written; the outputs'
+            # bilinear taps need a (2r+2)^2 window of C-channel dots per pixel
+            # (the kernel computes a (2r+3)^2 one, its last row and column
+            # unread; the epilogue is small beside the dots). No single
+            # library call computes it.
+            px = b * h * w
+            _with_bound(row, 4 * (2 * px * c + 2 * px + px * (2 * r + 1) ** 2),
+                        {"f32": px * (2 * r + 2) ** 2 * 2 * c}, None)
     return [row, check_resb_chain(g), check_row_attention(g)]
 
 
@@ -272,8 +339,33 @@ def check_resb_chain(g):
                 "ms": ms,
                 "plain_ms": plain_ms,
             }
+            # x read and the block's output written (f32), two 3x3 convs of
+            # bf16 products. Library: the block's two convolutions in cuDNN,
+            # bf16, channels-last (without its elementwise epilogue).
+            n, hh, ww, c = shape
+            _with_bound(row, 4 * (2 * x.numel() + k.numel() + b.numel()),
+                        {"bf16": 2 * n * hh * ww * c * c * 9 * 2},
+                        _cudnn_block_ms(x, k, b))
         del x, got, want
     return row
+
+
+def _cudnn_block_ms(x, k, b):
+    """Two cuDNN bf16 channels-last 3x3 convs at the block's shape."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    ws = [k[0, j].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last) for j in range(2)]
+    bs = [b[0, j].to(torch.bfloat16) for j in range(2)]
+
+    def block():
+        y = F.conv2d(xc, ws[0], bs[0], padding=1)
+        return F.conv2d(y, ws[1], bs[1], padding=1)
+
+    with torch.no_grad():
+        return _time_ms(block, iters=5)
 
 
 def check_row_attention(g):
@@ -320,7 +412,13 @@ def check_row_attention(g):
         plain_ms = _time_ms(lambda: ra.row_attention_warp_plain(q, k, v, 1 / CHANNELS), iters=3)
     _log(f"row_attention {shape} bf16: kernel {ms:.3f} ms (colsum only {ms_cs:.3f} ms), "
          f"plain {plain_ms:.3f} ms")
-    return {
+    # Library: scaled_dot_product_attention over the rows (the att.v half;
+    # no column sums, and at full width no column mask), bf16, scale 1/C.
+    qb, kb, vb = (t.reshape(HEIGHT, 1, WIDTH, CHANNELS).to(torch.bfloat16) for t in (q, k, v))
+    with torch.no_grad():
+        library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qb, kb, vb, scale=1 / CHANNELS), iters=3)
+    row = {
         "name": "row_attention_warp",
         "route": "cuda",
         "source": "color_transfer_tpu_torch/csrc/row_attention.cu",
@@ -329,6 +427,11 @@ def check_row_attention(g):
         "ms": ms,
         "plain_ms": plain_ms,
     }
+    # q, k, v read (f32), out and the column sums written; q.k and att.v as
+    # bf16 products on the tensor cores.
+    rows_px = HEIGHT * WIDTH
+    return _with_bound(row, 4 * (4 * rows_px * CHANNELS + rows_px),
+                       {"bf16": 2 * HEIGHT * WIDTH * WIDTH * CHANNELS * 2}, library_ms)
 
 
 def _wrappers():
@@ -339,11 +442,12 @@ def _wrappers():
         local_corr,
         regrain_stencil,
         row_attention,
+        warp_adjoint,
     )
 
     return (local_corr.local_correlation_with_flow, conv_chain.resb_chain,
             row_attention.row_attention_warp, idt_apply.transport_apply,
-            regrain_stencil.regrain_sweeps)
+            regrain_stencil.regrain_sweeps, warp_adjoint.warp_adjoint)
 
 
 def _reset_launches():
@@ -430,7 +534,7 @@ STAGES = ("matcher", "matcher.backbone", "matcher.transformer",
 STAGE_FUNCTIONS = (
     ("matcher local_corr", "color_transfer_tpu_torch.models.gmflow",
      "local_correlation_with_flow"),
-    ("corrector warps", "color_transfer_tpu_torch.models.dmsct", "flow_warp"),
+    ("corrector warps", "color_transfer_tpu_torch.models.dmsct", "flow_warp_batched"),
 )
 
 
@@ -654,7 +758,7 @@ def serve_dcmcs3di(rows, target, reference):
         b6 = 0 if recipe is None else 2 * (EXTRACTION_LAYERS + TRANSFER_LAYERS) * FRAMES
         want = {"local_correlation_with_flow": 0, "resb_chain": b6,
                 "row_attention_warp": 2 * FRAMES, "transport_apply": 0,
-                "regrain_sweeps": 0}
+                "regrain_sweeps": 0, "warp_adjoint": 0}
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, expected {want}")
         if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3):
@@ -759,10 +863,15 @@ def check_classical_kernels(g):
         if not err <= B3_LINE * bins:
             raise AssertionError(f"idt_apply kernel disagrees at {tuple(x.shape)}: {err}")
         if not rows:
-            rows.append({"name": "transport_apply", "route": "cuda",
-                         "source": "color_transfer_tpu_torch/csrc/idt_apply.cu",
-                         "replaces": "color_transfer_tpu/methods/iterative.py:137",
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            # x read, out written, the tables once; ~10 f32 operations per
+            # sample. No single library call computes it.
+            rows.append(_with_bound(
+                {"name": "transport_apply", "route": "cuda",
+                 "source": "color_transfer_tpu_torch/csrc/idt_apply.cu",
+                 "replaces": "color_transfer_tpu/methods/iterative.py:137",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+                4 * (2 * x.numel() + fp.numel() + 3 * lo.numel()),
+                {"f32": 10 * x.numel()}, None))
         del x, got, want, args
     for frames, h, w, nbit in ((CLASSICAL_FRAMES, HEIGHT, WIDTH, 4),
                                (CLASSICAL_FRAMES, 34, 60, 64), (1, 13, 22, 7)):
@@ -782,10 +891,16 @@ def check_classical_kernels(g):
         if not err <= line:
             raise AssertionError(f"regrain_sweeps kernel disagrees at {(frames, h, w)}: {err}")
         if len(rows) == 1:  # 1080p level 0 is the reported shape
-            rows.append({"name": "regrain_sweeps", "route": "cuda",
-                         "source": "color_transfer_tpu_torch/csrc/regrain_stencil.cu",
-                         "replaces": "color_transfer_tpu/ops/regrain_stencil.py:27",
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            # out0, const, the four phis and inv_den read once, out written
+            # once; ~12 f32 operations per pixel, channel and sweep. No
+            # single library call computes it.
+            rows.append(_with_bound(
+                {"name": "regrain_sweeps", "route": "cuda",
+                 "source": "color_transfer_tpu_torch/csrc/regrain_stencil.cu",
+                 "replaces": "color_transfer_tpu/ops/regrain_stencil.py:27",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+                4 * (3 * out0.numel() + phis.numel() + inv_den.numel()),
+                {"f32": 12 * out0.numel() * nbit}, None))
         del out0, const, phis, inv_den, got, want, args
     torch.cuda.empty_cache()
     return rows
@@ -894,6 +1009,390 @@ def check_small_classical():
     _log(f"classical: small clip {tuple(target.shape)}, card against CPU: " + ", ".join(report))
 
 
+def check_warp_adjoint(g):
+    """B7 against its plain version at the four training levels and at
+    ragged shapes (mixed sub-pixel, zero and clamped flows), line B7_LINE;
+    each timed (CUDA events) with the plain version and one ``index_add_``
+    of the pre-weighted corner updates into the flattened padded buffer (no
+    zeroing, no weighting: the library's part alone). Then the backward of
+    flow_warp_batched against torch's autograd of the plain gather. Returns
+    B7's row: times summed over one train step's four launches."""
+    from color_transfer_tpu_torch.core.sampling import flow_warp, flow_warp_batched
+    from color_transfer_tpu_torch.ops import warp_adjoint as wa
+
+    totals = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
+    worst, moved, ops = 0.0, 0, 0
+    for shape in B7_SHAPES + ((2, 13, 37, 5), (1, 9, 11, 7)):
+        b, h, w, c = shape
+        gr = torch.randn(*shape, generator=g).cuda()
+        flow = _mixed_flow(g, b, h, w, "cuda")
+        got = wa.warp_adjoint(gr, flow)
+        want = wa.warp_adjoint_plain(gr, flow)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        line = B7_LINE * scale
+        msg = (f"warp_adjoint (B7) {shape}: max|d|={err:.3e} (line {line:.3e}, "
+               f"relative {err / scale:.2e})")
+        if not np.isfinite(err) or err > line:
+            raise AssertionError(f"warp_adjoint kernel disagrees at {shape}: {err}")
+        if shape in B7_SHAPES:
+            rows, weights = wa.warp_corners(flow, h, w)
+            index = (rows[..., None] + torch.tensor([0, 1, w + 4, w + 5], device="cuda"))
+            index = index.reshape(-1)
+            updates = (weights[..., None] * gr[..., None, :]).reshape(-1, c)
+            padded = torch.zeros(b * (h + 4) * (w + 4), c, device="cuda")
+            ms = _time_ms(lambda: wa.warp_adjoint(gr, flow))
+            plain_ms = _time_ms(lambda: wa.warp_adjoint_plain(gr, flow), iters=5)
+            library_ms = _time_ms(lambda: padded.index_add_(0, index, updates))
+            msg += f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms"
+            totals["ms"] += ms
+            totals["plain_ms"] += plain_ms
+            totals["library_ms"] += library_ms
+            worst = max(worst, err)
+            # g and flow read once, the padded gradient written once; per
+            # (pixel, channel) four weight products and four adds.
+            moved += 4 * (gr.numel() + flow.numel() + b * (h + 4) * (w + 4) * c)
+            ops += 8 * gr.numel()
+            del rows, weights, index, updates, padded
+        _log(msg)
+        del gr, flow, got, want
+
+    feat = torch.randn(2, 64, 120, 24, generator=g).cuda()
+    flow = (torch.randn(2, 64, 120, 2, generator=g) * 2).cuda()
+    gout = torch.randn(2, 64, 120, 24, generator=g).cuda()
+    f1, fl1 = feat.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    (flow_warp_batched(f1, fl1) * gout).sum().backward()
+    f2, fl2 = feat.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    (flow_warp(f2, fl2) * gout).sum().backward()
+    e_feat = float((f1.grad - f2.grad).abs().max()) / max(1.0, float(f2.grad.abs().max()))
+    e_flow = float((fl1.grad - fl2.grad).abs().max()) / max(1.0, float(fl2.grad.abs().max()))
+    _log(f"flow_warp_batched backward (2, 64, 120, 24) against autograd of the plain "
+         f"gather: feature {e_feat:.2e}, flow {e_flow:.2e} (relative; lines {B7_LINE}, "
+         f"{TRAIN_GRAD_RTOL})")
+    if not (e_feat <= B7_LINE and e_flow <= TRAIN_GRAD_RTOL):
+        raise AssertionError("flow_warp_batched's backward disagrees with autograd")
+    row = {"name": "warp_adjoint", "route": "cuda",
+           "source": "color_transfer_tpu_torch/csrc/warp_adjoint.cu",
+           "replaces": "color_transfer_tpu/core/sampling.py:155",
+           "max_abs_err": worst, "ms": totals["ms"], "plain_ms": totals["plain_ms"]}
+    return _with_bound(row, moved, {"f32": ops}, totals["library_ms"])
+
+
+def _write_dataset(root, seed=0, height=288, width=512):
+    """Seeded textured stereo pairs: a smooth low-frequency field plus fine
+    texture, the right view a shifted, colour-cast copy; 24 under Train/,
+    12 under Validation/."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("Train", 24), ("Validation", 12)):
+        d = root / split
+        d.mkdir(parents=True)
+        for i in range(n):
+            low = torch.from_numpy(rng.uniform(0, 1, (1, 3, 9, 16)).astype(np.float32))
+            field = torch.nn.functional.interpolate(
+                low, size=(height, width + 24), mode="bilinear", align_corners=False)[0]
+            field = field.permute(1, 2, 0).numpy()
+            texture = rng.normal(0, 0.06, (height, width + 24, 1))
+            scene = np.clip(field + texture, 0, 1)
+            left = scene[:, :width]
+            right = np.clip(scene[:, 24:] ** 1.1 * [0.92, 1.0, 0.85] + 0.03, 0, 1)
+            for view, img in (("L", left), ("R", right)):
+                Image.fromarray((img * 255 + 0.5).astype(np.uint8)).save(
+                    d / f"{i:04d}_{view}.png")
+
+
+def train(rows):
+    """Full-width DMSCT fit through the CLI (configs/dmsct.yaml: batch 12,
+    crops 256x480; 2 epochs of a 24-pair set, 2 steps each), checked and
+    measured; then predict from the best checkpoint."""
+    from color_transfer_tpu_torch.run import cli, modules
+
+    steps = []  # (ms, logs) per train step of the fit
+    held = {}
+    orig_step = modules.DMSCTModule.train_step
+
+    def timed_step(self, state, batch, seed, metrics=True):
+        if not held:  # the variables as fit built them, before any update
+            held.update(module=self, state=state, start={
+                k: v.detach().clone() for k, v in state.variables.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_step(self, state, batch, seed, metrics)
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t0) * 1e3, out[1]))
+        held["batch"], held["seed"] = batch, seed
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _write_dataset(root / "data")
+        log_dir = root / "run"
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        modules.DMSCTModule.train_step = timed_step
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["fit", "--config", "configs/dmsct.yaml", "--data.data_dir",
+                           str(root / "data"), "--data.image_repeats", "1",
+                           "--trainer.max_epochs", "2", "--log_dir", str(log_dir)])
+        finally:
+            modules.DMSCTModule.train_step = orig_step
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = _launches()
+        if rc != 0:
+            raise AssertionError(f"fit returned {rc}")
+        module, state = held["module"], held["state"]
+        if module.model.encoder.drop_connect_rate != 0.2:
+            raise AssertionError("fit did not run the recipe's drop-connect")
+        b7 = counts["warp_adjoint"]
+        _log(f"train: fit {fit_s:.1f} s, {len(steps)} steps of {TRAIN_BATCH} x "
+             f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}, launches {counts}")
+        if len(steps) != 4 or b7 != 4 * len(steps):
+            raise AssertionError(f"B7 launched {b7} times in {len(steps)} steps, expected 4 per step")
+        if counts["local_correlation_with_flow"] < 6 * len(steps):
+            raise AssertionError("the training matcher did not launch B1 six times a step")
+        if any(n for name, n in counts.items() if name not in ("warp_adjoint",
+                                                                "local_correlation_with_flow")):
+            raise AssertionError("training launched another path's kernel")
+        rows[-1]["launches"] = b7
+        losses = [float(logs["Training Total Loss"]) for _, logs in steps]
+        ms = [t for t, _ in steps]
+        warm = ms[1:]
+        _log(f"train: step ms {', '.join(f'{t:.1f}' for t in ms)}; warm "
+             f"{sum(warm) / len(warm):.1f} ms/step (steps 2-4; step 1 logs the quality "
+             f"metrics), peak memory {peak:.2f} GiB; losses "
+             f"{', '.join(f'{v:.5f}' for v in losses)}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError("non-finite training loss")
+        start = held["start"]
+        params = {name for name, _ in module.model.named_parameters()}
+        changed = {"corrector": 0, "bn": 0}
+        for name, value in state.variables.items():
+            same = torch.equal(value.detach(), start[name])
+            if name.startswith("matcher."):
+                if not same:
+                    raise AssertionError(f"the frozen matcher moved: {name}")
+            elif name.endswith(("running_mean", "running_var")):
+                changed["bn"] += not same
+            elif name in params:
+                changed["corrector"] += not same
+        n_bn = sum(k.endswith(("running_mean", "running_var")) for k in start)
+        n_corr = sum(k in params and not k.startswith("matcher.") for k in start)
+        _log(f"train: matcher bit-unchanged; corrector parameters moved "
+             f"{changed['corrector']}/{n_corr}, BN statistics {changed['bn']}/{n_bn}")
+        if changed["corrector"] < 0.9 * n_corr or changed["bn"] != n_bn:
+            raise AssertionError("the corrector or its BN statistics did not move")
+        for which in ("last", "best"):
+            meta = json.loads((log_dir / "checkpoints" / which / "meta.json").read_text())
+            _log(f"train: checkpoints/{which}: step {meta['step']}, epoch {meta['epoch']}")
+            if meta["step"] != 2 * (meta["epoch"] + 1) or (which == "last" and meta["epoch"] != 1):
+                raise AssertionError(f"checkpoint {which}: {meta}")
+        records = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+        val = [r for r in records if "Validation PSNR/dataloader_idx_0" in r]
+        _log("train: step 0 logged " + ", ".join(
+            f"{k} {v:.4f}" for k, v in records[0].items() if k.startswith("Training")))
+        _log(f"train: validation PSNR by epoch {[round(r['Validation PSNR/dataloader_idx_0'], 4) for r in val]}")
+
+        train_profile(module, state, held["batch"], held["seed"])
+
+        pair = root / "pair"
+        pair.mkdir()
+        from PIL import Image
+
+        for view in ("L", "R"):
+            with Image.open(root / "data" / "Validation" / f"0000_{view}.png") as img:
+                img.crop((0, 0, 240, 135)).save(pair / f"0000_{view}.png")
+        out = root / "corrected.png"
+        rc = cli.main(["predict", "--method", "dmsct", "--ckpt_path",
+                       str(log_dir / "checkpoints" / "best"), "--target",
+                       str(pair / "0000_L.png"), "--reference", str(pair / "0000_R.png"),
+                       "--output", str(out)])
+        with Image.open(out) as img:
+            size = img.size
+        _log(f"train: predict from checkpoints/best wrote {size[0]}x{size[1]}")
+        if rc != 0 or size != (240, 135):
+            raise AssertionError("predict from the best checkpoint failed")
+    del held
+    torch.cuda.empty_cache()
+
+
+def train_profile(module, state, batch, seed):
+    """One more train step of the fitted state (no quality metrics, as the
+    fit's unlogged steps): device ms by span, busy share, top kernels."""
+    from color_transfer_tpu_torch.ops import warp_adjoint as wa
+
+    def step():
+        module.train_step(state, batch, seed, metrics=False)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    before = wa.warp_adjoint.launches
+    spans = _stage_ms(module.model, step, stages=("matcher", "encoder", "decoder", "head"),
+                      functions=(("step", module, "train_step"),
+                                 ("targets", module, "synthesize_targets"),
+                                 ("forward+loss", module, "forward_loss"),
+                                 ("optimizer", module, "apply_gradients"),
+                                 ("B7", "color_transfer_tpu_torch.core.sampling",
+                                  "warp_adjoint")))
+    if wa.warp_adjoint.launches - before != 4:
+        raise AssertionError("the profiled step did not launch B7 four times")
+    corrector = spans["forward+loss"] - spans["matcher"]
+    backward = spans["step"] - spans["targets"] - spans["forward+loss"] - spans["optimizer"]
+    _log("train: device ms by span (one step): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in spans.items())
+        + f"; corrector forward + loss {corrector:.2f}; backward (step less targets, "
+        f"forward+loss and optimizer) {backward:.2f}")
+    busy = _device_busy_ms(step, top=15)
+    _log(f"train: one step {wall:.1f} ms wall, device busy {busy:.1f} ms, busy share "
+         f"{busy / wall:.3f}")
+    decoder_routes(module, state, batch)
+
+
+def decoder_routes(module, state, batch):
+    """The decoder and head at the training shape, TF32 off: the forward
+    and the backward (input and weight gradients) each timed through cuDNN
+    and through ATen's im2col + GEMM (cuDNN off). A train step runs the
+    forward through ATen (models/dmsct.py) and the backward through cuDNN
+    (run/modules.py); the other three pairings are what it is held to."""
+    from color_transfer_tpu_torch.core.precision import full_f32
+
+    model = module.model
+    feats = []
+    handle = model.decoder.register_forward_hook(
+        lambda m, a, o: feats.extend(t.detach() for t in a))
+    with torch.no_grad(), full_f32():
+        torch.func.functional_call(model, state.variables,
+                                   (batch["gt"], batch["reference"]))
+    handle.remove()
+    params = {name for name, _ in model.named_parameters()}
+    sub = {k: v.detach().requires_grad_(k in params) for k, v in state.variables.items()
+           if k.startswith(("decoder.", "head."))}
+    dec = {k[len("decoder."):]: v for k, v in sub.items() if k.startswith("decoder.")}
+    head = {k[len("head."):]: v for k, v in sub.items() if k.startswith("head.")}
+    xs = [f.clone().requires_grad_(True) for f in feats]
+    wrt = xs + [v for v in sub.values() if v.requires_grad]
+
+    def forward():
+        y = torch.func.functional_call(model.decoder, dec, tuple(xs))
+        return torch.func.functional_call(model.head, head, (y,))
+
+    times = {}
+    for label, enabled in (("cuDNN", True), ("ATen", False)):
+        with full_f32(), torch.backends.cudnn.flags(enabled=enabled, benchmark=False,
+                                                     deterministic=False, allow_tf32=False):
+            fwd = _time_ms(forward, iters=3)
+            y = forward()
+            gy = torch.ones_like(y)
+            bwd = _time_ms(lambda: torch.autograd.grad(y, wrt, gy, retain_graph=True),
+                           iters=3)
+            del y, gy
+        times[label] = (fwd, bwd)
+    _log("train: decoder + head at the training shape, forward / backward ms: "
+         + ", ".join(f"{k} {f:.2f} / {b:.2f}" for k, (f, b) in times.items())
+         + f"; the step's route (ATen forward, cuDNN backward) "
+         f"{times['ATen'][0] + times['cuDNN'][1]:.2f}")
+
+
+def _corrector_step(device, dtype, batch, target, fed=None):
+    """One train step of full-width DMSCT on ``device`` in ``dtype``
+    (seed-0 variables, drop-connect off, the target given; the matcher's
+    output ``fed`` in place of the matcher's own unless None) -> (loss,
+    {name: gradient on the CPU in float64})."""
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    module = DMSCTModule()
+    module.model.encoder.drop_connect_rate = 0.0
+    if fed is not None:
+        on = {k: v.to(device, dtype) for k, v in fed.items()}
+        module.model.matcher.forward = lambda *a, **k: on
+    b = {k: v.to(device, dtype) for k, v in batch.items()}
+    state = module.init_state(0, b, num_train_steps=10)
+    state.variables = {k: v.detach().to(dtype).requires_grad_(v.requires_grad)
+                       if v.is_floating_point() else v for k, v in state.variables.items()}
+    state.optimizer = torch.optim.AdamW(
+        [v for v in state.variables.values() if v.requires_grad], lr=module.learning_rate)
+    module.synthesize_targets = lambda bb, gen, tt=target.to(device, dtype): {**bb, "target": tt}
+    grads = {}
+    apply_gradients = module.apply_gradients
+
+    def record(st):
+        grads.update({k: v.grad.detach().cpu().double() for k, v in st.variables.items()
+                      if v.grad is not None})
+        apply_gradients(st)
+
+    module.apply_gradients = record
+    _, logs = module.train_step(state, b, seed=0, metrics=False)
+    return float(logs["Training Total Loss"]), grads
+
+
+def check_train_small():
+    """The full-width corrector's train step on the card against the CPU on
+    a small crop (2 x 128x240): the matcher's output (the CPU matcher's, on
+    this pair) fed to both, drop-connect off, the same targets. The
+    reference is the same step on the CPU in float64: the card's float32
+    gradients must be as close to it as the CPU's float32 ones (each tensor
+    within TRAIN_F64_RATIO times the CPU's error plus 1e-5 of its scale),
+    the loss within TRAIN_LOSS_RTOL of the CPU's. Card against CPU directly
+    is reported: sums over the crop's 61k pixels, through train-mode
+    BatchNorms whose backward cancels, round differently on the two."""
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    t, r = _classical_clip(2, 128, 240, seed=4)
+    batch = {"gt": t, "reference": r}
+    target = (t ** 1.2 * 0.9 + 0.04).clamp(0, 1)
+    module = DMSCTModule()
+    state = module.init_state(0, batch)
+    with torch.no_grad():
+        fed = torch.func.functional_call(
+            module.model.matcher,
+            {k[len("matcher."):]: v for k, v in state.variables.items()
+             if k.startswith("matcher.")},
+            (target * 255.0, r * 255.0))
+    fed = {k: fed[k] for k in ("flow", "fwd_occ")}
+    del module, state
+    loss64, g64 = _corrector_step("cpu", torch.float64, batch, target, fed)
+    loss_cpu, g_cpu = _corrector_step("cpu", torch.float32, batch, target, fed)
+    loss_card, g_card = _corrector_step("cuda", torch.float32, batch, target, fed)
+    floor = 1e-2 * max(float(v.abs().max()) for v in g64.values())
+    worst, direct, ratio_name, far_cpu, far_card = 0.0, 0.0, None, 0.0, 0.0
+    for k, ref in g64.items():
+        scale = max(float(ref.abs().max()), floor)
+        e_cpu = float((g_cpu[k] - ref).abs().max()) / scale
+        e_card = float((g_card[k] - ref).abs().max()) / scale
+        far_cpu, far_card = max(far_cpu, e_cpu), max(far_card, e_card)
+        direct = max(direct, float((g_card[k] - g_cpu[k]).abs().max()) / scale)
+        excess = e_card / (TRAIN_F64_RATIO * e_cpu + 1e-5)
+        if excess > worst:
+            worst, ratio_name = excess, f"{k} (card {e_card:.2e}, CPU {e_cpu:.2e})"
+    d_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    _log(f"train: corrector step (2, 128, 240), matcher fed: loss card {loss_card:.8f}, "
+         f"CPU {loss_cpu:.8f}, float64 {loss64:.8f} (card against CPU {d_loss:.2e}, line "
+         f"{TRAIN_LOSS_RTOL}); gradients against float64: worst card error / "
+         f"({TRAIN_F64_RATIO} x CPU error + 1e-5) = {worst:.3f} at {ratio_name} over "
+         f"{len(g64)} tensors; farthest from float64: card {far_card:.2e}, CPU "
+         f"{far_cpu:.2e}; card against CPU directly {direct:.2e} of scale (reported)")
+    if d_loss > TRAIN_LOSS_RTOL or worst > 1.0:
+        raise AssertionError("the corrector's train step on the card disagrees with the CPU")
+    # End to end, each side running its own matcher: reported, not held (with
+    # random weights the matcher's near one-hot softmax turns rounding into
+    # another flow).
+    loss_cpu, g_cpu = _corrector_step("cpu", torch.float32, batch, target)
+    loss_card, g_card = _corrector_step("cuda", torch.float32, batch, target)
+    e2e = max(float((g_card[k] - v).abs().max()) / max(float(v.abs().max()), floor)
+              for k, v in g_cpu.items())
+    _log(f"train: whole step (2, 128, 240), each side's own matcher: loss card "
+         f"{loss_card:.8f}, CPU {loss_cpu:.8f} (relative "
+         f"{abs(loss_card - loss_cpu) / abs(loss_cpu):.2e}); worst gradient card "
+         f"against CPU {e2e:.2e} of scale (reported)")
+
+
 def main():
     probe()
     build()
@@ -908,6 +1407,9 @@ def main():
     rows += check_classical_kernels(torch.Generator().manual_seed(1))
     serve_classical(rows)
     check_small_classical()
+    rows.append(check_warp_adjoint(torch.Generator().manual_seed(2)))
+    train(rows)
+    check_train_small()
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

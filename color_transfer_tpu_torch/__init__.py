@@ -6,13 +6,17 @@ CPU (tests/test_torch_port_*.py). This package imports torch and never
 jax, flax or the JAX package.
 
 Layout (same paths as the JAX package):
-    core/      resize and bilinear sampling (plain torch ops)
+    core/      resize, bilinear sampling and the warp's autograd, blur,
+               colour spaces, linalg, precision (plain torch ops)
     ops/       hand-written CUDA kernels and their plain torch versions
     csrc/      CUDA C++ sources of those kernels (built with nvcc at first use)
+    metrics/   PSNR, SSIM and the SSIM loss, iCID, FSIM
+    data/      distortions, datasets and the threaded loader
     models/    GMFlow matcher, EfficientNet encoder, UNet decoder, DMSCT;
                ResB layers, parallax attention, DCMCS3DI
-    methods/   video / batched serving entry point
-    run/       DMSCT and DCMCS3DI modules, batch prediction, CLI
+    methods/   the classical methods; video / batched serving entry point
+    run/       modules, trainer, checkpoints, config, logging, data module,
+               batch prediction, CLI (fit, validate, predict)
     tools/     weight bridge from the JAX parameter tree
 
 Public functions keep the JAX package's channel-last (NHWC) layout; the
@@ -20,7 +24,9 @@ convolutions inside the modules run on permuted (channels-last) views.
 
 Slices ported so far: DMSCT f32 inference (``predict --method dmsct``);
 DCMCS3DI inference in f32 and bf16 (``predict --method dcmcs3di``, and the
-kernel route of ``models/dcmcs3di.py`` for 1080p).
+kernel route of ``models/dcmcs3di.py`` for 1080p); the classical methods;
+DMSCT training (``fit`` / ``validate``). Entry points run on the card
+unless given ``device="cpu"`` (``--device cpu``).
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,7 @@ algorithm choice would change the numbers.
 """
 
 import torch
+import torch.nn.functional as F
 
 
 def gaussian_kernel1d(kernel_size, sigma, dtype=torch.float32):
@@ -56,19 +57,41 @@ def gaussian_blur(x, kernel_size=11, sigma=2.0, channel_last=False):
     # Taps as Python floats holding the float32 values: exact in an f32 op.
     taps_h = gaussian_kernel1d(kh, sh, x.dtype).tolist()
     taps_w = gaussian_kernel1d(kw, sw, x.dtype).tolist()
-    h, w = x.shape[-2], x.shape[-1]
-    xp = _reflect_pad_hw(x, kh // 2, kw // 2)
+    acc = separable_valid(_reflect_pad_hw(x, kh // 2, kw // 2), taps_h, taps_w)
+    if channel_last:
+        acc = torch.movedim(acc, -3, -1)
+    return acc
+
+
+def separable_valid(x, taps_h, taps_w):
+    """A separable filter over the two trailing axes, rows then columns, as
+    shifted multiply-adds with no padding: (..., H, W) -> (..., H - kh + 1,
+    W - kw + 1). Taps are Python floats."""
+    h = x.shape[-2] - len(taps_h) + 1
     out = None
     for k, tap in enumerate(taps_h):
-        term = tap * xp[..., k : k + h, :]
+        term = tap * x[..., k : k + h, :]
         out = term if out is None else out + term
+    w = out.shape[-1] - len(taps_w) + 1
     acc = None
     for k, tap in enumerate(taps_w):
         term = tap * out[..., :, k : k + w]
         acc = term if acc is None else acc + term
-    if channel_last:
-        acc = torch.movedim(acc, -3, -1)
     return acc
+
+
+def filter3x3(x, kernel):
+    """3x3 cross-correlation of the two trailing axes with zero 'same'
+    padding, tap by tap (zero taps skipped); ``kernel``: 3x3 Python floats."""
+    h, w = x.shape[-2], x.shape[-1]
+    xp = F.pad(x, (1, 1, 1, 1))
+    out = None
+    for a in range(3):
+        for b in range(3):
+            if kernel[a][b]:
+                term = kernel[a][b] * xp[..., a : a + h, b : b + w]
+                out = term if out is None else out + term
+    return out
 
 
 def gaussian_blur_sigma_only(x, sigma, truncate=4.0, channel_last=False):

@@ -82,3 +82,63 @@ def lab_to_rgb(lab):
     # skimage clips negative Z from numerical noise before converting back.
     xyz = torch.clamp_min(xyz * _const(_D65_WHITE, lab), 0.0)
     return torch.clamp(xyz_to_rgb(xyz), 0.0, 1.0)
+
+
+def rgb_to_hsv(rgb):
+    """RGB -> HSV with H, S, V all in [0, 1] (torchvision convention)."""
+    r, g, b = rgb.unbind(-1)
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    cr = maxc - minc
+    ones = torch.ones_like(maxc)
+    s = cr / torch.where(maxc == 0, ones, maxc)
+    cr_div = torch.where(cr == 0, ones, cr)
+    rc = (maxc - r) / cr_div
+    gc = (maxc - g) / cr_div
+    bc = (maxc - b) / cr_div
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(cr == 0, torch.zeros_like(h), h)
+    h = (h / 6.0) % 1.0
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def hsv_to_rgb(hsv):
+    """HSV (all in [0, 1]) -> RGB, torchvision convention."""
+    h, s, v = hsv.unbind(-1)
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = i.long() % 6
+
+    def select(*vals):
+        out = vals[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, vals[k], out)
+        return out
+
+    return torch.stack([select(v, q, p, p, t, v), select(t, v, v, q, p, p),
+                        select(p, p, t, v, v, q)], dim=-1)
+
+
+def rgb_to_grayscale(rgb, keepdims=False):
+    """ITU-R 601-2 luma transform, torchvision's rgb_to_grayscale weights."""
+    gray = rgb[..., 0] * 0.2989 + rgb[..., 1] * 0.587 + rgb[..., 2] * 0.114
+    return gray[..., None] if keepdims else gray
+
+
+_RGB_TO_YIQ = np.array(
+    [
+        [0.299, 0.587, 0.114],
+        [0.5959, -0.2746, -0.3213],
+        [0.2115, -0.5227, 0.3112],
+    ],
+    dtype=np.float32,
+)
+
+
+def rgb_to_yiq(rgb):
+    """RGB -> YIQ (NTSC), the luminance/chromatic split used by FSIMc."""
+    return _matmul3(rgb, _RGB_TO_YIQ)

@@ -3,8 +3,9 @@
 PyTorch runs float32 matmuls in full f32 by default but float32 convs
 through cuDNN in TF32; either default can be changed process-wide by a
 caller. The JAX package computes its f32 paths at HIGHEST precision, so
-the port's f32 inference runs under ``full_f32_inference``, which sets both
-flags off and gives the caller's settings back afterwards.
+the port's f32 inference runs under ``full_f32_inference`` and its training
+under ``full_f32``: both set the two flags off and give the caller's
+settings back afterwards.
 """
 
 import contextlib
@@ -13,18 +14,26 @@ import torch
 
 
 @contextlib.contextmanager
-def full_f32_inference():
-    """``no_grad`` with TF32 off for cuDNN and cuBLAS. Also a decorator:
-    ``@full_f32_inference()``."""
+def full_f32():
+    """TF32 off for cuDNN and cuBLAS; autograd as the caller has it (the
+    training context). Also a decorator: ``@full_f32()``."""
     matmul = torch.backends.cuda.matmul
     cudnn = torch.backends.cudnn
     before = matmul.allow_tf32
     matmul.allow_tf32 = False
     try:
-        with torch.no_grad(), cudnn.flags(
+        with cudnn.flags(
             enabled=cudnn.enabled, benchmark=cudnn.benchmark,
             deterministic=cudnn.deterministic, allow_tf32=False,
         ):
             yield
     finally:
         matmul.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def full_f32_inference():
+    """``no_grad`` with TF32 off for cuDNN and cuBLAS. Also a decorator:
+    ``@full_f32_inference()``."""
+    with torch.no_grad(), full_f32():
+        yield

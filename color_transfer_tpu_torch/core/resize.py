@@ -1,6 +1,6 @@
 """Resize primitives with torch ``F.interpolate`` parity — the port of
-color_transfer_tpu/core/resize.py (the subset DMSCT serving and the regrain
-pyramid run).
+color_transfer_tpu/core/resize.py (the subset DMSCT, the regrain pyramid
+and the metrics run).
 
 All resize functions operate on the two trailing axes of ``(..., H, W)``
 tensors, exactly as the JAX versions do, and use the same float32 source
@@ -20,7 +20,12 @@ def _axis_resize_bilinear(x, out_size, axis, align_corners):
     if align_corners:
         # out_size == 1: torch F.interpolate(align_corners=True) selects
         # index 0 (not the half-pixel centre the False formula would give).
-        src = dst * (in_size - 1) / max(out_size - 1, 1)
+        # The divisor is a tensor: on the card, division by a Python scalar
+        # multiplies by its rounded reciprocal, an ulp off the CPU's (and
+        # JAX's) correctly rounded quotient, and an ulp of a source
+        # coordinate moves every bilinear weight of a flow resize.
+        den = torch.full((), max(out_size - 1, 1), dtype=torch.float32, device=x.device)
+        src = dst * (in_size - 1) / den
     else:
         scale = in_size / out_size
         src = ((dst + 0.5) * scale - 0.5).clamp(0.0, in_size - 1)
@@ -71,6 +76,18 @@ def resize_antialias(x, out_hw):
         kw = 2 * int(4.0 * sig_w + 0.5) + 1
         x = gaussian_blur(x, (kh, kw), (sig_h, sig_w))
     return resize_bilinear(x, out_hw, align_corners=False)
+
+
+def avg_pool2d(x, factor):
+    """Non-overlapping average pool of the two trailing axes (torch
+    ``F.avg_pool2d(kernel_size=f)`` with truncation of ragged edges)."""
+    if factor == 1:
+        return x
+    h, w = x.shape[-2], x.shape[-1]
+    th, tw = (h // factor) * factor, (w // factor) * factor
+    x = x[..., :th, :tw]
+    x = x.reshape(*x.shape[:-2], th // factor, factor, tw // factor, factor)
+    return x.mean(dim=(-3, -1))
 
 
 def upsample_flow_bilinear(flow, factor):

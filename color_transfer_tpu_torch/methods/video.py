@@ -24,28 +24,39 @@ DEEP_METHODS = ("dcmcs3di", "dmsct")
 
 
 def default_device():
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The port's entry points run on the card unless told otherwise."""
+    return "cuda"
+
+
+def resolve_device(device=None):
+    """``device`` (default: the card) as a torch.device; raises when it is
+    the card and there is none, rather than running on the CPU."""
+    device = torch.device(device or default_device())
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' (--device cpu on the command "
+            "line) to run on the CPU"
+        )
+    return device
 
 
 def build_deep(method, module=None, variables=None, module_kwargs=None,
                ckpt_path=None, device="cpu"):
-    """Resolve (module, variables) for a deep method: prebuilt > random init
-    (seed 0). Raises NotImplementedError for what is not ported yet."""
+    """Resolve (module, variables) for a deep method: prebuilt > restored
+    from ``ckpt_path`` (a checkpoint directory the port's trainer wrote,
+    run/checkpoint.py) > random init (seed 0)."""
     if method not in DEEP_METHODS:
         raise ValueError(f"{method!r} is not a deep method ({', '.join(DEEP_METHODS)})")
-    if ckpt_path is not None:
-        raise NotImplementedError(
-            "ckpt_path: restoring the JAX package's orbax checkpoints is not "
-            "ported yet; convert the variables with "
-            "tools/convert.py (dmsct_state_dict_from_jax, "
-            "dcmcs3di_state_dict_from_jax) and pass variables="
-        )
     if module is None:
         from color_transfer_tpu_torch.run import modules
 
         cls = {"dcmcs3di": modules.DCMCS3DIModule,
                "dmsct": modules.DMSCTModule}[method]
         module = cls(**dict(module_kwargs or {}))
+    if variables is None and ckpt_path is not None:
+        from color_transfer_tpu_torch.run.checkpoint import restore_eval_variables
+
+        variables = restore_eval_variables(module, ckpt_path, device)
     if variables is None:
         variables = module.init_eval_variables(seed=0, device=device)
     return module, variables
@@ -64,8 +75,9 @@ def color_transfer_between_videos(target_frames, reference_frames,
         method, "dmsct" or "dcmcs3di".
       batch_size: frames per chunk; None means 8 for the classical methods
         and 1 for the deep ones, the JAX package's per-device defaults.
-      device: where the chunks run; None picks CUDA when available. Given
-        ``variables`` run on their own device.
+      device: where the chunks run; None means the card (raises without
+        one; pass "cpu" for the CPU). Given ``variables`` run on their own
+        device.
       per_frame: classical methods only; False matches every frame against
         reference frame 0.
       ckpt_path / module / variables / module_kwargs: deep methods only —
@@ -77,7 +89,7 @@ def color_transfer_between_videos(target_frames, reference_frames,
     deep = method in DEEP_METHODS
     if deep and variables is not None:
         device = next(iter(variables.values())).device
-    device = torch.device(device or default_device())
+    device = resolve_device(device)
     batch_size = batch_size or (1 if deep else 8)
 
     def as_tensor(frames):

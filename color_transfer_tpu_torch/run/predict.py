@@ -59,17 +59,18 @@ def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None
     output_dir. Pairs are grouped by image shape and each group runs as one
     clip, in chunks of ``batch_size`` frames (None: 8 for the classical
     methods, 1 for the deep ones); a deep method's module and variables are
-    built once. Returns the written paths."""
+    built once. ``device`` None means the card (raises without one).
+    Returns the written paths."""
     from color_transfer_tpu_torch.methods.video import (
         DEEP_METHODS,
         build_deep,
         color_transfer_between_videos,
-        default_device,
+        resolve_device,
     )
 
     if not pairs:
         return []
-    device = device or default_device()
+    device = resolve_device(device)
     module = variables = None
     if method in DEEP_METHODS:
         module, variables = build_deep(method, None, None, module_kwargs, ckpt_path,

@@ -20,6 +20,19 @@ from color_transfer_tpu_torch.core import resize, sampling
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a module's tests. The suite runs in
+    several worker processes at once (pytest -n); torch's default of a
+    thread per core makes their parallel regions spin against each other,
+    and the port's files then run ~5x slower. Other modules import this
+    fixture to get the same."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(t):
     return t.detach().cpu().numpy()
 

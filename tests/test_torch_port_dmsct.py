@@ -31,6 +31,7 @@ from color_transfer_tpu.tools.convert_checkpoints import convert_dmsct
 from color_transfer_tpu_torch.core.resize import derive_matcher_size
 from color_transfer_tpu_torch.models.dmsct import DMSCT
 from color_transfer_tpu_torch.tools.convert import dmsct_state_dict_from_jax
+from test_torch_port_core import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 KW = dict(matcher_num_layers=1, matcher_num_reg_refine=1)
 H, W = 30, 50  # not a multiple of 16: exercises the x32 resize and x16 pad

@@ -28,6 +28,7 @@ from color_transfer_tpu.models import gmflow as jg
 from color_transfer_tpu.tools.convert_gmflow import convert_state_dict
 from color_transfer_tpu_torch.models import gmflow as tg
 from color_transfer_tpu_torch.run.modules import random_state_dict
+from test_torch_port_core import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 LAYERS, REFINE = 2, 2
 STAGE_RTOL = 1e-4

@@ -11,6 +11,8 @@ Lines: f32 max|d| <= 1e-4 * max(1, max|ref|) (sums in another order);
 bf16 as stated at each test. B3 and B4 round operation by operation as
 their plain versions do (IEEE division, no FMA contraction): B3 within
 1e-6 * bins (4 ulps at the table's top value), B4 within 1e-6 of values ~1.
+B7's float atomics add in an order that changes from run to run: within
+1e-5 * max(1, max|ref|).
 """
 
 import math
@@ -23,6 +25,7 @@ from color_transfer_tpu_torch.ops import idt_apply as ia
 from color_transfer_tpu_torch.ops import local_corr as lc
 from color_transfer_tpu_torch.ops import regrain_stencil as rs
 from color_transfer_tpu_torch.ops import row_attention as ra
+from color_transfer_tpu_torch.ops import warp_adjoint as wa
 
 pytestmark = pytest.mark.cuda
 
@@ -141,6 +144,111 @@ def test_regrain_sweeps(gen, frames, h, w, nbit):
     assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
 
 
+def _mixed_flow(gen, b, h, w):
+    """Sub-pixel, zero and far (clamped) displacements, one kind per pixel."""
+    frac = torch.randn(b, h, w, 2, generator=gen) * 3.0
+    far = torch.sign(torch.randn(b, h, w, 2, generator=gen)) * (
+        60.0 + torch.rand(b, h, w, 2, generator=gen) * 500.0)
+    kind = torch.randint(0, 3, (b, h, w, 1), generator=gen)
+    return torch.where(kind == 0, frac, torch.where(kind == 1, 0.0 * frac, far)).cuda()
+
+
+@pytest.mark.parametrize("shape", [(12, 128, 240, 32), (12, 64, 120, 24), (12, 32, 60, 48),
+                                   (12, 16, 30, 120), (2, 13, 37, 5), (1, 9, 11, 7)])
+def test_warp_adjoint(gen, shape):
+    """B7 at DMSCT's four training levels (batch 12, 256 x 480 crops) and at
+    ragged shapes (C not a multiple of 4: scalar loads)."""
+    b, h, w, c = shape
+    g = _randn(gen, *shape)
+    flow = _mixed_flow(gen, b, h, w)
+    before = wa.warp_adjoint.launches
+    got = wa.warp_adjoint(g, flow)
+    want = wa.warp_adjoint_plain(g, flow)
+    assert wa.warp_adjoint.launches == before + 1 and got.shape == shape
+    assert _rel_err(got, want) <= 1e-5
+
+
+def test_flow_warp_batched_backward_on_the_card(gen):
+    """The autograd backward launches B7 for the feature cotangent and
+    matches torch's autograd of the plain gather; the flow cotangent (plain
+    torch) matches too."""
+    from color_transfer_tpu_torch.core.sampling import flow_warp, flow_warp_batched
+
+    feat = _randn(gen, 2, 24, 40, 16)
+    flow = _randn(gen, 2, 24, 40, 2, scale=2.0)
+    g = _randn(gen, 2, 24, 40, 16)
+    f1, fl1 = feat.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    before = wa.warp_adjoint.launches
+    (flow_warp_batched(f1, fl1) * g).sum().backward()
+    assert wa.warp_adjoint.launches == before + 1
+    f2, fl2 = feat.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+    (flow_warp(f2, fl2) * g).sum().backward()
+    assert _rel_err(f1.grad, f2.grad) <= 1e-5
+    assert _rel_err(fl1.grad, fl2.grad) <= 1e-4
+
+
+def test_dmsct_train_step_on_the_card():
+    """One DMSCT train step (a small model, drop-connect off, one fed matcher
+    output, the same targets) on the card and on the CPU in float32, against
+    the CPU in float64: the loss within 1e-5 relative of the CPU's; each
+    corrector gradient (relative to its tensor's max|ref|, floored at 1e-2 of
+    the largest) no further from float64 than 4 times the CPU's distance plus
+    1e-5 (train-mode BatchNorm's backward cancels, so both float32 runs
+    carry rounding of ~1e-3 there); 4 B7 launches (levels 1-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    rng = torch.Generator().manual_seed(3)
+    batch = {"gt": torch.rand(2, 64, 96, 3, generator=rng),
+             "reference": torch.rand(2, 64, 96, 3, generator=rng)}
+    target = (batch["gt"] ** 1.3 * 0.9 + 0.04).clamp(0, 1)
+    fed = {"flow": torch.randn(2, 64, 96, 2, generator=rng) * 2.5,
+           "fwd_occ": (torch.rand(2, 64, 96, 1, generator=rng) < 0.1).float()}
+    results = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                          ("cuda", torch.float32)):
+        module = DMSCTModule(matcher_num_layers=1, matcher_num_reg_refine=1,
+                             heavy_metrics=False)
+        module.model.encoder.drop_connect_rate = 0.0
+        on = {k: v.to(device, dtype) for k, v in fed.items()}
+        module.model.matcher.forward = lambda *a, on=on, **k: on
+        module.synthesize_targets = lambda b, gen, t=target.to(device, dtype): {**b, "target": t}
+        b = {k: v.to(device, dtype) for k, v in batch.items()}
+        state = module.init_state(0, b, num_train_steps=5)
+        state.variables = {k: v.detach().to(dtype).requires_grad_(v.requires_grad)
+                           if v.is_floating_point() else v
+                           for k, v in state.variables.items()}
+        state.optimizer = torch.optim.AdamW(
+            [v for v in state.variables.values() if v.requires_grad], lr=3e-4)
+        grads = {}
+        apply_gradients = module.apply_gradients
+
+        def record(st, apply_gradients=apply_gradients, grads=grads):
+            grads.update({k: v.grad.detach().cpu().double() for k, v in st.variables.items()
+                          if v.grad is not None})
+            apply_gradients(st)
+
+        module.apply_gradients = record
+        before = wa.warp_adjoint.launches
+        _, logs = module.train_step(state, b, seed=0, metrics=False)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        results[device, dtype] = (float(logs["Training Total Loss"]), grads,
+                                  wa.warp_adjoint.launches - before)
+    _, g64, _ = results["cpu", torch.float64]
+    loss_cpu, g_cpu, launches_cpu = results["cpu", torch.float32]
+    loss_card, g_card, launches_card = results["cuda", torch.float32]
+    assert launches_cpu == 0 and launches_card == 4
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    floor = 1e-2 * max(float(g.abs().max()) for g in g64.values())
+    for name, ref in g64.items():
+        scale = max(float(ref.abs().max()), floor)
+        e_cpu = float((g_cpu[name] - ref).abs().max()) / scale
+        e_card = float((g_card[name] - ref).abs().max()) / scale
+        assert e_card <= 4 * e_cpu + 1e-5, (name, e_card, e_cpu)
+
+
 def test_no_fallback_on_bad_input(gen):
     """A CUDA tensor the kernel does not take raises; it never reaches the
     plain version."""
@@ -157,3 +265,5 @@ def test_no_fallback_on_bad_input(gen):
     with pytest.raises(ValueError):  # phis in the wrong layout
         rs.regrain_sweeps(img, img, torch.zeros(1, 4, 5, 4, device="cuda"),
                           torch.zeros(1, 4, 5, device="cuda"), 2)
+    with pytest.raises(ValueError):  # flow of another shape
+        wa.warp_adjoint(img, torch.zeros(1, 4, 6, 2, device="cuda"))

@@ -20,6 +20,7 @@ from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
 from color_transfer_tpu_torch.run import cli
 from color_transfer_tpu_torch.run.modules import DCMCS3DIModule, DMSCTModule
 from color_transfer_tpu_torch.run.predict import collect_pairs, predict_pairs
+from test_torch_port_core import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 KW = dict(matcher_num_layers=1, matcher_num_reg_refine=1)
 DC_KW = dict(extraction_layers=1, transfer_layers=1, channels=8)
@@ -96,13 +97,47 @@ def test_video_default_variables_are_seeded(module, clip, per_frame):
     torch.testing.assert_close(out, per_frame[0], atol=0, rtol=0)
 
 
-def test_unported_paths_raise(module, clip):
+def test_unported_paths_raise(module, clip, tmp_path):
+    """Pretrained encoder weights raise; so does a JAX orbax checkpoint
+    directory (its variables convert with tools/convert.py)."""
     t, r = clip
-    with pytest.raises(NotImplementedError):
-        color_transfer_between_videos(t, r, method="dmsct", module=module,
-                                      ckpt_path="ckpt/best")
+    (tmp_path / "best" / "state").mkdir(parents=True)
+    (tmp_path / "best" / "meta.json").write_text("{}")
+    with pytest.raises(ValueError, match="orbax.*tools/convert.py"):
+        color_transfer_between_videos(t, r, method="dmsct", module=module, device="cpu",
+                                      ckpt_path=tmp_path / "best")
     with pytest.raises(NotImplementedError):
         DMSCTModule(encoder_weights="imagenet")
+
+
+def test_default_device_is_the_card():
+    from color_transfer_tpu_torch.methods.video import default_device
+
+    assert default_device() == "cuda"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, clip, tmp_path):
+    """No card and no device="cpu": the entry points raise and name the
+    CPU option; they do not run on the CPU."""
+    from color_transfer_tpu_torch.run.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t, r = clip
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        color_transfer_between_videos(t, r, method="reinhard")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        color_transfer_between_videos(t, r, method="dmsct", module_kwargs=KW)
+    _write_pair(tmp_path, "0000", t[0], r[0])
+    pairs = collect_pairs(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_pairs(pairs, tmp_path / "out", method="reinhard")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["predict", "--method", "reinhard", "--target",
+                  str(tmp_path / "0000_LD.png"), "--reference", str(tmp_path / "0000_R.png"),
+                  "--output", str(tmp_path / "o.png")])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        Trainer(log_dir=tmp_path / "run")
+    assert not (tmp_path / "out").exists() and not (tmp_path / "o.png").exists()
 
 
 def _write_pair(directory, stem, t, r, distorted=True):
@@ -183,7 +218,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "color_transfer_tpu_torch.run.cli" in modules
+    for name in ("run.cli", "run.trainer", "run.checkpoint", "run.config",
+                 "run.datamodule", "run.logging", "ops.warp_adjoint", "metrics.fsim",
+                 "metrics.icid", "data.datasets", "data.distortions"):
+        assert f"color_transfer_tpu_torch.{name}" in modules, name
 
 
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])

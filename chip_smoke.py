@@ -6,8 +6,9 @@ Phases (any failure raises and the script exits non-zero; there is no CPU
 fallback):
   1. probe    — card name and power limit, CUDA/nvcc versions; TF32 off.
   2. build    — nvcc builds csrc/local_corr.cu, resb_chain.cu,
-                row_attention.cu, idt_apply.cu and regrain_stencil.cu for
-                sm_90a, all five at once.
+                row_attention.cu, idt_apply.cu, regrain_stencil.cu,
+                warp_adjoint.cu, win_attention.cu, win_sublayer.cu and
+                win_ffn.cu for sm_90a, all nine at once.
   3. kernels  — each kernel against its plain torch version on the card,
                 at the main paths' shapes and at a ragged small shape, with
                 timings (CUDA events, warmed up): B1 local correlation; B6
@@ -58,6 +59,27 @@ fallback):
                 corrector and BN statistics moved, the checkpoints; predict
                 from the best checkpoint; then the corrector's train step on
                 the card against the CPU with the matcher's output fed in.
+  8. fused    — the matcher transformer's fused route: B2a (windowed
+                attention; no mask, the swin mask from geometry, a mask
+                operand), B2b (the attention sublayer: self-attention with the
+                shift and the residual, cross-attention without) and B2c (the
+                FFN) against their plain versions at the paths' shapes (1080p
+                scale 1, the train shape's two scales), at half those windows
+                and at a ragged shape, timed at 1080p scale 1 beside their
+                bounds, plain versions and SDPA (B2a); full-width DMSCT with
+                ``matcher_fused_attention=True`` serves the two 1080p pairs:
+                exact launch counts (B2b 12, B2c 6, B1 6 per frame, B2a 0),
+                output checks, warm ms/frame and the transformer span beside
+                phase 4's unfused ones, peak memory, busy share, the pair PSNR
+                of fused against unfused; the fused transformer on the card
+                against the CPU on a small pair; the matcher alone at the train
+                shape (batch 12, 256x480) fused and unfused (B2b 24, B2c 12 per
+                call); the drift gate (tools/deep_gate.py, 544x960, 31
+                distortions) for DMSCT ``fused`` and DCMCS3DI ``bf16`` (a
+                failing one again with the weights of seeds 1 and 2); the
+                fused route's drift stage by stage (transformer, flow, image).
+                A gate verdict is reported, not asserted; every gate row must
+                be finite.
 The line before the last is a JSON object with per-kernel results (each
 kernel's time, its plain version's, a library call's where one computes
 the same function, and its bound on the card: the larger of its bytes over
@@ -85,7 +107,7 @@ KERNEL_RTOL = 1e-4
 STAGE_RTOL = 1e-4
 FRAMES, HEIGHT, WIDTH = 2, 1080, 1920
 KERNELS = ("local_corr", "resb_chain", "row_attention", "idt_apply", "regrain_stencil",
-           "warp_adjoint")
+           "warp_adjoint", "win_attention", "win_sublayer", "win_ffn")
 # DCMCS3DI at the reference recipe's full width.
 EXTRACTION_LAYERS, TRANSFER_LAYERS, CHANNELS = 18, 6, 64
 # B6 in bf16 against its plain version: both round to bf16 at the same
@@ -136,6 +158,22 @@ B7_LINE = 1e-5
 # TRAIN_F64_RATIO times the CPU float32 run's distance plus 1e-5. The
 # backward of flow_warp_batched against autograd: 1e-4 of scale.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_F64_RATIO = 1e-5, 1e-4, 4.0
+# The fused window ops (B2) at (windows, L, C) with their swin geometry (k,
+# hs, ws). The matcher's 1/4 scale holds 4 images (the bidirectional pair,
+# each view as source): 1080p gives 4 x 64 windows of 16x28 tokens; the
+# train shape (batch 12 at 256x480) 2B = 24 images at 1/8 and 4B = 48 at
+# 1/4. Then the 1/4 scales at half the windows, and a ragged shape (L not a
+# multiple of the kernels' 32-row tiles).
+B2_SHAPES = (((256, 448, 128), (8, 16, 28)), ((96, 480, 128), (2, 16, 30)),
+             ((3072, 120, 128), (8, 8, 15)), ((128, 448, 128), (8, 16, 28)),
+             ((1536, 120, 128), (8, 8, 15)), ((8, 35, 128), (2, 5, 7)))
+B2_TIMED = ((256, 448, 128), (128, 448, 128))  # the row's shape first
+B2_FFN = 1024  # 2 d_model x 4
+# Launches of the fused route per 1080p frame: 6 blocks at 1/4 scale, each a
+# self- and a cross-attention sublayer and one FFN (the 1/8 scale's L = 1792
+# fails JAX's guard and stays unfused); B1 as in phase 4.
+B2B_PER_FRAME, B2C_PER_FRAME = 12, 6
+GATE_HEIGHT, GATE_WIDTH = 544, 960
 
 
 def bound(bytes_moved, ops):
@@ -443,11 +481,14 @@ def _wrappers():
         regrain_stencil,
         row_attention,
         warp_adjoint,
+        win_attention,
     )
 
     return (local_corr.local_correlation_with_flow, conv_chain.resb_chain,
             row_attention.row_attention_warp, idt_apply.transport_apply,
-            regrain_stencil.regrain_sweeps, warp_adjoint.warp_adjoint)
+            regrain_stencil.regrain_sweeps, warp_adjoint.warp_adjoint,
+            win_attention.window_attention_fused, win_attention.window_sublayer_fused,
+            win_attention.ffn_fused)
 
 
 def _reset_launches():
@@ -459,15 +500,10 @@ def _launches():
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
-def serve(rows):
-    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
-    from color_transfer_tpu_torch.run.modules import DMSCTModule
-
-    module = DMSCTModule()  # full width: the reference DMSCT recipe
-    variables = module.init_eval_variables(seed=0, device="cuda")
+def _dmsct_pairs():
+    """Smooth synthetic scenes: a low-frequency field upsampled to 1080p, the
+    reference a shifted, colour-distorted copy of the target."""
     rng = np.random.default_rng(0)
-    # Smooth synthetic scenes: a low-frequency field upsampled to 1080p, the
-    # reference a shifted, colour-distorted copy of the target.
     low = rng.uniform(0, 1, (FRAMES, 3, 34, 60)).astype(np.float32)
     scene = torch.nn.functional.interpolate(
         torch.from_numpy(low), size=(HEIGHT, WIDTH + 16), mode="bilinear",
@@ -475,6 +511,19 @@ def serve(rows):
     ).permute(0, 2, 3, 1)
     target = scene[:, :, :WIDTH].contiguous()
     reference = (scene[:, :, 16:] * 0.9 + 0.05).clamp(0, 1).contiguous()
+    return target, reference
+
+
+def serve(rows):
+    """Full-width DMSCT (unfused, the default) on the two 1080p pairs.
+    Returns (module, variables, target, reference, numbers): the output on
+    the CPU, warm ms/frame, the transformer's device ms/frame, peak GiB."""
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    module = DMSCTModule()  # full width: the reference DMSCT recipe
+    variables = module.init_eval_variables(seed=0, device="cuda")
+    target, reference = _dmsct_pairs()
 
     _reset_launches()
     out = color_transfer_between_videos(
@@ -523,7 +572,9 @@ def serve(rows):
     busy_ms = _device_busy_ms(clip)
     _log(f"serve: device busy {busy_ms / FRAMES:.1f} ms/frame (profiled pass), "
          f"busy share of the warm pass {busy_ms / FRAMES / ms_frame:.3f}")
-    return module, variables, target, reference
+    numbers = {"out": out.cpu(), "ms_frame": ms_frame, "peak": peak,
+               "transformer": stages["matcher.transformer"] / FRAMES}
+    return module, variables, target, reference, numbers
 
 
 # Submodules of DMSCT timed by stage (matcher.* lie inside matcher), and
@@ -756,9 +807,8 @@ def serve_dcmcs3di(rows, target, reference):
         counts = _launches()
         _log(f"{label}: output {tuple(out.shape)}, launches {counts}")
         b6 = 0 if recipe is None else 2 * (EXTRACTION_LAYERS + TRANSFER_LAYERS) * FRAMES
-        want = {"local_correlation_with_flow": 0, "resb_chain": b6,
-                "row_attention_warp": 2 * FRAMES, "transport_apply": 0,
-                "regrain_sweeps": 0, "warp_adjoint": 0}
+        want = dict.fromkeys(counts, 0)
+        want.update(resb_chain=b6, row_attention_warp=2 * FRAMES)
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, expected {want}")
         if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3):
@@ -1392,12 +1442,295 @@ def check_train_small():
          f"{abs(loss_card - loss_cpu) / abs(loss_cpu):.2e}); worst gradient card "
          f"against CPU {e2e:.2e} of scale (reported)")
 
+def check_win_kernels(g):
+    """B2a (no mask, the shift mask from geometry, a mask operand), B2b
+    (self-attention with the shift and the residual, cross-attention
+    without) and B2c against their plain versions at B2_SHAPES, line
+    KERNEL_RTOL of max(1, max|ref|): f32 FMA sums against cuBLAS's f32
+    products, in another order. At B2_TIMED (1080p scale 1 and half its
+    windows) each is timed beside its plain version and, for B2a, one
+    scaled_dot_product_attention with the tiled float mask (f32). Returns
+    the rows of B2a (shift mode), B2b (cross-attention, the bound's two
+    token inputs) and B2c at 1080p scale 1."""
+    import torch.nn.functional as F
+
+    from color_transfer_tpu_torch.ops import win_attention as wn
+
+    c = B2_SHAPES[0][0][-1]
+    weights = [(torch.randn(*s, generator=g) / s[0] ** 0.5).cuda()
+               for s in ((c, c), (c, 2 * c), (c, c))]
+    norm = [(1 + 0.1 * torch.randn(c, generator=g)).cuda(), (0.1 * torch.randn(c, generator=g)).cuda()]
+    w0 = (torch.randn(2 * c, B2_FFN, generator=g) / (2 * c) ** 0.5).cuda()
+    w2 = (torch.randn(B2_FFN, c, generator=g) / B2_FFN**0.5).cuda()
+    timed = {}
+    for shape, geom in B2_SHAPES:
+        x, y, v = (torch.randn(*shape, generator=g).cuda() for _ in range(3))
+        mask = wn.geometry_mask(*geom, device="cuda")
+        cases = {
+            "B2a none": (wn.window_attention_fused, wn.window_attention_plain, (x, y, v), {}),
+            "B2a shift": (wn.window_attention_fused, wn.window_attention_plain, (x, y, v),
+                          {"shift_windows": geom}),
+            "B2a mask": (wn.window_attention_fused, wn.window_attention_plain,
+                         (x, y, v, mask), {}),
+            "B2b self": (wn.window_sublayer_fused, wn.window_sublayer_plain,
+                         (x, x, *weights, *norm), {"shift_windows": geom, "add_residual": True}),
+            "B2b cross": (wn.window_sublayer_fused, wn.window_sublayer_plain,
+                          (x, y, *weights, *norm), {}),
+            "B2c": (wn.ffn_fused, wn.ffn_plain, (x, y, w0, w2, *norm), {"add_residual": True}),
+        }
+        report, times = [], {}
+        for label, (fn, plain, args, kw) in cases.items():
+            with torch.no_grad():
+                got, want = fn(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            report.append(f"{label} {err:.2e} (line {KERNEL_RTOL * scale:.2e})")
+            if not np.isfinite(err) or err > KERNEL_RTOL * scale:
+                raise AssertionError(f"{label} kernel disagrees at {shape}: {err}")
+            if shape in B2_TIMED:
+                with torch.no_grad():
+                    times[label] = (err, _time_ms(lambda: fn(*args, **kw), iters=10),
+                                    _time_ms(lambda: plain(*args, **kw), iters=5))
+            del got, want
+        _log(f"B2 {shape} geometry {geom}: max|d| " + ", ".join(report))
+        if times:
+            attn_mask = mask.repeat(shape[0] // mask.shape[0], 1, 1)[:, None]
+            with torch.no_grad():
+                sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    x[:, None], y[:, None], v[:, None], attn_mask=attn_mask), iters=10)
+            _log(f"B2 {shape}, ms (kernel / plain): " + ", ".join(
+                f"{k} {ms:.4f} / {pm:.4f}" for k, (_, ms, pm) in times.items())
+                + f"; SDPA with the tiled float mask {sdpa_ms:.4f}")
+            if shape == B2_TIMED[0]:
+                timed, kept = times, (shape, x.numel(), sdpa_ms)
+            del attn_mask
+        del x, y, v, mask
+    torch.cuda.empty_cache()
+
+    (bp, length, c), n, sdpa_ms = kept
+    tokens = bp * length
+
+    def row(name, source, line, label):
+        err, ms, plain_ms = timed[label]
+        return {"name": name, "route": "cuda",
+                "source": f"color_transfer_tpu_torch/csrc/{source}",
+                "replaces": f"color_transfer_tpu/ops/win_attention.py:{line}",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    # Bounds: each input read once and each output written once (f32), and
+    # the products' operations at the f32 rate (softmax and LayerNorm are
+    # small beside them).
+    return [
+        # q, k, v read, out written; QK^T and PV.
+        _with_bound(row("window_attention_fused", "win_attention.cu", 175, "B2a shift"),
+                    4 * 4 * n, {"f32": 4 * bp * length * length * c}, sdpa_ms),
+        # x_src, x_tgt read, out written, the weights; the q, k/v and merge
+        # projections and the attention.
+        _with_bound(row("window_sublayer_fused", "win_sublayer.cu", 321, "B2b cross"),
+                    4 * (3 * n + 4 * c * c + 2 * c),
+                    {"f32": bp * (8 * length * c * c + 4 * length * length * c)}, None),
+        # x_src, x_msg read, out written, W0 and W2; the two products.
+        _with_bound(row("ffn_fused", "win_ffn.cu", 524, "B2c"),
+                    4 * (3 * n + 3 * c * B2_FFN + 2 * c),
+                    {"f32": tokens * 2 * 3 * c * B2_FFN}, None),
+    ]
+
+
+def serve_fused(rows, unfused):
+    """Full-width DMSCT with ``matcher_fused_attention=True`` on phase 4's
+    two 1080p pairs and weights (seed 0): exact launch counts, output
+    checks, warm ms/frame, the transformer span and peak memory beside phase
+    4's unfused numbers, busy share, the pair PSNR of fused against unfused;
+    then the fused transformer on the card against the CPU on a small pair."""
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    module = DMSCTModule(matcher_fused_attention=True)
+    variables = module.init_eval_variables(seed=0, device="cuda")
+    target, reference = _dmsct_pairs()
+
+    def clip():
+        return color_transfer_between_videos(
+            target, reference, method="dmsct", module=module, variables=variables,
+            device="cuda")
+
+    _reset_launches()
+    out = clip()
+    torch.cuda.synchronize()
+    counts = _launches()
+    want = dict.fromkeys(counts, 0)
+    want.update(local_correlation_with_flow=module.model.matcher.num_reg_refine * FRAMES,
+                window_sublayer_fused=B2B_PER_FRAME * FRAMES, ffn_fused=B2C_PER_FRAME * FRAMES)
+    _log(f"fused serve: output {tuple(out.shape)}, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"fused serve: launches {counts}, expected {want}")
+    if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("fused serve: output shape or values")
+    lo, hi = float(out.min()), float(out.max())
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError("fused serve: output outside [0, 1]")
+    for row in rows:
+        if row["name"] in counts and "launches" not in row:
+            row["launches"] = counts[row["name"]]
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clip()
+    torch.cuda.synchronize()
+    ms_frame = (time.perf_counter() - t0) * 1e3 / FRAMES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = _stage_ms(module.model, clip, stages=("matcher", "matcher.transformer"),
+                       functions=())
+    busy_ms = _device_busy_ms(clip, top=8)
+    d = out.cpu() - unfused["out"]
+    psnr = 10 * math.log10(1.0 / max(float((d * d).mean()), 1e-30))
+    _log(f"fused serve: warm pass {ms_frame:.1f} ms/frame (unfused, phase 4: "
+         f"{unfused['ms_frame']:.1f}); transformer {stages['matcher.transformer'] / FRAMES:.2f} "
+         f"device ms/frame (unfused {unfused['transformer']:.2f}), matcher "
+         f"{stages['matcher'] / FRAMES:.2f}; peak memory {peak:.2f} GiB (unfused "
+         f"{unfused['peak']:.2f}); device busy {busy_ms / FRAMES:.1f} ms/frame, busy share "
+         f"{busy_ms / FRAMES / ms_frame:.3f}")
+    _log(f"fused serve: fused against unfused on identical weights: pair PSNR {psnr:.2f} dB, "
+         f"max|d|={float(d.abs().max()):.3e} (reported)")
+    _check_stages("dmsct fused", module.model, variables, target[:1, ::8, ::8].contiguous(),
+                  reference[:1, ::8, ::8].contiguous(), ("matcher.transformer",))
+    del module, variables, out
+    torch.cuda.empty_cache()
+
+
+def matcher_train_shape():
+    """The frozen matcher alone at the train shape (batch 12, 256x480 crops;
+    its transformer sees 24 images at 1/8 and 48 at 1/4), as a train step
+    calls it (no_grad, TF32 off), unfused and fused: exact launches (B1 6;
+    fused also B2b 24 and B2c 12 per call), warm ms per call, the
+    transformer's device span; the two flows compared (reported)."""
+    from color_transfer_tpu_torch.core.precision import full_f32
+    from color_transfer_tpu_torch.core.resize import derive_matcher_size
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    g = torch.Generator().manual_seed(5)
+    t, r = (torch.rand(TRAIN_BATCH, *TRAIN_CROP, 3, generator=g).cuda() * 255 for _ in range(2))
+    size = derive_matcher_size(*TRAIN_CROP)
+    flows = {}
+    for fused in (False, True):
+        module = DMSCTModule(matcher_fused_attention=fused)
+        matcher = module.model.matcher
+        params = {k[len("matcher."):]: v for k, v in
+                  module.init_eval_variables(seed=0, device="cuda").items()
+                  if k.startswith("matcher.")}
+
+        def call():
+            with torch.no_grad(), full_f32():
+                return torch.func.functional_call(matcher, params, (t, r),
+                                                  {"inference_size": size})
+
+        _reset_launches()
+        flows[fused] = call()["flow"]
+        torch.cuda.synchronize()
+        counts = _launches()
+        want = dict.fromkeys(counts, 0)
+        want["local_correlation_with_flow"] = matcher.num_reg_refine
+        if fused:
+            want.update(window_sublayer_fused=2 * B2B_PER_FRAME, ffn_fused=2 * B2C_PER_FRAME)
+        if counts != want:
+            raise AssertionError(f"train-shape matcher: launches {counts}, expected {want}")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        span = _stage_ms(matcher, call, stages=("transformer",), functions=())["transformer"]
+        _log(f"train-shape matcher ({TRAIN_BATCH} x {TRAIN_CROP[0]}x{TRAIN_CROP[1]}) "
+             f"{'fused' if fused else 'unfused'}: {ms:.1f} ms per call, transformer "
+             f"{span:.2f} device ms, launches {counts}")
+        del module, matcher, params
+    d = (flows[True] - flows[False]).abs()
+    _log(f"train-shape matcher: flow fused against unfused max|d| {float(d.max()):.3e} px, "
+         f"mean {float(d.mean()):.3e} px (reported)")
+    del flows, d
+    torch.cuda.empty_cache()
+
+
+def gates():
+    """The drift gate (tools/deep_gate.py) on the card at 544x960 over all 31
+    distortions: DMSCT ``fused`` and DCMCS3DI ``bf16`` against their float32
+    defaults on shared seeded weights. The verdicts are reported, not
+    asserted; every row must be finite. Then the fused route's drift stage by
+    stage."""
+    from color_transfer_tpu_torch.tools import deep_gate
+
+    for model, recipe in (("dmsct", "fused"), ("dcmcs3di", "bf16")):
+        t0 = time.perf_counter()
+        summary, rows = deep_gate.run_gate(model, recipe, height=GATE_HEIGHT,
+                                           width=GATE_WIDTH, device="cuda")
+        _log(f"gate {model} {recipe}: {len(rows)} distortions in "
+             f"{time.perf_counter() - t0:.1f} s; rows (i, pair PSNR, dPSNR, dSSIM, diCID): "
+             + json.dumps([[r["i"], round(r["pair_psnr"], 2), round(r["d_psnr"], 5),
+                            round(r["d_ssim"], 7), round(r["d_icid"], 7)] for r in rows]))
+        _log("gate summary: " + json.dumps(summary))
+        if len(rows) != 31 or not deep_gate.rows_finite(rows):
+            raise AssertionError(f"gate {model} {recipe}: a row is missing or not finite")
+        if not summary["pass"]:  # is the verdict the weights' or the recipe's?
+            for seed in (1, 2):
+                other, rows = deep_gate.run_gate(model, recipe, height=GATE_HEIGHT,
+                                                 width=GATE_WIDTH, seed=seed, device="cuda")
+                _log(f"gate summary, weights of seed {seed}: " + json.dumps(other))
+                if not deep_gate.rows_finite(rows):
+                    raise AssertionError(f"gate {model} {recipe} seed {seed}: a row is not finite")
+    drift_stages()
+
+
+def drift_stages():
+    """Where the fused route's drift comes from, on the gate's undistorted
+    pair and weights: the transformer fed the unfused run's inputs (per
+    scale, relative to max(1, max|ref|)), the matcher's flow, the image."""
+    from color_transfer_tpu_torch.core.precision import full_f32_inference
+    from color_transfer_tpu_torch.core.resize import derive_matcher_size
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+    from color_transfer_tpu_torch.tools import deep_gate
+
+    base, fused = DMSCTModule(), DMSCTModule(matcher_fused_attention=True)
+    variables = base.init_eval_variables(seed=0, device="cuda")
+    gt, ref = (torch.from_numpy(a).cuda()[None]
+               for a in deep_gate.load_pair(GATE_HEIGHT, GATE_WIDTH))
+    records = []
+    hook = base.model.matcher.transformer.register_forward_hook(
+        lambda m, a, o: records.append((a, o)))
+    with torch.no_grad(), full_f32_inference():
+        outs = {"unfused": torch.func.functional_call(base.model, variables, (gt, ref))}
+        hook.remove()
+        outs["fused"] = torch.func.functional_call(fused.model, variables, (gt, ref))
+        prefix = "matcher.transformer."
+        tf = {k[len(prefix):]: v for k, v in variables.items() if k.startswith(prefix)}
+        tf_err = []
+        for args, want in records:
+            got = torch.func.functional_call(fused.model.matcher.transformer, tf, args)
+            tf_err.append(max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                              for a, b in zip(got, want)))
+        size = derive_matcher_size(GATE_HEIGHT, GATE_WIDTH)
+        mv = {k[len("matcher."):]: v for k, v in variables.items() if k.startswith("matcher.")}
+        flows = {name: torch.func.functional_call(
+            m.model.matcher, mv, (gt * 255.0, ref * 255.0), {"inference_size": size})["flow"]
+            for name, m in (("unfused", base), ("fused", fused))}
+    df = (flows["fused"] - flows["unfused"]).abs()
+    di = (outs["fused"] - outs["unfused"]).abs()
+    psnr = 10 * math.log10(1.0 / max(float((di * di).mean()), 1e-30))
+    _log("fused drift by stage (544x960, undistorted pair): transformer fed the unfused "
+         "inputs, relative max|d| by scale " + ", ".join(f"{e:.2e}" for e in tf_err)
+         + f"; flow max|d| {float(df.max()):.3e} px, mean {float(df.mean()):.3e}, pixels "
+         f"off by > 0.1 px {float((df > 0.1).float().mean()):.4f}; image max|d| "
+         f"{float(di.max()):.3e}, pair PSNR {psnr:.2f} dB")
+    del base, fused, variables, records, outs, flows
+    torch.cuda.empty_cache()
+
 
 def main():
     probe()
     build()
     rows = check_kernels()
-    module, variables, target, reference = serve(rows)
+    module, variables, target, reference, unfused = serve(rows)
     check_small(module, variables, target, reference)
     del module, variables
     torch.cuda.empty_cache()
@@ -1410,6 +1743,11 @@ def main():
     rows.append(check_warp_adjoint(torch.Generator().manual_seed(2)))
     train(rows)
     check_train_small()
+    rows += check_win_kernels(torch.Generator().manual_seed(3))
+    serve_fused(rows, unfused)
+    del unfused
+    matcher_train_shape()
+    gates()
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

@@ -37,11 +37,14 @@ from color_transfer_tpu_torch.metrics.basic import ssim_loss
 class DMSCT(nn.Module):
     def __init__(self, encoder_name="efficientnet-b2", encoder_depth=4,
                  decoder_channels=(256, 128, 64, 32), matcher_num_reg_refine=6,
-                 matcher_num_layers=6):
+                 matcher_num_layers=6, matcher_fused_attention="auto"):
         super().__init__()
         self.encoder_depth = encoder_depth
+        # matcher_fused_attention: the matcher transformer's fused route
+        # (models/gmflow.py::TransformerLayer); "auto" is unfused in float32.
         self.matcher = GMFlow(num_transformer_layers=matcher_num_layers,
-                              num_reg_refine=matcher_num_reg_refine)
+                              num_reg_refine=matcher_num_reg_refine,
+                              fused_attention=matcher_fused_attention)
         self.encoder = EfficientNetEncoder(encoder_name, encoder_depth)
         # Each level concatenates target, warped reference and 1 - occ.
         level_ch = [2 * c + 1 for c in encoder_out_channels(encoder_name, encoder_depth)]

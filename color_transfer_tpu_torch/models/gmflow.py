@@ -15,6 +15,8 @@ Conventions kept from the JAX package:
     windows across layers);
   * LayerNorm eps 1e-6, exact-erf GELU, InstanceNorm eps 1e-5.
 The GRU loop's correlation is ops/local_corr.py (the CUDA kernel on a
+CUDA tensor). With ``fused_attention=True`` the transformer's eligible
+layers run the fused ops of ops/win_attention.py (kernels B2b and B2c on a
 CUDA tensor).
 """
 
@@ -33,6 +35,13 @@ from color_transfer_tpu_torch.core.sampling import (
     forward_backward_consistency,
 )
 from color_transfer_tpu_torch.ops.local_corr import local_correlation_with_flow
+from color_transfer_tpu_torch.ops.win_attention import (
+    eligible,
+    ffn_eligible,
+    ffn_fused,
+    window_attention_fused,
+    window_sublayer_fused,
+)
 
 
 def _nchw(x):
@@ -189,10 +198,30 @@ def window_attention(q, k, v, mask=None):
 
 
 class TransformerLayer(nn.Module):
-    """Attention sublayer (+ FFN) on window-major tokens (N, L, C)."""
+    """Attention sublayer (+ FFN) on window-major tokens (N, L, C).
 
-    def __init__(self, d_model=128, no_ffn=False, ffn_dim_expansion=4):
+    ``fused_attention`` is the JAX package's knob (models/gmflow.py:339-460)
+    with its routing: "auto" fuses when the tokens are bfloat16, so the
+    port's float32 matcher stays unfused; True sends the layer through the
+    fused ops of ops/win_attention.py where JAX's guards allow: the tokens
+    are windowed (more than one split), c_in == d_model and the working set
+    passes ``eligible`` / ``ffn_eligible``; then the attention sublayer is
+    one ``window_sublayer_fused`` call (B2b; with no FFN it emits the whole
+    layer) and the FFN one ``ffn_fused`` call (B2c). When only c_in !=
+    d_model refuses the sublayer, the attention alone goes through
+    ``window_attention_fused`` (B2a). False: unfused. The parameters are
+    the same on every route."""
+
+    def __init__(self, d_model=128, no_ffn=False, ffn_dim_expansion=4,
+                 fused_attention="auto"):
         super().__init__()
+        if fused_attention not in ("auto", True, False):
+            raise ValueError(
+                f"fused_attention must be 'auto', True or False, got "
+                f"{fused_attention!r} (the port has no interpret mode: CPU "
+                "tensors take the plain versions)"
+            )
+        self.fused_attention = fused_attention
         self.no_ffn = no_ffn
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
@@ -208,12 +237,42 @@ class TransformerLayer(nn.Module):
             )
             self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
 
-    def forward(self, source, target, mask=None):
-        q = self.q_proj(source)
-        k = self.k_proj(target)
-        v = self.v_proj(target)
-        message = self.norm1(self.merge(window_attention(q, k, v, mask)))
+    def forward(self, source, target, mask=None, *, shift_windows=None,
+                windowed=False):
+        """``mask``: the (k*k, L, L) shift mask or None; ``shift_windows``:
+        the same mask as its geometry (k, hs, ws), which the fused ops read;
+        ``windowed``: the tokens are split into more than one window."""
+        fused = self.fused_attention
+        if fused == "auto":
+            fused = source.dtype == torch.bfloat16
+        fused = fused and windowed
+        d = self.merge.weight.shape[0]
+        tokens = (*source.shape[:-1], d)
+        same_width = source.shape[-1] == d
+        if fused and same_width and eligible(tokens, source.dtype):
+            # The weights in JAX's input-major layout, [W_k | W_v] joined.
+            message = window_sublayer_fused(
+                source, target, self.q_proj.weight.t(),
+                torch.cat([self.k_proj.weight, self.v_proj.weight]).t(),
+                self.merge.weight.t(), self.norm1.weight, self.norm1.bias,
+                shift_windows=shift_windows, add_residual=self.no_ffn,
+            )
+            if self.no_ffn:
+                return message  # source + LN1(sublayer), the whole layer
+        else:
+            q = self.q_proj(source)
+            k = self.k_proj(target)
+            v = self.v_proj(target)
+            if fused and eligible(q.shape, q.dtype):
+                message = window_attention_fused(q, k, v, shift_windows=shift_windows)
+            else:
+                message = window_attention(q, k, v, mask)
+            message = self.norm1(self.merge(message))
         if not self.no_ffn:
+            w0, w2 = self.mlp[0].weight, self.mlp[2].weight
+            if fused and same_width and ffn_eligible(tokens, source.dtype, w0.shape[0]):
+                return ffn_fused(source, message, w0.t(), w2.t(), self.norm2.weight,
+                                 self.norm2.bias, add_residual=True)
             message = self.mlp(torch.cat([source, message], dim=-1))
             message = self.norm2(message)
         return source + message
@@ -222,14 +281,18 @@ class TransformerLayer(nn.Module):
 class TransformerBlock(nn.Module):
     """self-attn (no FFN) + cross-attn + FFN."""
 
-    def __init__(self, d_model=128, ffn_dim_expansion=4):
+    def __init__(self, d_model=128, ffn_dim_expansion=4, fused_attention="auto"):
         super().__init__()
-        self.self_attn = TransformerLayer(d_model, True, ffn_dim_expansion)
-        self.cross_attn_ffn = TransformerLayer(d_model, False, ffn_dim_expansion)
+        self.self_attn = TransformerLayer(d_model, True, ffn_dim_expansion,
+                                          fused_attention)
+        self.cross_attn_ffn = TransformerLayer(d_model, False, ffn_dim_expansion,
+                                               fused_attention)
 
-    def forward(self, source, target, mask=None):
-        source = self.self_attn(source, source, mask)
-        return self.cross_attn_ffn(source, target, mask)
+    def forward(self, source, target, mask=None, *, shift_windows=None,
+                windowed=False):
+        route = {"shift_windows": shift_windows, "windowed": windowed}
+        source = self.self_attn(source, source, mask, **route)
+        return self.cross_attn_ffn(source, target, mask, **route)
 
 
 def _swap_halves(x):
@@ -243,10 +306,12 @@ class FeatureTransformer(nn.Module):
     odd (shifted) layers roll the image by half a window before and after.
     The cross-attention target is a batch-half swap of the source."""
 
-    def __init__(self, num_layers=6, d_model=128, ffn_dim_expansion=4):
+    def __init__(self, num_layers=6, d_model=128, ffn_dim_expansion=4,
+                 fused_attention="auto"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerBlock(d_model, ffn_dim_expansion) for _ in range(num_layers)
+            TransformerBlock(d_model, ffn_dim_expansion, fused_attention)
+            for _ in range(num_layers)
         )
 
     def forward(self, feature0, feature1, attn_num_splits):
@@ -270,7 +335,9 @@ class FeatureTransformer(nn.Module):
             if shifted:
                 src = to_win(torch.roll(from_win(src), (-(hs // 2), -(ws // 2)),
                                         dims=(1, 2)))
-            src = layer(src, _swap_halves(src), mask if shifted else None)
+            src = layer(src, _swap_halves(src), mask if shifted else None,
+                        shift_windows=(k, hs, ws) if shifted else None,
+                        windowed=k > 1)
             if shifted:
                 src = to_win(torch.roll(from_win(src), (hs // 2, ws // 2),
                                         dims=(1, 2)))
@@ -493,10 +560,11 @@ _UPSAMPLE = 4
 class UniMatchFlow(nn.Module):
     """Flow-task UniMatch with the GMFlow pretrained config, bidirectional."""
 
-    def __init__(self, num_transformer_layers=6):
+    def __init__(self, num_transformer_layers=6, fused_attention="auto"):
         super().__init__()
         self.backbone = CNNEncoder(_CHANNELS)
-        self.transformer = FeatureTransformer(num_transformer_layers, _CHANNELS)
+        self.transformer = FeatureTransformer(num_transformer_layers, _CHANNELS,
+                                              fused_attention=fused_attention)
         self.feature_flow_attn = SelfAttnPropagation(_CHANNELS)
         self.refine_proj = nn.Conv2d(_CHANNELS, 256, 1)
         self.refine = BasicUpdateBlock(81, _UPSAMPLE, 2)
@@ -572,8 +640,9 @@ class GMFlow(UniMatchFlow):
     occlusion protocol. Subclasses the core so the state_dict keeps the
     reference layout (no wrapper prefix)."""
 
-    def __init__(self, num_transformer_layers=6, num_reg_refine=6):
-        super().__init__(num_transformer_layers)
+    def __init__(self, num_transformer_layers=6, num_reg_refine=6,
+                 fused_attention="auto"):
+        super().__init__(num_transformer_layers, fused_attention)
         self.num_reg_refine = num_reg_refine
 
     def forward(self, img0, img1, inference_size=None):

@@ -3,8 +3,8 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded through ctypes. Builds happen at first use, never at
 import, into ``color_transfer_tpu_torch/_build/`` (git-ignored), keyed on a
-hash of the source and the flags, so a fresh checkout builds what it runs
-and an unchanged source is not rebuilt.
+hash of the source, the shared headers (csrc/*.cuh) and the flags, so a
+fresh checkout builds what it runs and an unchanged source is not rebuilt.
 """
 
 import ctypes
@@ -45,8 +45,9 @@ def build(name):
     Returns (library path, nvcc's report or None when the library was already
     built). Raises RuntimeError with the compiler output on failure."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():

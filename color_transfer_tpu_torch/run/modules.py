@@ -105,7 +105,8 @@ class DMSCTModule:
                  encoder_weights=None, decoder_channels=(256, 128, 64, 32),
                  learning_rate=3e-4, eta_min=1e-6, weight_decay=0.01,
                  heavy_metrics=True, matcher_checkpoint=None,
-                 matcher_num_layers=6, matcher_num_reg_refine=6):
+                 matcher_num_layers=6, matcher_num_reg_refine=6,
+                 matcher_fused_attention="auto"):
         if encoder_weights is not None:  # the reference configs pass null
             raise NotImplementedError(
                 f"encoder_weights={encoder_weights!r}: pretrained encoder "
@@ -117,6 +118,7 @@ class DMSCTModule:
             decoder_channels=tuple(decoder_channels),
             matcher_num_layers=matcher_num_layers,
             matcher_num_reg_refine=matcher_num_reg_refine,
+            matcher_fused_attention=matcher_fused_attention,
         ).eval()
         self.learning_rate = learning_rate
         self.eta_min = eta_min
@@ -130,6 +132,7 @@ class DMSCTModule:
             "learning_rate": learning_rate,
             "matcher_num_layers": matcher_num_layers,
             "matcher_num_reg_refine": matcher_num_reg_refine,
+            "matcher_fused_attention": matcher_fused_attention,
         }
 
     # -- training --

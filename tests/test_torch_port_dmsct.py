@@ -12,6 +12,10 @@ Lines:
     (float32 on both sides, sums in another order);
   * DMSCT end to end: corrected image atol 1e-3; the matcher's flow on the
     GMFlow line max(2e-3, 1e-3 * max|flow|) of tests/test_torch_parity.py.
+The fused matcher route (``matcher_fused_attention=True``; the fused ops'
+plain versions on the CPU) is held end to end, at 2 transformer layers and 2
+refinements, to JAX's ``matcher_fused_attention="interpret"`` (its Pallas
+kernels in interpret mode) on the same lines.
 """
 
 import numpy as np
@@ -146,6 +150,47 @@ def test_dmsct_end_to_end(port, jax_variables, pair):
     out = got.numpy()
     assert np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
     np.testing.assert_allclose(out, np.asarray(want), atol=1e-3, rtol=0)
+    err = float(np.abs(got_flow.numpy() - np.asarray(want_flow)).max())
+    scale = float(np.abs(np.asarray(want_flow)).max())
+    assert err < max(2e-3, 1e-3 * scale), (err, scale)
+
+
+KW_FUSED = dict(matcher_num_layers=2, matcher_num_reg_refine=2)
+
+
+@pytest.fixture(scope="module")
+def jax_variables_fused():
+    model = JDMSCT(**KW_FUSED)
+    x = jnp.zeros((1, H, W, 3), jnp.float32)
+    keys = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}
+    shapes = jax.eval_shape(model.init, keys, x, x)
+    rng = np.random.default_rng(12)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, s: _fill(p, s.shape, rng),
+        {"params": shapes["params"], "batch_stats": shapes["batch_stats"]},
+    )
+
+
+def test_dmsct_fused_route_end_to_end(jax_variables_fused, pair):
+    """The fused matcher transformer on the bridged weights: the corrected
+    image and the matcher's flow against JAX's interpret route."""
+    t, r = pair
+    v = jax_variables_fused
+    model = JDMSCT(**KW_FUSED, matcher_fused_attention="interpret")
+    want = jax.jit(model.apply)(v, jnp.asarray(t), jnp.asarray(r))
+    size = derive_matcher_size(H, W)
+    want_flow = jax.jit(lambda v_, a, b: model.apply(
+        v_, a, b, method=lambda m, x, y: m.matcher(x, y, inference_size=size)
+    )["flow"])(v, jnp.asarray(t) * 255.0, jnp.asarray(r) * 255.0)
+    port = DMSCT(**KW_FUSED, matcher_fused_attention=True).eval()
+    port.load_state_dict(dmsct_state_dict_from_jax(v["params"], v["batch_stats"]),
+                         strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(t), torch.from_numpy(r))
+        got_flow = port.matcher(torch.from_numpy(t) * 255.0, torch.from_numpy(r) * 255.0,
+                                inference_size=size)["flow"]
+    assert port.matcher.transformer.layers[0].self_attn.fused_attention is True
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
     err = float(np.abs(got_flow.numpy() - np.asarray(want_flow)).max())
     scale = float(np.abs(np.asarray(want_flow)).max())
     assert err < max(2e-3, 1e-3 * scale), (err, scale)

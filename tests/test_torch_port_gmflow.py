@@ -243,3 +243,79 @@ def test_feature_add_position(rng, splits):
     got = tg.feature_add_position(_t(f0), _t(f1), splits, 128)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, rtol=0)
+
+
+# -- the fused transformer route (fused_attention=True) -------------------------
+
+
+@pytest.fixture(scope="module")
+def fused_port(models):
+    port, _ = models
+    fused = tg.GMFlow(num_transformer_layers=LAYERS, num_reg_refine=REFINE,
+                      fused_attention=True).eval()
+    fused.load_state_dict(port.state_dict(), strict=True)
+    return fused
+
+
+@pytest.mark.parametrize("scale", [0, 1])
+def test_feature_transformer_fused(models, fused_port, jax_stages, monkeypatch, scale):
+    """The fused route (B2b sublayers and B2c FFNs; their plain versions on
+    the CPU) against JAX's FeatureTransformer with fused_attention=
+    "interpret" (the Pallas kernels in interpret mode), on the same
+    bridged weights and inputs, at both scales (windows of 4x6 at 2
+    splits, 2x3 at 8)."""
+    _, params = models
+    splits = (2, 8)[scale]
+    calls = {"sublayer": 0, "ffn": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(tg, "window_sublayer_fused",
+                        counted("sublayer", tg.window_sublayer_fused))
+    monkeypatch.setattr(tg, "ffn_fused", counted("ffn", tg.ffn_fused))
+    f0, f1 = jax_stages[f"tf{scale}_in"]
+    with torch.no_grad():
+        got = fused_port.transformer(_t(f0), _t(f1), splits)
+    want = jg.FeatureTransformer(num_layers=LAYERS, fused_attention="interpret").apply(
+        {"params": params["core"]["transformer"]}, jnp.asarray(f0), jnp.asarray(f1), splits)
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert calls == {"sublayer": 2 * LAYERS, "ffn": LAYERS}
+
+
+def test_fused_route_is_opt_in(models, jax_stages, monkeypatch):
+    """"auto" (float32 tokens) and False take the unfused route: no fused
+    op is called and the default path's output is unchanged."""
+    port, _ = models
+    monkeypatch.setattr(tg, "window_sublayer_fused", None)
+    monkeypatch.setattr(tg, "ffn_fused", None)
+    monkeypatch.setattr(tg, "window_attention_fused", None)
+    assert port.transformer.layers[0].self_attn.fused_attention == "auto"
+    f0, f1 = map(_t, jax_stages["tf1_in"])
+    with torch.no_grad():
+        got = port.transformer(f0, f1, 8)
+        off = tg.FeatureTransformer(LAYERS, fused_attention=False)
+        off.load_state_dict(port.transformer.state_dict())
+        for g, w in zip(got, off(f0, f1, 8)):
+            assert torch.equal(g, w)
+
+
+def test_fused_attention_values_checked():
+    with pytest.raises(ValueError, match="interpret"):
+        tg.TransformerLayer(32, fused_attention="interpret")
+
+
+def test_fused_route_needs_windows(jax_stages, monkeypatch):
+    """As in JAX, one window per image (attn splits 1) is not windowed: the
+    layers stay unfused even with fused_attention=True."""
+    fused = tg.FeatureTransformer(LAYERS, fused_attention=True)
+    monkeypatch.setattr(tg, "window_sublayer_fused", None)
+    monkeypatch.setattr(tg, "ffn_fused", None)
+    f0, f1 = jax_stages["tf0_in"]
+    with torch.no_grad():
+        got = fused(_t(f0), _t(f1), 1)
+    assert got[0].shape == f0.shape

@@ -12,7 +12,8 @@ bf16 as stated at each test. B3 and B4 round operation by operation as
 their plain versions do (IEEE division, no FMA contraction): B3 within
 1e-6 * bins (4 ulps at the table's top value), B4 within 1e-6 of values ~1.
 B7's float atomics add in an order that changes from run to run: within
-1e-5 * max(1, max|ref|).
+1e-5 * max(1, max|ref|). B2a, B2b and B2c (f32 FMA kernels against cuBLAS
+products, sums in another order) on the f32 line.
 """
 
 import math
@@ -26,6 +27,7 @@ from color_transfer_tpu_torch.ops import local_corr as lc
 from color_transfer_tpu_torch.ops import regrain_stencil as rs
 from color_transfer_tpu_torch.ops import row_attention as ra
 from color_transfer_tpu_torch.ops import warp_adjoint as wa
+from color_transfer_tpu_torch.ops import win_attention as wn
 
 pytestmark = pytest.mark.cuda
 
@@ -249,6 +251,91 @@ def test_dmsct_train_step_on_the_card():
         assert e_card <= 4 * e_cpu + 1e-5, (name, e_card, e_cpu)
 
 
+# (windows, L, C) with a swin geometry (k, hs, ws): 1080p scale 1, the train
+# shape's two scales, a ragged one (L not a multiple of 32 or 64), and L near
+# the kernels' 1024 (a 32 x L score tile of ~128 KB in shared memory).
+B2_SHAPES = [((128, 448, 128), (8, 16, 28)), ((96, 480, 128), (2, 16, 30)),
+             ((1536, 120, 128), (8, 8, 15)), ((8, 35, 128), (2, 5, 7)),
+             ((4, 1000, 128), (2, 20, 50))]
+
+
+@pytest.mark.parametrize("mode", ["none", "shift", "mask"])
+@pytest.mark.parametrize("shape,geom", B2_SHAPES)
+def test_window_attention(gen, shape, geom, mode):
+    """B2a in its three mask modes: none, the swin mask from geometry, an
+    additive (k^2, L, L) mask operand (the same swin mask, tiled)."""
+    q, k, v = (_randn(gen, *shape) for _ in range(3))
+    kwargs = {}
+    if mode == "shift":
+        kwargs["shift_windows"] = geom
+    elif mode == "mask":
+        kwargs["mask"] = wn.geometry_mask(*geom, device="cuda")
+    before = wn.window_attention_fused.launches
+    with torch.no_grad():
+        got = wn.window_attention_fused(q, k, v, **kwargs)
+        want = wn.window_attention_plain(q, k, v, **kwargs)
+    assert wn.window_attention_fused.launches == before + 1
+    assert _rel_err(got, want) <= 1e-4
+
+
+def _sublayer_weights(gen, c):
+    return (_randn(gen, c, c, scale=c**-0.5), _randn(gen, c, 2 * c, scale=c**-0.5),
+            _randn(gen, c, c, scale=c**-0.5), 1 + _randn(gen, c, scale=0.1),
+            _randn(gen, c, scale=0.1))
+
+
+@pytest.mark.parametrize("self_attn", [True, False])
+@pytest.mark.parametrize("shape,geom", B2_SHAPES)
+def test_window_sublayer(gen, shape, geom, self_attn):
+    """B2b as a block uses it: self-attention with the shift mask and the
+    residual, cross-attention unshifted without."""
+    xs = _randn(gen, *shape)
+    xt = xs if self_attn else _randn(gen, *shape)
+    w = _sublayer_weights(gen, shape[-1])
+    kwargs = {"shift_windows": geom, "add_residual": True} if self_attn else {}
+    before = wn.window_sublayer_fused.launches
+    with torch.no_grad():
+        got = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
+        want = wn.window_sublayer_plain(xs, xt, *w, **kwargs)
+    assert wn.window_sublayer_fused.launches == before + 1
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,f", [((128, 448, 128), 1024), ((1536, 120, 128), 1024),
+                                     ((3, 37, 128), 64)])
+def test_ffn(gen, shape, f):
+    c = shape[-1]
+    xs, xm = _randn(gen, *shape), _randn(gen, *shape)
+    w0, w2 = _randn(gen, 2 * c, f, scale=(2 * c) ** -0.5), _randn(gen, f, c, scale=f**-0.5)
+    ns, nb = 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1)
+    before = wn.ffn_fused.launches
+    with torch.no_grad():
+        got = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
+        want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=True)
+    assert wn.ffn_fused.launches == before + 1
+    assert _rel_err(got, want) <= 1e-4
+
+
+def test_window_sublayer_gradient_on_the_card(gen):
+    """The autograd Function: the forward launches B2b, the backward is
+    autograd of the plain version; the gradients match the CPU's."""
+    shape, geom = (8, 35, 128), (2, 5, 7)
+    xs = _randn(gen, *shape)
+    w = _sublayer_weights(gen, shape[-1])
+    g = _randn(gen, *shape)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        ins = [t.to(device).clone().requires_grad_(True) for t in (xs, *w)]
+        before = wn.window_sublayer_fused.launches
+        out = wn.window_sublayer_fused(ins[0], ins[0], *ins[1:], shift_windows=geom,
+                                       add_residual=True)
+        (out * g.to(device)).sum().backward()
+        assert wn.window_sublayer_fused.launches == before + (device == "cuda")
+        grads[device] = [t.grad.cpu() for t in ins]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_err(got, want) <= 1e-4
+
+
 def test_no_fallback_on_bad_input(gen):
     """A CUDA tensor the kernel does not take raises; it never reaches the
     plain version."""
@@ -267,3 +354,10 @@ def test_no_fallback_on_bad_input(gen):
                           torch.zeros(1, 4, 5, device="cuda"), 2)
     with pytest.raises(ValueError):  # flow of another shape
         wa.warp_adjoint(img, torch.zeros(1, 4, 6, 2, device="cuda"))
+    tokens = torch.zeros(4, 8, 32, device="cuda")
+    with pytest.raises(ValueError):  # the kernels take C = 128
+        wn.window_attention_fused(tokens, tokens, tokens)
+    with pytest.raises(ValueError):  # and float32 only
+        wn.ffn_fused(*(torch.zeros(4, 8, 128, device="cuda", dtype=torch.bfloat16),) * 2,
+                     torch.zeros(256, 64, device="cuda"), torch.zeros(64, 128, device="cuda"),
+                     torch.ones(128, device="cuda"), torch.zeros(128, device="cuda"))

@@ -65,7 +65,8 @@ def build_deep(method, module=None, variables=None, module_kwargs=None,
 def color_transfer_between_videos(target_frames, reference_frames,
                                   method="monge_kantorovitch", batch_size=None,
                                   device=None, per_frame=True, ckpt_path=None,
-                                  module=None, variables=None, module_kwargs=None):
+                                  module=None, variables=None, module_kwargs=None,
+                                  allow_ungated=False):
     """Transfer colour from reference_frames onto target_frames.
 
     Args:
@@ -83,6 +84,9 @@ def color_transfer_between_videos(target_frames, reference_frames,
       ckpt_path / module / variables / module_kwargs: deep methods only —
         where the weights come from (see build_deep); the classical methods
         have no parameters and ignore them.
+      allow_ungated: acknowledge serving a recipe whose recorded gate
+        verdict is FAIL (methods/gates.py); otherwise a warning names the
+        measured drift.
 
     Returns (T, H, W, 3) corrected frames, a float32 tensor on the device.
     """
@@ -99,6 +103,9 @@ def color_transfer_between_videos(target_frames, reference_frames,
 
     r0 = None  # the fixed reference of global mode
     if deep:
+        from color_transfer_tpu_torch.methods.gates import check_recipe
+
+        check_recipe(method, module_kwargs, allow_ungated=allow_ungated)
         module, variables = build_deep(method, module, variables, module_kwargs,
                                        ckpt_path, device)
 

@@ -17,7 +17,10 @@ Two implementations of one function:
     JAX kernel computes in interpret mode);
   * the CUDA kernel in csrc/resb_chain.cu (hand-written for sm_90a; see its
     header for what bounds it and how it is laid out): one launch per conv,
-    two per block, the second writing the block's output in place.
+    two per block, the second writing the block's output in place. An
+    input already in the compute dtype is read where it lies (the first
+    block writes a fresh buffer), and the last conv of a bf16 chain writes
+    float32, so the wrapper adds no pass of its own to the launches.
 
 ``resb_chain`` routes by device: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises. Its ``launches`` attribute counts
@@ -30,8 +33,17 @@ import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/resb_chain.cu
+_MMA_SYNC_CODE = 2  # bf16 through the mma.sync kernel at C = 64 too (timing only)
 _CHANNELS = (16, 32, 64)  # instantiated in csrc/resb_chain.cu
-_TILE = {torch.float32: (8, 16), torch.bfloat16: (32, 16)}  # rows, pixels
+
+
+def tile_shape(compute_dtype, channels, mma_sync=False):
+    """(rows, pixels) of one output tile of the kernel that runs this dtype
+    and width: float32 FMAs 8 x 16; bf16 wgmma (C = 64) 6 x 64; bf16
+    mma.sync (C = 16, 32) 12 x 32."""
+    if compute_dtype == torch.float32:
+        return 8, 16
+    return (6, 64) if channels == 64 and not mma_sync else (12, 32)
 
 
 def _conv_f32(x, kernel, bias):
@@ -87,7 +99,24 @@ def check_kernel_inputs(x, kernels, biases, compute_dtype):
         raise ValueError("x, kernels and biases must share one device")
 
 
-def _launch(x, kernels, biases, cd):
+def launch_plan(n_layers, fresh, widen):
+    """The chain's conv launches as (input, residual, output, relu) buffer
+    names, two per block. Buffers: "src" (the input in the compute dtype),
+    "x" (the running activation, updated in place; it is "src" itself when
+    ``fresh``: the wrapper made that copy, so the caller's tensor is never
+    written), "y" (a block's inner activation) and, with ``widen``, "f32"
+    (the result, written as float32 by the last conv)."""
+    steps = []
+    for blk in range(n_layers):
+        a = "src" if blk == 0 and not fresh else "x"
+        out = "f32" if widen and blk == n_layers - 1 else "x"
+        steps += [(a, None, "y", True), ("y", a, out, False)]
+    return steps
+
+
+def _launch(x, kernels, biases, cd, mma_sync=False):
+    """Launch the chain. ``mma_sync`` (bf16, timing only) takes the mma.sync
+    kernel at C = 64, where the wgmma kernel is the route."""
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, kernels, biases)
     ):
@@ -99,32 +128,46 @@ def _launch(x, kernels, biases, cd):
     from color_transfer_tpu_torch.ops import _build
 
     fn = _build.load("resb_chain").resb_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, h, w, c = x.shape
     n_layers = kernels.shape[0]
-    # Fresh buffers (16-byte aligned by the allocator): the chain updates x
-    # in place, so the caller's tensor is never written.
-    xc = x.to(dtype=cd, memory_format=torch.contiguous_format, copy=True)
-    y = torch.empty_like(xc)
-    wk = kernels.to(cd).reshape(n_layers, 2, 9, c, c).contiguous()
+    src = x.to(dtype=cd, memory_format=torch.contiguous_format)
+    if n_layers == 0:
+        return src.float()
+    fresh = src.data_ptr() != x.data_ptr()  # a copy: free to update in place
+    widen = cd != torch.float32
+    plan = launch_plan(n_layers, fresh, widen)
+    buffers = {"src": src, "y": torch.empty_like(src)}
+    if fresh:
+        buffers["x"] = src
+    elif any("x" in step for step in plan):
+        buffers["x"] = torch.empty_like(src)
+    if widen:
+        buffers["f32"] = torch.empty(src.shape, dtype=torch.float32, device=x.device)
+    wk = kernels.to(cd).reshape(n_layers, 2, 9, c, c)
+    if widen:  # the tensor-core kernels take (tap, C_out, C_in)
+        wk = wk.transpose(-1, -2)
+    wk = wk.contiguous()
     bs = biases.float().contiguous()
-    rows, cols = _TILE[cd]
+    rows, cols = tile_shape(cd, c, mma_sync)
     n_tiles = b * -(-h // rows) * -(-w // cols)
     grid = min(n_tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    code = _DTYPE_CODES[cd]
+    code = _MMA_SYNC_CODE if mma_sync and widen else _DTYPE_CODES[cd]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for blk in range(n_layers):
-            for j, (src, res, dst) in enumerate(((xc, None, y), (y, xc, xc))):
-                err = fn(src.data_ptr(), wk[blk, j].data_ptr(),
-                         bs[blk, j].data_ptr(),
-                         None if res is None else res.data_ptr(), dst.data_ptr(),
-                         b, h, w, c, int(j == 0), code, grid, stream)
-                if err != 0:
-                    raise RuntimeError(f"resb_conv3x3 launch failed: CUDA error {err}")
-                resb_chain.launches += 1
-    return xc.float()
+        for i, (a, res, out, relu) in enumerate(plan):
+            to_f32 = out == "f32"
+            err = fn(buffers[a].data_ptr(), wk[i // 2, i % 2].data_ptr(),
+                     bs[i // 2, i % 2].data_ptr(),
+                     None if res is None else buffers[res].data_ptr(),
+                     None if to_f32 else buffers[out].data_ptr(),
+                     buffers["f32"].data_ptr() if to_f32 else None,
+                     b, h, w, c, int(relu), code, grid, stream)
+            if err != 0:
+                raise RuntimeError(f"resb_conv3x3 launch failed: CUDA error {err}")
+            resb_chain.launches += 1
+    return buffers["f32"] if widen else buffers["x"]
 
 
 def resb_chain(x, kernels, biases, compute_dtype=torch.bfloat16):

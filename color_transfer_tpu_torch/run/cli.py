@@ -14,11 +14,17 @@
 Everything runs on the card unless ``--device cpu`` is given; without a
 card the subcommands raise. ``fit`` and ``validate`` take a config and
 dotted overrides (``--trainer.max_epochs 2``, ``--model.learning_rate
-1e-4``; see run/config.py). ``predict``'s ``--method`` defaults to
-monge_kantorovitch, as in the JAX package, and ``--model.<name> <value>``
-passes a keyword to a deep method's module (``--model.matcher_num_layers
-2``); an unknown name raises. predict's values are parsed as Python
-literals (``true``/``false``/``null`` too) and otherwise kept as strings.
+1e-4``; see run/config.py). ``predict`` resolves its method as the JAX
+package does: ``--method``, else the ``class_path`` of the config's model
+section (``--config configs/dmsct.yaml`` serves DMSCT with the config's
+``init_args``), else the classical ``--model.func_spec``, else
+monge_kantorovitch. ``--model.<name> <value>`` passes a keyword to a deep
+method's module (``--model.matcher_num_layers 2``); an unknown name raises.
+A config's ``init_args`` reach the module only when the method is the
+config's own class. predict's values are parsed as Python literals
+(``true``/``false``/``null`` too) and otherwise kept as strings.
+``--allow_ungated`` acknowledges serving a recipe whose recorded gate
+verdict is FAIL (methods/gates.py).
 """
 
 import argparse
@@ -38,18 +44,47 @@ def _value(text):
         return text
 
 
+def _resolve_predict(args, cfg):
+    """predict's method and module keywords from ``--method`` and the
+    config's model section, as color_transfer_tpu/run/cli.py resolves them.
+    Sets ``args.method``; returns the keywords (a classical method takes
+    none: run_predict drops them)."""
+    model_cfg = cfg.get("model", {}) or {}
+    class_path = model_cfg.get("class_path")
+    init_args = dict(model_cfg.get("init_args", {}) or {})
+    # --model.X without a class_path lands flat in the model section.
+    flat_args = {k: v for k, v in model_cfg.items()
+                 if k not in ("class_path", "init_args")}
+    if args.method is None:
+        init_args.update(flat_args)
+        if class_path in (None, "classical"):
+            args.method = init_args.pop("func_spec", None) or "monge_kantorovitch"
+        else:
+            args.method = class_path
+    elif args.method != class_path:
+        # The config's init_args construct another class: only the flat
+        # command-line keywords apply.
+        init_args = flat_args
+    else:
+        init_args.update(flat_args)
+    return init_args
+
+
 def _parse(argv):
-    """(args, overrides): for predict, overrides are the ``--model.*``
-    keywords with the prefix stripped and their values parsed; for fit and
-    validate, every ``--a.b value`` as given (the config coerces it)."""
+    """(args, overrides): for predict, the method is resolved
+    (_resolve_predict) and overrides are the module keywords, their
+    command-line values parsed; for fit and validate, every ``--a.b value``
+    as given (the config coerces it)."""
     parser = argparse.ArgumentParser(prog="color_transfer_tpu_torch.cli")
     parser.add_argument("subcommand", choices=["fit", "validate", "predict"])
     parser.add_argument("--config", default=None)
     parser.add_argument("--ckpt_path", default=None)
     parser.add_argument("--log_dir", default=None)
     parser.add_argument("--max_batches", type=int, default=None)
-    parser.add_argument("--method", default="monge_kantorovitch",
-                        help="registry name of a classical method, or dmsct / dcmcs3di")
+    parser.add_argument("--method", default=None,
+                        help="predict: registry name of a classical method, or "
+                             "dmsct / dcmcs3di (default: the config's model "
+                             "class_path, else monge_kantorovitch)")
     parser.add_argument("--target", default=None)
     parser.add_argument("--reference", default=None)
     parser.add_argument("--output", default=None)
@@ -60,6 +95,9 @@ def _parse(argv):
                              "methods, 1 for the deep ones)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; cpu to run on the CPU)")
+    parser.add_argument("--allow_ungated", action="store_true",
+                        help="acknowledge serving a recipe whose recorded "
+                             "gate verdict is FAIL (methods/gates.py)")
     args, unknown = parser.parse_known_args(argv)
 
     overrides = {}
@@ -79,12 +117,13 @@ def _parse(argv):
         overrides[key] = val
     if args.subcommand != "predict":
         return args, overrides
-    model_args = {}
-    for key, val in overrides.items():
+    from color_transfer_tpu_torch.run.config import load_config
+
+    for key in overrides:
         if not key.startswith("model."):
             raise SystemExit(f"unexpected argument: --{key}")
-        model_args[key[len("model."):]] = _value(val)
-    return args, model_args
+    cfg = load_config(args.config, {k: _value(v) for k, v in overrides.items()})
+    return args, _resolve_predict(args, cfg)
 
 
 def main(argv=None):

@@ -54,13 +54,16 @@ def collect_pairs(input_dir):
 
 
 def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None,
-                  module_kwargs=None, batch_size=None, device=None):
+                  module_kwargs=None, batch_size=None, device=None,
+                  allow_ungated=False):
     """Correct (target_path, reference_path, out_rel) triples into
     output_dir. Pairs are grouped by image shape and each group runs as one
     clip, in chunks of ``batch_size`` frames (None: 8 for the classical
     methods, 1 for the deep ones); a deep method's module and variables are
     built once. ``device`` None means the card (raises without one).
-    Returns the written paths."""
+    ``allow_ungated`` acknowledges a recipe whose recorded gate verdict is
+    FAIL (methods/gates.py); otherwise serving it warns. Returns the
+    written paths."""
     from color_transfer_tpu_torch.methods.video import (
         DEEP_METHODS,
         build_deep,
@@ -73,6 +76,9 @@ def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None
     device = resolve_device(device)
     module = variables = None
     if method in DEEP_METHODS:
+        from color_transfer_tpu_torch.methods.gates import check_recipe
+
+        check_recipe(method, module_kwargs, allow_ungated=allow_ungated)
         module, variables = build_deep(method, None, None, module_kwargs, ckpt_path,
                                        device)
     groups = {}
@@ -92,7 +98,8 @@ def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None
             np.stack([t for t, _, _ in items]),
             np.stack([r for _, r, _ in items]),
             method=method, batch_size=batch_size, device=device, module=module,
-            variables=variables,
+            variables=variables, module_kwargs=module_kwargs,
+            allow_ungated=allow_ungated,
         )
         out = out.cpu().numpy()
         for i, (_, _, rel) in enumerate(items):
@@ -117,7 +124,8 @@ def run_predict(args, model_init_args=None):
         )
     kwargs = dict(method=args.method, ckpt_path=args.ckpt_path if deep else None,
                   module_kwargs=dict(model_init_args or {}) if deep else None,
-                  batch_size=args.batch_size, device=args.device)
+                  batch_size=args.batch_size, device=args.device,
+                  allow_ungated=getattr(args, "allow_ungated", False))
     if args.target or args.reference or args.output:
         if not (args.target and args.reference and args.output):
             raise SystemExit(

@@ -125,3 +125,46 @@ def test_other_devices_raise(rng):
     x, k, b = (torch.from_numpy(a).to("meta") for a in _make(rng, 1, (1, 4, 4, 16)))
     with pytest.raises(ValueError):
         cc.resb_chain(x, k, b)
+
+
+@pytest.mark.parametrize("layers", [1, 2, 6, 18])
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("widen", [True, False])
+def test_launch_plan(layers, fresh, widen):
+    """The kernel route's launch arithmetic: two convs a block; the first
+    reads the input and writes y with the leaky ReLU, the second adds the
+    block's input as the residual; the caller's tensor (``src`` when the
+    wrapper made no copy) is never written; in bf16 the last conv writes the
+    float32 result."""
+    plan = cc.launch_plan(layers, fresh, widen)
+    assert len(plan) == 2 * layers
+    written = {"x": False}
+    for blk in range(layers):
+        (a0, r0, o0, relu0), (a1, r1, o1, relu1) = plan[2 * blk], plan[2 * blk + 1]
+        assert (r0, o0, relu0) == (None, "y", True)
+        assert (a1, r1, relu1) == ("y", a0, False)  # the residual is the block's input
+        assert a0 == ("src" if blk == 0 and not fresh else "x")
+        assert a0 != "x" or written["x"] or fresh  # reads x only once it holds the chain
+        last = blk == layers - 1
+        assert o1 == ("f32" if widen and last else "x")
+        written["x"] |= o1 == "x"
+    assert all(step[2] != "src" for step in plan)
+    # in place only where the residual's reader is its writer
+    assert all(out != a for a, _, out, _ in plan)
+
+
+def test_tile_shapes():
+    """The tile each kernel walks: the wrapper sizes its persistent grid by
+    it (csrc/resb_chain.cu: kRowsF32 x kTileW, kWgRows x kWgPix, kRowsBf16 x
+    kPixBf16)."""
+    src = open("color_transfer_tpu_torch/csrc/resb_chain.cu").read()
+
+    def const(name):
+        import re
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert cc.tile_shape(torch.float32, 64) == (const("kRowsF32"), const("kTileW"))
+    assert cc.tile_shape(torch.bfloat16, 64) == (const("kWgRows"), const("kWgPix"))
+    for c in (16, 32):
+        assert cc.tile_shape(torch.bfloat16, c) == (const("kRowsBf16"), const("kPixBf16"))
+    assert cc.tile_shape(torch.bfloat16, 64, mma_sync=True) == (12, 32)

@@ -103,6 +103,142 @@ def test_row_attention(gen, precise, shape):
     assert _rel_err(cs, want_cs) <= 1e-4 and _rel_err(cs_only, want_cs) <= 1e-4
 
 
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("shape", [(2, 5, 97, 32), (1, 3, 200, 64), (1, 2, 50, 16),
+                                   (1, 2, 129, 64), (1, 1, 64, 16), (1, 2, 700, 64)])
+def test_row_attention_instantiations(gen, precise, shape):
+    """Out only, colsum only and both, at ragged widths (W a multiple of
+    neither the 64-key tile nor the 128-query group, W below a tile, W of
+    exactly one tile, several groups): the same values whichever
+    instantiation formed them, one launch each, and two runs bit-equal (the
+    column sums use no atomics)."""
+    q, k = _randn(gen, *shape, scale=3.0), _randn(gen, *shape, scale=3.0)
+    v = _randn(gen, *shape)
+    scale = 1.0 / shape[-1]
+    before = ra.row_attention_warp.launches
+    with torch.no_grad():
+        out, cs = ra.row_attention_warp(q, k, v, scale, precise)
+        _, cs_only = ra.row_attention_warp(q, k, None, scale, precise)
+        out_only, no_cs = ra._attend(q, k, v, scale, precise, colsum=False)
+        again = ra.row_attention_warp(q, k, v, scale, precise)
+        want_out, want_cs = ra.row_attention_warp_plain(q, k, v, scale, precise)
+    assert ra.row_attention_warp.launches == before + 4 and no_cs is None
+    assert torch.equal(out, again[0]) and torch.equal(cs, again[1])
+    assert torch.equal(out_only, out)  # the same products in the same order
+    line = 1e-4 * max(1.0, float(want_out.abs().max())) if precise else \
+        2.0 ** -8 * float(v.abs().max())
+    assert float((out_only - want_out).abs().max()) <= line
+    assert _rel_err(cs, want_cs) <= 1e-4 and _rel_err(cs_only, want_cs) <= 1e-4
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+def test_row_attention_blocks_per_row(gen, splits):
+    """The column sums do not depend on how a row's query groups are shared
+    among blocks beyond rounding (partial sums are added in a fixed order),
+    and out does not depend on it at all."""
+    shape = (1, 3, 700, 64)  # 6 query groups
+    q, k, v = _randn(gen, *shape, scale=3.0), _randn(gen, *shape, scale=3.0), _randn(gen, *shape)
+    with torch.no_grad():
+        out, cs = ra._launch(q, k, v, 1 / 64, False, True, splits)
+        out1, cs1 = ra._launch(q, k, v, 1 / 64, False, True, 1)
+        again = ra._launch(q, k, v, 1 / 64, False, True, splits)
+        _, want_cs = ra.row_attention_warp_plain(q, k, v, 1 / 64)
+    assert torch.equal(out, out1) and torch.equal(cs, again[1])
+    assert _rel_err(cs, want_cs) <= 1e-4 and _rel_err(cs1, want_cs) <= 1e-4
+    with pytest.raises(ValueError, match="splits"):
+        ra._launch(q, k, v, 1 / 64, False, True, 7)
+
+
+@pytest.mark.parametrize("scale", [-0.05, 0.0])
+def test_row_attention_scale_sign(gen, scale):
+    """The bf16 kernel takes a positive scale; the wrapper negates (or zeroes)
+    q for the others."""
+    shape = (1, 3, 150, 32)
+    q, k, v = _randn(gen, *shape, scale=3.0), _randn(gen, *shape, scale=3.0), _randn(gen, *shape)
+    with torch.no_grad():
+        out, cs = ra.row_attention_warp(q, k, v, scale)
+        want_out, want_cs = ra.row_attention_warp_plain(q, k, v, scale)
+    assert float((out - want_out).abs().max()) <= 2.0 ** -8 * float(v.abs().max())
+    assert _rel_err(cs, want_cs) <= 1e-4
+
+
+def test_mma_fragment_maps(gen):
+    """One m16n8k16 MMA through the kernels' ldmatrix and mma helpers
+    against torch.matmul: the fragment maps the bf16 kernels are built on.
+    bf16 products are exact in f32, so only the sum order differs."""
+    import ctypes
+
+    from color_transfer_tpu_torch.ops import _build
+
+    fn = _build.load("row_attention").row_attention_mma_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    a = _randn(gen, 16, 16).bfloat16()
+    b = _randn(gen, 8, 16).bfloat16()
+    d = torch.zeros(16, 8, device="cuda")
+    assert fn(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert float((d - a.float() @ b.float().T).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("tap", range(9))
+def test_resb_chain_single_tap(gen, c, tap):
+    """One tap of the first conv at a time (the second conv is the identity
+    on its centre tap), at a shape ragged against the tiles (12 x 32; 6 x 64
+    at C = 64): each tap's shifted window of the halo and its weights reach
+    the right MMA. At C = 64 this is the wgmma kernel, whose operand starts
+    dx rows into the swizzled halo row."""
+    x = _randn(gen, 1, 20, 45, c)
+    k = torch.zeros(1, 2, 3, 3, c, c, device="cuda")
+    b = torch.zeros(1, 2, c, device="cuda")
+    k[0, 0, tap // 3, tap % 3] = _randn(gen, c, c, scale=c ** -0.5)
+    k[0, 1, 1, 1] = torch.eye(c, device="cuda")
+    with torch.no_grad():
+        got = cc.resb_chain(x, k, b, torch.bfloat16)
+        want = cc.resb_chain_plain(x, k, b, torch.bfloat16)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("shape", [(1, 13, 37, 64), (2, 50, 130, 64), (1, 6, 64, 64)])
+def test_resb_chain_routes_agree(gen, shape):
+    """At C = 64 the wgmma kernel and the mma.sync kernel sum the same bf16
+    products in f32 and round at the same places: the same values, a bf16
+    ulp apart at most where the sum order flips a rounding."""
+    x = _randn(gen, *shape)
+    k = _randn(gen, 2, 2, 3, 3, 64, 64, scale=(9 * 64) ** -0.5)
+    b = _randn(gen, 2, 2, 64, scale=0.05)
+    with torch.no_grad():
+        wgmma = cc.resb_chain(x, k, b, torch.bfloat16)
+        mma = cc._launch(x, k, b, torch.bfloat16, mma_sync=True)
+        want = cc.resb_chain_plain(x, k, b, torch.bfloat16)
+    scale = max(1.0, float(want.abs().max()))
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    assert float((wgmma - mma).abs().max()) <= 2 * ulp
+    assert float((wgmma - want).abs().max()) <= 4 * ulp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resb_chain_reads_its_input_in_place(gen, dtype):
+    """An input already in the compute dtype is read where it lies and never
+    written; the result is a float32 tensor of its own, twice bit-equal."""
+    x = _randn(gen, 1, 30, 50, 32).to(dtype)
+    k = _randn(gen, 2, 2, 3, 3, 32, 32, scale=(9 * 32) ** -0.5)
+    b = _randn(gen, 2, 2, 32, scale=0.05)
+    kept = x.clone()
+    with torch.no_grad():
+        got = cc.resb_chain(x, k, b, dtype)
+        again = cc.resb_chain(x, k, b, dtype)
+        want = cc.resb_chain_plain(x, k, b, dtype)
+    assert torch.equal(x, kept) and got.dtype == torch.float32
+    assert got.data_ptr() != x.data_ptr() and torch.equal(got, again)
+    scale = max(1.0, float(want.abs().max()))
+    line = 1e-4 * scale if dtype == torch.float32 else 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    assert float((got - want).abs().max()) <= line
+
+
 def _idt_tables(gen, rows, bins):
     """Monotone tables in bin units on per-row grids, and samples that also
     fall below grid_lo and above right_edge."""

@@ -55,6 +55,72 @@ def test_plain_matches_jax(rng, precise, shape, tq):
 
 
 @pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("mode", ["both", "colsum_only", "out_only"])
+def test_three_instantiations(rng, precise, mode):
+    """The plain counterparts of the kernel's three instantiations: out only
+    returns no column sums, colsum only no out, and each agrees with JAX's
+    interpret kernel (which always computes both) at the file's lines."""
+    shape = (2, 3, 70, 16)
+    q, k, v = _inputs(rng, shape)
+    scale = 1.0 / shape[-1]
+    want_out, want_cs = jax_row_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, tq=32,
+        interpret=True, precise=precise,
+    )
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    if mode == "both":
+        out, cs = ra.row_attention_warp(tq, tk, tv, scale, precise)
+    elif mode == "colsum_only":
+        out, cs = ra.row_attention_warp(tq, tk, None, scale, precise)
+        assert out is None
+    else:
+        out, cs = ra._attend(tq, tk, tv, scale, precise, colsum=False)
+        assert cs is None
+    if out is not None:
+        np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=OUT_ATOL[precise])
+    if cs is not None:
+        np.testing.assert_allclose(cs.numpy(), np.asarray(want_cs), atol=CS_ATOL)
+    both = ra.row_attention_warp_plain(tq, tk, tv, scale, precise)
+    for got, ref in zip((out, cs), both):
+        assert got is None or torch.equal(got, ref)  # a mode skips, it does not change
+
+
+def test_nothing_to_compute_raises():
+    x = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(ValueError, match="nothing to compute"):
+        ra.row_attention_warp_plain(x, x, None, 1.0, colsum=False)
+    with pytest.raises(ValueError, match="nothing to compute"):
+        ra._launch(x, x, None, 1.0, False, colsum=False)
+
+
+def test_fused_parallax_inference_takes_out_only_then_colsum_only(rng, monkeypatch):
+    """The matcher's two calls: the first forms no column sums, the second no
+    output."""
+    seen = []
+    real = ra._attend
+
+    def spy(q, k, v, scale, precise, colsum):
+        seen.append((v is not None, colsum))
+        return real(q, k, v, scale, precise, colsum)
+
+    monkeypatch.setattr(ra, "_attend", spy)
+    arrays = map(torch.from_numpy, _inputs(rng, (1, 2, 20, 8), n=5))
+    ra.fused_parallax_inference(*arrays, 0.125)
+    assert seen == [(True, False), (False, True)]
+
+
+@pytest.mark.parametrize("scale", [-0.25, 0.0])
+def test_plain_takes_any_scale(rng, scale):
+    """A negative or zero scale is plain softmax arithmetic (the bf16 kernel
+    takes a positive one: its wrapper negates or zeroes q instead)."""
+    q, k, v = map(torch.from_numpy, _inputs(rng, (1, 2, 20, 8)))
+    out, cs = ra.row_attention_warp(q, k, v, scale, True)
+    flipped = ra.row_attention_warp(-q if scale else 0 * q, k, v, -scale or 1.0, True)
+    torch.testing.assert_close(out, flipped[0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(cs, flipped[1], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("precise", [True, False])
 def test_fused_parallax_inference_matches_jax(rng, precise):
     shape = (1, 4, 70, 8)
     arrays = _inputs(rng, shape, n=5)

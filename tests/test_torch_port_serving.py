@@ -285,3 +285,206 @@ def test_cli_predict_dcmcs3di(tmp_path, clip, capsys):
     assert str(out) in capsys.readouterr().out
     with pytest.raises(TypeError):  # an unknown --model.X keeps raising
         cli.main(args + ["--model.bogus", "1"])
+
+
+# -- predict's method resolution (the JAX package's run/cli.py) -----------------
+
+
+@pytest.fixture
+def one_pair(tmp_path, clip):
+    t, r = clip
+    _write_pair(tmp_path, "0000", t[0], r[0])
+    return ["predict", "--target", str(tmp_path / "0000_LD.png"), "--reference",
+            str(tmp_path / "0000_R.png"), "--device", "cpu"]
+
+
+def _predict_bytes(one_pair, tmp_path, name, *extra):
+    out = tmp_path / f"{name}.png"
+    assert cli.main([*one_pair, "--output", str(out), *extra]) == 0
+    return out.read_bytes()
+
+
+def test_predict_config_builds_the_configs_module(one_pair, tmp_path, monkeypatch):
+    """``--config configs/dmsct.yaml`` serves DMSCT built with the config's
+    init_args, command-line keywords folded in."""
+    from color_transfer_tpu_torch.methods import video
+
+    built = []
+    real = video.build_deep
+
+    def spy(*args, **kwargs):
+        module, variables = real(*args, **kwargs)
+        built.append(module)
+        return module, variables
+
+    monkeypatch.setattr(video, "build_deep", spy)
+    _predict_bytes(one_pair, tmp_path, "cfg", "--config", "configs/dmsct.yaml",
+                   "--model.matcher_num_layers", "1", "--model.matcher_num_reg_refine", "1")
+    module = built[0]
+    assert isinstance(module, DMSCTModule)
+    assert module.hparams["decoder_channels"] == [256, 128, 64, 32]  # the config's
+    assert module.hparams["encoder_name"] == "efficientnet-b2"
+    assert module.hparams["matcher_num_layers"] == 1  # the command line's
+    assert len(module.model.matcher.transformer.layers) == 1
+
+
+def test_predict_func_spec_selects_the_classical_method(one_pair, tmp_path):
+    """``--model.func_spec idt`` is ``--method idt``; no option at all is
+    monge_kantorovitch; the two differ."""
+    torch.manual_seed(0)
+    by_spec = _predict_bytes(one_pair, tmp_path, "spec", "--model.func_spec", "idt")
+    torch.manual_seed(0)
+    by_method = _predict_bytes(one_pair, tmp_path, "method", "--method", "idt")
+    default = _predict_bytes(one_pair, tmp_path, "default")
+    mk = _predict_bytes(one_pair, tmp_path, "mk", "--method", "monge_kantorovitch")
+    assert by_spec == by_method
+    assert default == mk
+    assert default != by_method
+
+
+def test_predict_method_overrides_the_config(one_pair, tmp_path):
+    """``--method reinhard --config configs/dmsct.yaml``: none of the
+    config's DMSCT keywords reach the classical method."""
+    args, kwargs = cli._parse([*one_pair, "--method", "reinhard", "--config",
+                               "configs/dmsct.yaml"])
+    assert args.method == "reinhard" and kwargs == {}
+    with_cfg = _predict_bytes(one_pair, tmp_path, "a", "--method", "reinhard",
+                              "--config", "configs/dmsct.yaml")
+    assert with_cfg == _predict_bytes(one_pair, tmp_path, "b", "--method", "reinhard")
+    # a deep --method other than the config's class keeps only the flat keywords
+    args, kwargs = cli._parse(["predict", "--method", "dcmcs3di", "--config",
+                               "configs/dmsct.yaml"])
+    assert args.method == "dcmcs3di" and kwargs == {}
+    # ... and the config's own class named explicitly keeps its init_args
+    args, kwargs = cli._parse(["predict", "--method", "dmsct", "--config",
+                               "configs/dmsct.yaml", "--model.matcher_num_layers", "2"])
+    assert kwargs["encoder_depth"] == 4 and kwargs["matcher_num_layers"] == 2
+
+
+@pytest.mark.parametrize("argv,method", [
+    ([], "monge_kantorovitch"),
+    (["--model.func_spec", "idt"], "idt"),
+    (["--config", "configs/dmsct.yaml"], "dmsct"),
+    (["--config", "configs/others.yaml"], None),  # the classical config's func_spec
+    (["--method", "reinhard", "--model.func_spec", "idt"], "reinhard"),
+])
+def test_predict_method_resolution(argv, method):
+    args, _ = cli._parse(["predict", *argv])
+    if method is None:
+        import yaml
+
+        spec = yaml.safe_load(open("configs/others.yaml"))["model"]["init_args"]
+        method = spec.get("func_spec") or "monge_kantorovitch"
+    assert args.method == method
+
+
+# -- the gate records at the serving surfaces (methods/gates.py) -----------------
+
+
+@pytest.fixture
+def stub_deep(monkeypatch):
+    """A deep build that costs nothing: the surfaces must consult the gate
+    records before they build."""
+    from color_transfer_tpu_torch.methods import video
+
+    class Stub:
+        def eval_forward(self, variables, batch):
+            return batch["target"]
+
+    monkeypatch.setattr(video, "build_deep",
+                        lambda *a, **k: (Stub(), {"w": torch.zeros(1)}))
+
+
+@pytest.fixture
+def failing_bf16(monkeypatch):
+    from color_transfer_tpu_torch.methods import gates
+
+    monkeypatch.setitem(gates.RECORDS, ("dcmcs3di", "bf16"),
+                        ("fail", "worst dSSIM -7.38e-4"))
+
+
+def test_gate_records_are_the_ports():
+    from color_transfer_tpu_torch.methods import gates
+
+    assert gates.recipe_verdict("dmsct", None)[0] == "pass"
+    verdict, detail = gates.recipe_verdict("dmsct", {"matcher_fused_attention": True})
+    assert verdict == "pass" and "99.94" in detail
+    assert gates.recipe_verdict("dcmcs3di", {})[0] == "pass"
+    for dtype in ("bfloat16", torch.bfloat16):
+        verdict, detail = gates.recipe_verdict("dcmcs3di", {"compute_dtype": dtype})
+        assert verdict == "pass" and "1 of 3" in detail and "-7.38e-4" in detail
+    assert gates.recipe_verdict("reinhard", {})[0] == "unrecorded"
+    assert "TPU" not in "".join(d for _, d in gates.RECORDS.values())
+
+
+def test_video_takes_allow_ungated(stub_deep, clip):
+    import warnings
+
+    t, r = clip
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out = color_transfer_between_videos(
+            t, r, method="dmsct", device="cpu", allow_ungated=True,
+            module_kwargs={"matcher_fused_attention": True})
+        color_transfer_between_videos(t, r, method="dcmcs3di", device="cpu",
+                                      module_kwargs={"compute_dtype": "bfloat16"})
+    assert out.shape == (3, 32, 48, 3)
+
+
+def test_failing_record_warns_unless_acknowledged(stub_deep, failing_bf16, clip, tmp_path):
+    import warnings
+
+    t, r = clip
+    kw = {"compute_dtype": "bfloat16"}
+    with pytest.warns(UserWarning, match="FAILED its quality gate.*-7.38e-4"):
+        color_transfer_between_videos(t, r, method="dcmcs3di", device="cpu",
+                                      module_kwargs=kw)
+    _write_pair(tmp_path, "0000", t[0], r[0])
+    pairs = collect_pairs(tmp_path)
+    with pytest.warns(UserWarning, match="FAILED its quality gate"):
+        predict_pairs(pairs, tmp_path / "out", method="dcmcs3di", module_kwargs=kw,
+                      device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        color_transfer_between_videos(t, r, method="dcmcs3di", device="cpu",
+                                      module_kwargs=kw, allow_ungated=True)
+        predict_pairs(pairs, tmp_path / "out", method="dcmcs3di", module_kwargs=kw,
+                      device="cpu", allow_ungated=True)
+        color_transfer_between_videos(t, r, method="dcmcs3di", device="cpu")  # f32
+
+
+def test_cli_allow_ungated(stub_deep, failing_bf16, one_pair, tmp_path):
+    import warnings
+
+    args, _ = cli._parse(["predict", "--allow_ungated"])
+    assert args.allow_ungated is True
+    assert cli._parse(["predict"])[0].allow_ungated is False
+    argv = [*one_pair, "--method", "dcmcs3di", "--model.compute_dtype", "bfloat16",
+            "--output", str(tmp_path / "o.png")]
+    with pytest.warns(UserWarning, match="FAILED its quality gate"):
+        assert cli.main(argv) == 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert cli.main(argv + ["--allow_ungated"]) == 0
+
+
+def test_kernel_ab_times_two_copies_side_by_side(tmp_path):
+    """tools/kernel_ab.py: the package copied under another name imports
+    beside the tree's (its own modules, its own launch counts), and each
+    case is timed in the order other, tree, tree, other."""
+    import importlib
+
+    from color_transfer_tpu_torch.tools import kernel_ab
+
+    other = kernel_ab.rename_package(REPO / "color_transfer_tpu_torch", tmp_path / "ctt_other")
+    assert not (other / "_build").exists()
+    assert "color_transfer_tpu_torch" not in (other / "ops" / "row_attention.py").read_text()
+    rows = kernel_ab.run(other, torch.device("cpu"), small=True, iters=1)
+    assert len(rows) == 4 + 6  # B5: 2 modes x 2 dtypes; B6: 3 chains x 2 batches
+    for row in rows:
+        assert row["order"] == ["other", "tree", "tree", "other"]
+        assert len(row["ms"]) == 4 and all(t > 0 for t in row["ms"])
+    theirs = importlib.import_module("ctt_other.ops.conv_chain")
+    from color_transfer_tpu_torch.ops import conv_chain as ours
+
+    assert theirs is not ours and theirs.resb_chain is not ours.resb_chain

@@ -143,12 +143,12 @@ B3_LINE, B4_LINE = 1e-6, 1e-6
 SMALL_LINEAR_ATOL = 1e-4
 SMALL_IDT_MAX, SMALL_IDT_MEAN = 3**0.5 / 255, 1e-4
 # NVIDIA H100 SXM data-sheet peaks at its 700 W limit (dense): device memory
-# 3.35 TB/s; 67 TFLOP/s in float32 outside the tensor cores, 989 TFLOP/s in
-# bf16 on them. A kernel's bound is the larger of its bytes (each input read
+# 3.35 TB/s; 67 TFLOP/s in float32 outside the tensor cores, 495 TFLOP/s in
+# TF32 and 989 TFLOP/s in bf16 on them. A kernel's bound is the larger of its bytes (each input read
 # once, each output written once) over the memory rate and its operations
 # over the rate of their type.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # DMSCT training at the configs/dmsct.yaml recipe: batch 12, 256x480 crops;
 # the corrector's warp levels 1-4 (B, H, W, C) on efficientnet-b2.
 TRAIN_BATCH, TRAIN_CROP = 12, (256, 480)
@@ -243,8 +243,9 @@ def build():
             _log(f"build {name}: {secs:.2f} s -> {lib.name}")
             for line in (report or "").splitlines():  # registers and spills
                 entry = re.search(r"Compiling entry function '\w*?\d(row_attention_bf16|"
-                                  r"row_attention_f32|conv3x3_bf16|conv3x3_f32)"
-                                  r"(I(?:L[ib]\d+E)+)", line)
+                                  r"row_attention_f32|conv3x3_bf16|conv3x3_f32|"
+                                  r"window_attention_kernel|sublayer_kernel|"
+                                  r"warp_adjoint_kernel)((?:I(?:L[ib]\d+E)+)?)", line)
                 if entry:  # e.g. row_attention_bf16 ILi64ELb1ELb0E: <C = 64, out, no colsum>
                     _log(f"  {entry.group(1)} {entry.group(2)}")
                 if "Used" in line or "spill" in line:
@@ -574,6 +575,8 @@ def _wrappers():
 def _reset_launches():
     for fn in _wrappers():
         fn.launches = 0
+        if hasattr(fn, "vector_launches"):  # B7's launches on its vector path
+            fn.vector_launches = 0
 
 
 def _launches():
@@ -724,10 +727,12 @@ def _stage_ms(model, run, stages=STAGES, functions=STAGE_FUNCTIONS):
     return ms
 
 
-def _device_busy_ms(run, top=0):
+def _device_busy_ms(run, top=0, required=True):
     """Device busy ms of ``run()`` from a torch.profiler trace: the union of
     the intervals of the device events (kernels, copies, memsets) it ran.
-    With ``top``, also logs the ``top`` device kernels by summed time."""
+    With ``top``, also logs the ``top`` device kernels by summed time. A
+    trace without device activity raises, unless ``required`` is False
+    (a figure that is only reported: then 0)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -748,9 +753,23 @@ def _device_busy_ms(run, top=0):
         if end > reached:
             busy += end - max(start, reached)
             reached = end
-    if busy == 0.0:
+    if busy == 0.0 and required:
         raise AssertionError("the profiler recorded no device activity")
     return busy / 1e3
+
+
+def _device_kernels(run, calls=3):
+    """The names of the device kernels ``run()`` launches, from a
+    torch.profiler trace of ``calls`` calls (reported, not checked)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def _check_stages(label, model, variables, small_t, small_r, stages,
@@ -1139,54 +1158,86 @@ def check_small_classical():
     _log(f"classical: small clip {tuple(target.shape)}, card against CPU: " + ", ".join(report))
 
 
+def _b7_flow(g, kind, b, h, w):
+    """The mixed flow (the row's), its sub-pixel kind alone (in the image),
+    or its far kind alone (every sample clamped to the border)."""
+    if kind == "mixed":
+        return _mixed_flow(g, b, h, w, "cuda")
+    if kind == "in-image":
+        return (torch.randn(b, h, w, 2, generator=g) * 3.0).cuda()
+    return (torch.sign(torch.randn(b, h, w, 2, generator=g)) * (
+        60.0 + torch.rand(b, h, w, 2, generator=g) * 500.0)).cuda()
+
+
 def check_warp_adjoint(g):
     """B7 against its plain version at the four training levels and at
-    ragged shapes (mixed sub-pixel, zero and clamped flows), line B7_LINE;
-    each timed (CUDA events) with the plain version and one ``index_add_``
-    of the pre-weighted corner updates into the flattened padded buffer (no
-    zeroing, no weighting: the library's part alone). Then the backward of
-    flow_warp_batched against torch's autograd of the plain gather. Returns
-    B7's row: times summed over one train step's four launches."""
+    ragged shapes (C = 5 and 7: the scalar path) on mixed sub-pixel, zero and
+    clamped flows, line B7_LINE. At the four levels each is timed (CUDA
+    events; the kernel's time holds the zeroing of the padded buffer) with
+    the plain version and one ``index_add_`` of the pre-weighted corner
+    updates into the flattened padded buffer (the library's part alone, as
+    the row has always counted it; ``zero_`` + ``index_add_`` printed
+    beside it), on the mixed flow (the row), an in-image flow and an
+    all-clamped one. Then the backward of flow_warp_batched against torch's
+    autograd of the plain gather. Returns B7's row: times summed over one
+    train step's four launches, mixed flow."""
     from color_transfer_tpu_torch.core.sampling import flow_warp, flow_warp_batched
     from color_transfer_tpu_torch.ops import warp_adjoint as wa
 
-    totals = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
+    kinds = ("mixed", "in-image", "clamped")
+    totals = {k: dict.fromkeys(("ms", "plain_ms", "library_ms", "zero_library_ms"), 0.0)
+              for k in kinds}
     worst, moved, ops = 0.0, 0, 0
     for shape in B7_SHAPES + ((2, 13, 37, 5), (1, 9, 11, 7)):
         b, h, w, c = shape
         gr = torch.randn(*shape, generator=g).cuda()
-        flow = _mixed_flow(g, b, h, w, "cuda")
-        got = wa.warp_adjoint(gr, flow)
-        want = wa.warp_adjoint_plain(gr, flow)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = max(1.0, float(want.abs().max()))
-        line = B7_LINE * scale
-        msg = (f"warp_adjoint (B7) {shape}: max|d|={err:.3e} (line {line:.3e}, "
-               f"relative {err / scale:.2e})")
-        if not np.isfinite(err) or err > line:
-            raise AssertionError(f"warp_adjoint kernel disagrees at {shape}: {err}")
-        if shape in B7_SHAPES:
-            rows, weights = wa.warp_corners(flow, h, w)
-            index = (rows[..., None] + torch.tensor([0, 1, w + 4, w + 5], device="cuda"))
-            index = index.reshape(-1)
-            updates = (weights[..., None] * gr[..., None, :]).reshape(-1, c)
-            padded = torch.zeros(b * (h + 4) * (w + 4), c, device="cuda")
-            ms = _time_ms(lambda: wa.warp_adjoint(gr, flow))
-            plain_ms = _time_ms(lambda: wa.warp_adjoint_plain(gr, flow), iters=5)
-            library_ms = _time_ms(lambda: padded.index_add_(0, index, updates))
-            msg += f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms"
-            totals["ms"] += ms
-            totals["plain_ms"] += plain_ms
-            totals["library_ms"] += library_ms
-            worst = max(worst, err)
-            # g and flow read once, the padded gradient written once; per
-            # (pixel, channel) four weight products and four adds.
-            moved += 4 * (gr.numel() + flow.numel() + b * (h + 4) * (w + 4) * c)
-            ops += 8 * gr.numel()
-            del rows, weights, index, updates, padded
-        _log(msg)
-        del gr, flow, got, want
+        for kind in kinds if shape in B7_SHAPES else ("mixed",):
+            flow = _b7_flow(g, kind, b, h, w)
+            vec_before = wa.warp_adjoint.vector_launches
+            got = wa.warp_adjoint(gr, flow)
+            want = wa.warp_adjoint_plain(gr, flow)
+            torch.cuda.synchronize()
+            if wa.warp_adjoint.vector_launches - vec_before != int(c % 4 == 0):
+                raise AssertionError(f"warp_adjoint {shape}: the wrong path ran")
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            line = B7_LINE * scale
+            msg = (f"warp_adjoint (B7) {shape} {kind}: max|d|={err:.3e} (line {line:.3e}, "
+                   f"relative {err / scale:.2e})")
+            if not np.isfinite(err) or err > line:
+                raise AssertionError(f"warp_adjoint kernel disagrees at {shape} {kind}: {err}")
+            if shape in B7_SHAPES:
+                rows, weights = wa.warp_corners(flow, h, w)
+                index = rows[..., None] + torch.tensor([0, 1, w + 4, w + 5], device="cuda")
+                index = index.reshape(-1)
+                updates = (weights[..., None] * gr[..., None, :]).reshape(-1, c)
+                padded = torch.zeros(b * (h + 4) * (w + 4), c, device="cuda")
+                t = totals[kind]
+                ms = _time_ms(lambda: wa.warp_adjoint(gr, flow))
+                plain_ms = _time_ms(lambda: wa.warp_adjoint_plain(gr, flow), iters=5)
+                library_ms = _time_ms(lambda: padded.index_add_(0, index, updates))
+                zero_ms = _time_ms(lambda: padded.zero_().index_add_(0, index, updates))
+                busy_ms = _device_busy_ms(lambda: wa.warp_adjoint(gr, flow), required=False)
+                msg += (f" kernel {ms:.4f} ms (device busy in one call {busy_ms:.4f}), plain "
+                        f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, zero_ + "
+                        f"index_add_ {zero_ms:.4f} ms")
+                for key, val in zip(t, (ms, plain_ms, library_ms, zero_ms)):
+                    t[key] += val
+                if kind == "mixed":
+                    worst = max(worst, err)
+                    # g and flow read once, the padded gradient written once;
+                    # per (pixel, channel) four weight products and four adds.
+                    moved += 4 * (gr.numel() + flow.numel() + b * (h + 4) * (w + 4) * c)
+                    ops += 8 * gr.numel()
+                del rows, weights, index, updates, padded
+            _log(msg)
+            del flow, got, want
+        del gr
+    for kind, t in totals.items():
+        _log(f"warp_adjoint (B7) one step's four levels, {kind} flow: kernel {t['ms']:.4f} ms, "
+             f"plain {t['plain_ms']:.4f}, index_add_ {t['library_ms']:.4f}, zero_ + index_add_ "
+             f"{t['zero_library_ms']:.4f}")
+    totals = totals["mixed"]
 
     feat = torch.randn(2, 64, 120, 24, generator=g).cuda()
     flow = (torch.randn(2, 64, 120, 2, generator=g) * 2).cuda()
@@ -1283,6 +1334,12 @@ def train(rows):
              f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}, launches {counts}")
         if len(steps) != 4 or b7 != 4 * len(steps):
             raise AssertionError(f"B7 launched {b7} times in {len(steps)} steps, expected 4 per step")
+        from color_transfer_tpu_torch.ops.warp_adjoint import warp_adjoint
+
+        b7_vector = warp_adjoint.vector_launches
+        _log(f"train: B7 launches on the vector path (16-byte reductions) {b7_vector} of {b7}")
+        if b7_vector != b7:
+            raise AssertionError("a training level took B7's scalar path")
         if counts["local_correlation_with_flow"] < 6 * len(steps):
             raise AssertionError("the training matcher did not launch B1 six times a step")
         if any(n for name, n in counts.items() if name not in ("warp_adjoint",
@@ -1526,10 +1583,13 @@ def check_win_kernels(g):
     """B2a (no mask, the shift mask from geometry, a mask operand), B2b
     (self-attention with the shift and the residual, cross-attention
     without) and B2c against their plain versions at B2_SHAPES, line
-    KERNEL_RTOL of max(1, max|ref|): f32 FMA sums against cuBLAS's f32
-    products, in another order. At B2_TIMED (1080p scale 1 and half its
-    windows) each is timed beside its plain version and, for B2a, one
-    scaled_dot_product_attention with the tiled float mask (f32). Returns
+    KERNEL_RTOL of max(1, max|ref|): f32 FMA sums (B2c, B2b's projections)
+    and 3xTF32 MMAs (the attention core) against cuBLAS's f32 products, in
+    another order. At B2_TIMED (1080p scale 1 and half its windows) each is
+    timed beside its plain version and, for B2a, one
+    scaled_dot_product_attention with the tiled float mask (f32), whose
+    device kernels one profiled call names. Each attention row's bound is
+    printed twice: at the f32 FMA rate and for 3xTF32 at TF32's rate. Returns
     the rows of B2a (shift mode), B2b (cross-attention, the bound's two
     token inputs) and B2c at 1080p scale 1."""
     import torch.nn.functional as F
@@ -1584,6 +1644,11 @@ def check_win_kernels(g):
                 + f"; SDPA with the tiled float mask {sdpa_ms:.4f}")
             if shape == B2_TIMED[0]:
                 timed, kept = times, (shape, x.numel(), sdpa_ms)
+                with torch.no_grad():
+                    names = _device_kernels(lambda: F.scaled_dot_product_attention(
+                        x[:, None], y[:, None], v[:, None], attn_mask=attn_mask))
+                _log(f"B2 {shape}: the SDPA call's device kernels (what the library computes "
+                     f"in): {'; '.join(names) or 'none recorded by the profiler'}")
             del attn_mask
         del x, y, v, mask
     torch.cuda.empty_cache()
@@ -1599,17 +1664,27 @@ def check_win_kernels(g):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     # Bounds: each input read once and each output written once (f32), and
-    # the products' operations at the f32 rate (softmax and LayerNorm are
-    # small beside them).
+    # the products' operations at the rate of the route each takes: the
+    # projections and the FFN f32 FMAs, the attention core three TF32
+    # products (3xTF32) each (softmax and LayerNorm are small beside them).
+    # Each attention row also prints its bound were the attention f32 FMAs.
+    attn = 4 * bp * length * length * c  # QK^T and PV
+    proj = 8 * bp * length * c * c  # the q, k/v and merge projections
+    for label, nbytes, f32_ops in (("B2a", 4 * 4 * n, attn),
+                                   ("B2b", 4 * (3 * n + 4 * c * c + 2 * c), proj + attn)):
+        ms_fma, _ = bound(nbytes, {"f32": f32_ops})
+        ms_route, by = bound(nbytes, {"f32": f32_ops - attn, "tf32": 3 * attn})
+        _log(f"{label} bound at {tuple(kept[0])}: {ms_fma:.4f} ms were the attention f32 FMAs "
+             f"(67 TFLOP/s); {ms_route:.4f} ms ({by}) for the route taken, 3xTF32 at 495 "
+             "TFLOP/s")
     return [
         # q, k, v read, out written; QK^T and PV.
         _with_bound(row("window_attention_fused", "win_attention.cu", 175, "B2a shift"),
-                    4 * 4 * n, {"f32": 4 * bp * length * length * c}, sdpa_ms),
-        # x_src, x_tgt read, out written, the weights; the q, k/v and merge
-        # projections and the attention.
+                    4 * 4 * n, {"tf32": 3 * attn}, sdpa_ms),
+        # x_src, x_tgt read, out written, the weights; the projections and the
+        # attention.
         _with_bound(row("window_sublayer_fused", "win_sublayer.cu", 321, "B2b cross"),
-                    4 * (3 * n + 4 * c * c + 2 * c),
-                    {"f32": bp * (8 * length * c * c + 4 * length * length * c)}, None),
+                    4 * (3 * n + 4 * c * c + 2 * c), {"f32": proj, "tf32": 3 * attn}, None),
         # x_src, x_msg read, out written, W0 and W2; the two products.
         _with_bound(row("ffn_fused", "win_ffn.cu", 524, "B2c"),
                     4 * (3 * n + 3 * c * B2_FFN + 2 * c),
@@ -1750,6 +1825,9 @@ def gates():
              + json.dumps([[r["i"], round(r["pair_psnr"], 2), round(r["d_psnr"], 5),
                             round(r["d_ssim"], 7), round(r["d_icid"], 7)] for r in rows]))
         _log("gate summary: " + json.dumps(summary))
+        _log(f"gate {model} {recipe}: worst pair PSNR "
+             f"{min(r['pair_psnr'] for r in rows):.2f} dB, verdict "
+             f"{'pass' if summary['pass'] else 'fail'}")
         if len(rows) != 31 or not deep_gate.rows_finite(rows):
             raise AssertionError(f"gate {model} {recipe}: a row is missing or not finite")
         # Is a verdict the weights' or the recipe's? DCMCS3DI bf16 always runs

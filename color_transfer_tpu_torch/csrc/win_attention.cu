@@ -10,17 +10,21 @@
 // mask with window w reading mask[w % n_mask].
 //
 // What bounds it on the card: the two products, 4 L^2 C flops per window
-// (13.2 GFLOP at (128, 448, 128), 0.196 ms at the 67 TFLOP/s f32 rate); the
-// four (B', L, C) tensors are 117 MB there (0.035 ms at 3.35 TB/s).
+// (26.3 GFLOP at (256, 448, 128): 0.39 ms at the 67 TFLOP/s f32 FMA rate;
+// in 3xTF32 three TF32 products each, 0.16 ms at 495 TFLOP/s); the four
+// (B', L, C) tensors are 235 MB there (0.07 ms at 3.35 TB/s).
 //
-// Design (a simple correct first version, f32 FMA, no TF32): one block per
-// (window, 32 query rows). The query tile stays in shared memory; keys and
-// then values stream through a 64-row shared tile; the whole 32 x L score
-// tile stays in shared memory, so the softmax is the exact two-pass one of
-// JAX (max, exp, sum, divide) and never touches device memory
-// (win_common.cuh::attend). L up to 1024 fits (182 KB); L = 448 and 480 take
-// ~110 KB, two blocks per SM. Tensor cores (wgmma, TF32 or bf16) would be a
-// different recipe and are later work.
+// What held the first version back (f32 FMAs, 1.43 ms there): each float4
+// of K or V read from shared memory fed 8 FMAs, so the loop ran at the
+// shared-memory port's rate; and the whole 32 x L score tile lived in
+// shared memory (~110 KB at L = 448), written, read for the max, read and
+// written by the exponentials and read again for P.V.
+//
+// Design: one block per (window, 32 query rows); the query tile is split
+// into its TF32 halves in shared memory and the attention core
+// win_common.cuh::attend (3xTF32 mma.sync, scores in registers, an online
+// softmax per key share, cp.async K/V tiles; its header says more) leaves
+// the result in shared memory; the block then writes it out row by row.
 
 #include "win_common.cuh"
 
@@ -28,32 +32,23 @@ namespace {
 
 using namespace win;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 window_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out, int L,
                         float scale, Mask mask) {
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* KV = Qs + kRows * kCP;
-  float* S = KV + kTile * kCP;
+  const AttnSmem sm(reinterpret_cast<float*>(smem4));
   const int w = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
   const int nq = min(kRows, L - q0);
   const long long base = static_cast<long long>(w) * L * kC;
 
-  load_rows<kC>(Qs, kCP, q + base + static_cast<long long>(q0) * kC, kC, kRows, nq);
-  float acc[2][8];
-  attend(acc, Qs, KV, S, score_stride(L), k + base, v + base, kC, L, w, q0, nq, scale,
-         mask);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty() + 16 * i;
-    if (r >= nq) continue;
-    float* o = out + base + static_cast<long long>(q0 + r) * kC + 4 * tx();
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<float4*>(o + 64 * j) =
-          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+  split_rows(sm, q + base + static_cast<long long>(q0) * kC, kC, nq);
+  attend(sm, k + base, v + base, kC, L, w, q0, nq, scale, mask);
+  for (int i = threadIdx.x; i < nq * (kC / 4); i += kThreads) {
+    const int r = i / (kC / 4), c = (i % (kC / 4)) * 4;
+    *reinterpret_cast<float4*>(out + base + static_cast<long long>(q0 + r) * kC + c) =
+        *reinterpret_cast<const float4*>(sm.qb + r * kCP + c);
   }
 }
 
@@ -69,7 +64,7 @@ extern "C" int window_attention_forward(const float* q, const float* k, const fl
                                         int L, int mode, int n_mask, int kw, int hs,
                                         int ws, float scale, void* stream) {
   if (n_windows == 0 || L == 0) return 0;
-  const size_t smem = attention_smem(L);
+  const size_t smem = attention_smem();
   if (smem > static_cast<size_t>(kMaxSmem) || n_windows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(

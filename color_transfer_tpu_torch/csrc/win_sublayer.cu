@@ -14,7 +14,7 @@
 // 0.309 ms at the 67 TFLOP/s f32 rate. It moves ~88 MB (0.026 ms), so the
 // products bound it.
 //
-// Design (a simple correct first version, f32 FMA, no TF32). The TPU kernel
+// Design (the projections: f32 FMA, no TF32). The TPU kernel
 // holds a whole window and its weights in VMEM; a window's k and v (L x 2C,
 // 458 KB at L = 448) do not fit a block's shared memory, and recomputing
 // them for each 32-row query tile would repeat the k/v product 14 times.
@@ -24,7 +24,8 @@
 //      block, Wkv streamed through shared memory 64 rows at a time);
 //   2. sublayer_kernel: one block per (window, 32 query rows): the q
 //      projection of its x_src rows, the attention core of win_attention.cu
-//      (win_common.cuh::attend) over the window's k and v, the merge
+//      (win_common.cuh::attend: 3xTF32 mma.sync, f32's accuracy on the
+//      tensor cores) over the window's k and v, the merge
 //      projection, then LayerNorm (the JAX formula) and the residual in the
 //      epilogue. q, the message and the merged rows never leave shared
 //      memory; only the k/v scratch goes through device memory (L2 at these
@@ -62,35 +63,32 @@ kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ wkv,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 sublayer_kernel(const float* __restrict__ xs, const float* __restrict__ kv,
                 const float* __restrict__ wq, const float* __restrict__ wm,
                 const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
                 float* __restrict__ out, int L, float scale, Mask mask, int add_residual) {
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* KV = Qs + kRows * kCP;
-  float* S = KV + kTile * kCP;
+  const AttnSmem sm(reinterpret_cast<float*>(smem4));
+  // Outside attend: 32-row tiles (stride kCP) in sm.k, weight tiles in sm.v;
+  // attend leaves the message in sm.qb.
+  float* tile = sm.k;
   const int w = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
   const int nq = min(kRows, L - q0);
   const long long tok0 = static_cast<long long>(w) * L + q0;  // first query token
   const float* kvw = kv + static_cast<long long>(w) * L * (2 * kC);
 
-  load_rows<kC>(Qs, kCP, xs + tok0 * kC, kC, kRows, nq);
+  load_rows<kC>(tile, kCP, xs + tok0 * kC, kC, kRows, nq);
   float acc[2][8];
-  project(acc, Qs, wq, kC, KV);  // q = x_src Wq
+  project(acc, tile, wq, kC, sm.v);  // q = x_src Wq
+  split_tile(sm, acc);
+  attend(sm, kvw, kvw + kC, 2 * kC, L, w, q0, nq, scale, mask);  // the message
+  project(acc, sm.qb, wm, kC, sm.v);  // merge
   __syncthreads();
-  store_tile(Qs, kCP, acc);
-  attend(acc, Qs, KV, S, score_stride(L), kvw, kvw + kC, 2 * kC, L, w, q0, nq, scale,
-         mask);
+  store_tile(tile, kCP, acc);
   __syncthreads();
-  store_tile(Qs, kCP, acc);      // the message
-  project(acc, Qs, wm, kC, KV);  // merge
-  __syncthreads();
-  store_tile(Qs, kCP, acc);
-  __syncthreads();
-  layer_norm_store(Qs, ln_scale, ln_bias, add_residual ? xs + tok0 * kC : nullptr, kC,
+  layer_norm_store(tile, ln_scale, ln_bias, add_residual ? xs + tok0 * kC : nullptr, kC,
                    out + tok0 * kC, nq);
 }
 
@@ -109,7 +107,7 @@ extern "C" int window_sublayer_forward(const float* x_src, const float* x_tgt,
                                        int shift, int kw, int hs, int ws, int add_residual,
                                        float scale, void* stream) {
   if (n_windows == 0 || L == 0) return 0;
-  const size_t smem = attention_smem(L);
+  const size_t smem = attention_smem();
   const size_t smem_kv = sizeof(float) * static_cast<size_t>(kRows + kTile) * kCP;
   if (smem > static_cast<size_t>(kMaxSmem) || n_windows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -41,10 +41,11 @@ def resolve_device(device=None):
 
 
 def build_deep(method, module=None, variables=None, module_kwargs=None,
-               ckpt_path=None, device="cpu"):
+               ckpt_path=None, device=None):
     """Resolve (module, variables) for a deep method: prebuilt > restored
     from ``ckpt_path`` (a checkpoint directory the port's trainer wrote,
-    run/checkpoint.py) > random init (seed 0)."""
+    run/checkpoint.py) > random init (seed 0). Restored or drawn variables
+    go to ``device``; None means the card (resolve_device)."""
     if method not in DEEP_METHODS:
         raise ValueError(f"{method!r} is not a deep method ({', '.join(DEEP_METHODS)})")
     if module is None:

@@ -16,11 +16,14 @@ Two implementations of one function:
 
 ``warp_adjoint`` routes by device: a CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises. Its ``launches`` attribute counts
-kernel launches. Float atomics add in a varying order, so the kernel agrees
-with the plain version to rounding, not bit for bit.
+kernel launches, ``vector_launches`` those that took the kernel's vector
+path (``vector_path``; the rest add channel by channel). Float atomics add
+in a varying order, so the kernel agrees with the plain version to
+rounding, not bit for bit.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -80,21 +83,38 @@ def check_kernel_inputs(g, flow):
         )
 
 
-def _launch(g, flow):
-    check_kernel_inputs(g, flow)
+def vector_path(g, padded):
+    """Whether the kernel takes its vector path (16-byte reductions): C a
+    multiple of 4 and both buffers 16-byte aligned. Otherwise it adds
+    channel by channel."""
+    return g.shape[-1] % 4 == 0 and g.data_ptr() % 16 == 0 and padded.data_ptr() % 16 == 0
+
+
+@functools.cache
+def _kernel():
     from color_transfer_tpu_torch.ops import _build
 
     fn = _build.load("warp_adjoint").warp_adjoint_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(g, flow):
+    check_kernel_inputs(g, flow)
+    fn = _kernel()
     b, h, w, c = g.shape
-    padded = torch.zeros(b, h + 4, w + 4, c, dtype=g.dtype, device=g.device)
+    # Zeroed by the launch function (cudaMemsetAsync), inside the kernel's time.
+    padded = torch.empty(b, h + 4, w + 4, c, dtype=g.dtype, device=g.device)
+    vec4 = vector_path(g, padded)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), flow.data_ptr(), padded.data_ptr(), b, h, w, c, stream)
+        err = fn(g.data_ptr(), flow.data_ptr(), padded.data_ptr(), b, h, w, c, int(vec4),
+                 stream)
     if err != 0:
         raise RuntimeError(f"warp_adjoint_forward launch failed: CUDA error {err}")
     warp_adjoint.launches += 1
+    warp_adjoint.vector_launches += vec4
     return padded[:, 2 : 2 + h, 2 : 2 + w]
 
 
@@ -112,3 +132,4 @@ def warp_adjoint(g, flow):
 
 
 warp_adjoint.launches = 0
+warp_adjoint.vector_launches = 0  # of those, the vector path's

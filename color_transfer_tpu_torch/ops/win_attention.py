@@ -14,9 +14,13 @@ Each function has two implementations:
     mask, an f32 softmax, JAX's ``layer_norm`` formula (var = max(0, E[x^2]
     - E[x]^2), eps 1e-6; not nn.LayerNorm's two-pass variance) and the
     exact (erf) GELU;
-  * a CUDA kernel hand-written for sm_90a, f32 FMA with no TF32:
-    csrc/win_attention.cu, csrc/win_sublayer.cu, csrc/win_ffn.cu (their
-    headers say what bounds them and how they are laid out).
+  * a CUDA kernel hand-written for sm_90a: csrc/win_attention.cu,
+    csrc/win_sublayer.cu, csrc/win_ffn.cu (their headers say what bounds
+    them and how they are laid out). The projections and the FFN are f32
+    FMAs with no TF32; the attention core (csrc/win_common.cuh::attend) runs
+    on the tensor cores in 3xTF32 (each operand split into two TF32 halves,
+    three products), which keeps f32's error scale
+    (tests/test_torch_port_win_attention.py emulates it on the CPU).
 
 ``window_attention_fused``, ``window_sublayer_fused`` and ``ffn_fused`` route
 by device: a CPU tensor takes the plain version; a CUDA tensor launches the
@@ -42,7 +46,7 @@ import torch.nn.functional as F
 # about the card.
 JAX_ROUTING_CAP = 8 * 1024 * 1024
 _KERNEL_C = 128  # the kernels' token width (GMFlow's d_model)
-_MAX_L = 1024  # tokens per window: the 32 x L score tile stays in shared memory
+_MAX_L = 1024  # tokens per window the kernels are held to
 _MAX_WINDOWS = 65535  # the kernels' grid y
 
 

@@ -17,6 +17,8 @@ from pathlib import Path
 
 import torch
 
+from color_transfer_tpu_torch.methods.video import resolve_device
+
 
 def train_state_payload(state):
     """What a checkpoint saves of a ``run.modules.TrainState``."""
@@ -98,10 +100,11 @@ def load_checkpoint(path, device="cpu"):
     return payload, meta
 
 
-def restore_eval_variables(module, ckpt_path, device="cpu"):
-    """A module's eval variables from a checkpoint directory, checked
+def restore_eval_variables(module, ckpt_path, device=None):
+    """A module's eval variables from a checkpoint directory on ``device``
+    (None: the card; raises without one, pass "cpu" for the CPU), checked
     against the module's own state_dict keys and shapes."""
-    payload, _ = load_checkpoint(ckpt_path, device)
+    payload, _ = load_checkpoint(ckpt_path, resolve_device(device))
     variables = payload["variables"]
     want = module.model.state_dict()
     if set(variables) != set(want):

@@ -30,6 +30,7 @@ import torch
 from color_transfer_tpu_torch import metrics as M
 from color_transfer_tpu_torch.core.precision import full_f32, full_f32_inference
 from color_transfer_tpu_torch.data.distortions import apply_uniform_distortions
+from color_transfer_tpu_torch.methods.video import resolve_device
 from color_transfer_tpu_torch.models.dcmcs3di import DCMCS3DI
 from color_transfer_tpu_torch.models.dmsct import DMSCT, compute_losses
 from color_transfer_tpu_torch.models.layers import init_uniform_
@@ -236,8 +237,11 @@ class DMSCTModule:
 
     # -- inference --
 
-    def init_eval_variables(self, seed=0, device="cpu"):
-        """Seeded random variables on ``device`` (see random_state_dict)."""
+    def init_eval_variables(self, seed=0, device=None):
+        """Seeded random variables on ``device`` (see random_state_dict);
+        None means the card (methods/video.py::resolve_device: raises
+        without one; pass "cpu" for the CPU)."""
+        device = resolve_device(device)
         return {k: v.to(device) for k, v in
                 random_state_dict(self.model, seed).items()}
 
@@ -279,12 +283,14 @@ class DCMCS3DIModule:
             compute_dtype=_dtype(compute_dtype),
         ).eval()
 
-    def init_eval_variables(self, seed=0, device="cpu"):
-        """Seeded random variables on ``device``: the JAX package's init,
+    def init_eval_variables(self, seed=0, device=None):
+        """Seeded random variables on ``device`` (None: the card, as in
+        DMSCTModule.init_eval_variables): the JAX package's init,
         U(+-1/sqrt(fan_in)) for every conv's kernel and bias, drawn in
         state_dict order from a torch.Generator (JAX's own stream cannot be
         reproduced; tests hand both packages one set of weights through the
         bridge)."""
+        device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         for mod in self.model.modules():
             if isinstance(mod, torch.nn.Conv2d):

@@ -14,10 +14,16 @@ their builder at call time, so both would load one library):
 
 Times B5 (``row_attention_warp``: out and column sums, column sums only;
 bf16 operands and precise) and B6 (``resb_chain`` in bf16: chains of 1, 6
-and 18 blocks) through their public wrappers at the 1080p path's shapes,
-CUDA events after warm-up, and prints one JSON line per case with both
-sides' times in the order run. ``--device cpu --small`` runs tiny shapes
-through the plain versions (a rehearsal: no device numbers).
+and 18 blocks) at the 1080p path's shapes, B7 (``warp_adjoint``) at DMSCT's
+four training levels (batch 12, 256x480 crops) on a mixed flow (sub-pixel,
+zero and clamped displacements) and an in-image one, and B2a
+(``window_attention_fused``, the shift mask) and B2b
+(``window_sublayer_fused``, cross-attention) at the fused route's 1080p
+shape (256, 448, 128), through their public wrappers, CUDA events after
+warm-up, and prints one JSON line per case with both sides' times in the
+order run. ``--only REGEX`` keeps the cases whose name matches.
+``--device cpu --small`` runs tiny shapes through the plain versions (a
+rehearsal: no device numbers).
 """
 
 import argparse
@@ -101,25 +107,53 @@ def cases(device, small):
             yield (f"resb_chain bf16 {tuple(x.shape)} x {layers} blocks",
                    lambda ops, x=x, n=layers: ops.conv_chain.resb_chain(
                        x, kernels[:n], biases[:n], torch.bfloat16))
+    del q, k, v, x, kernels, biases
+
+    levels = ((2, 8, 15, 32), (2, 4, 8, 24), (2, 2, 4, 48), (2, 2, 3, 120)) if small else (
+        (12, 128, 240, 32), (12, 64, 120, 24), (12, 32, 60, 48), (12, 16, 30, 120))
+    for shape in levels:
+        b, lh, lw, _ = shape
+        grad = randn(*shape)
+        frac = torch.randn(b, lh, lw, 2, generator=g) * 3.0
+        far = torch.sign(torch.randn(b, lh, lw, 2, generator=g)) * (
+            60.0 + torch.rand(b, lh, lw, 2, generator=g) * 500.0)
+        kind = torch.randint(0, 3, (b, lh, lw, 1), generator=g)
+        mixed = torch.where(kind == 0, frac, torch.where(kind == 1, 0.0 * frac, far))
+        for name, flow in (("mixed", mixed.to(device)), ("in-image", frac.to(device))):
+            yield (f"warp_adjoint {shape} {name} flow", lambda ops, gr=grad, fl=flow:
+                   ops.warp_adjoint.warp_adjoint(gr, fl))
+
+    (bp, length, c), geom = ((8, 35, 128), (2, 5, 7)) if small else (
+        (256, 448, 128), (8, 16, 28))
+    x, y, z = (randn(bp, length, c) for _ in range(3))
+    weights = [randn(*s, scale=s[0] ** -0.5) for s in ((c, c), (c, 2 * c), (c, c))]
+    norm = [1 + randn(c, scale=0.1), randn(c, scale=0.1)]
+    yield (f"window_attention shift {(bp, length, c)}", lambda ops:
+           ops.win_attention.window_attention_fused(x, y, z, shift_windows=geom))
+    yield (f"window_sublayer cross {(bp, length, c)}", lambda ops:
+           ops.win_attention.window_sublayer_fused(x, y, *weights, *norm))
 
 
-def run(other, device, small=False, iters=3):
-    """One row per case: {"case", "order", "ms"} with the sides in the order
-    run (other, tree, tree, other)."""
+def run(other, device, small=False, iters=3, only=None):
+    """One row per case (those whose name matches the regex ``only``):
+    {"case", "order", "ms"} with the sides in the order run (other, tree,
+    tree, other)."""
     other = Path(other).resolve()
     sys.path.insert(0, str(other.parent))
     sides = {}
     try:
         for side, name in (("tree", PACKAGE), ("other", other.name)):
             sides[side] = argparse.Namespace(
-                row_attention=importlib.import_module(f"{name}.ops.row_attention"),
-                conv_chain=importlib.import_module(f"{name}.ops.conv_chain"))
+                **{mod: importlib.import_module(f"{name}.ops.{mod}") for mod in
+                   ("row_attention", "conv_chain", "warp_adjoint", "win_attention")})
     finally:
         sys.path.pop(0)
     order = ("other", "tree", "tree", "other")
     rows = []
     with torch.no_grad():
         for name, call in cases(device, small):
+            if only is not None and not re.search(only, name):
+                continue
             ms = [_time_ms(lambda: call(sides[side]), device, iters) for side in order]
             rows.append({"case": name, "order": list(order), "ms": [round(t, 4) for t in ms]})
             print(json.dumps(rows[-1]), flush=True)
@@ -136,6 +170,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; cpu to rehearse)")
     ap.add_argument("--small", action="store_true", help="tiny shapes")
+    ap.add_argument("--only", default=None, help="time only the cases matching this regex")
     args = ap.parse_args(argv)
     if args.prepare:
         print(prepare(args.prepare, args.other))
@@ -145,7 +180,7 @@ def main(argv=None):
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    run(args.other, device, args.small)
+    run(args.other, device, args.small, only=args.only)
     return 0
 
 

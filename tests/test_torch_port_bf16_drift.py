@@ -53,7 +53,7 @@ def shared_weights(source, seed, ext, tra, channels):
     """(JAX params, port state_dict) holding the same numbers."""
     if source == "torch":
         module = DCMCS3DIModule(ext, tra, channels)
-        sd = {k: v.cpu() for k, v in module.init_eval_variables(seed=seed).items()}
+        sd = module.init_eval_variables(seed=seed, device="cpu")
         params = convert_dcmcs3di({k: v.numpy() for k, v in sd.items()},
                                   extraction_layers=ext, transfer_layers=tra)
         return params, sd

@@ -176,7 +176,7 @@ def test_predict_restores_the_checkpoint(data_root, run, tmp_path, capsys):
                    "--model.matcher_num_layers", "1", "--model.matcher_num_reg_refine", "1"])
     assert rc == 0 and str(out) in capsys.readouterr().out
     module = DMSCTModule(matcher_num_layers=1, matcher_num_reg_refine=1)
-    variables = restore_eval_variables(module, best)
+    variables = restore_eval_variables(module, best, device="cpu")
 
     def read(name):
         with Image.open(scene / name) as img:
@@ -190,4 +190,4 @@ def test_predict_restores_the_checkpoint(data_root, run, tmp_path, capsys):
     # Another module shape does not fit the checkpoint.
     with pytest.raises(ValueError):
         restore_eval_variables(DMSCTModule(matcher_num_layers=2, matcher_num_reg_refine=1),
-                               best)
+                               best, device="cpu")

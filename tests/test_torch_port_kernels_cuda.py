@@ -12,8 +12,9 @@ bf16 as stated at each test. B3 and B4 round operation by operation as
 their plain versions do (IEEE division, no FMA contraction): B3 within
 1e-6 * bins (4 ulps at the table's top value), B4 within 1e-6 of values ~1.
 B7's float atomics add in an order that changes from run to run: within
-1e-5 * max(1, max|ref|). B2a, B2b and B2c (f32 FMA kernels against cuBLAS
-products, sums in another order) on the f32 line.
+1e-5 * max(1, max|ref|). B2a, B2b and B2c on the f32 line: B2c and B2b's
+projections are f32 FMAs, the attention core 3xTF32 MMAs (f32's error
+scale), against cuBLAS's f32 products; sums in another order.
 """
 
 import math
@@ -306,6 +307,47 @@ def test_warp_adjoint(gen, shape):
     assert _rel_err(got, want) <= 1e-5
 
 
+def _flow(gen, kind, b, h, w):
+    """The mixed flow, its sub-pixel kind alone (in the image but near its
+    edges), or its far kind alone (every sample clamped to the border)."""
+    if kind == "mixed":
+        return _mixed_flow(gen, b, h, w)
+    if kind == "frac":
+        return (torch.randn(b, h, w, 2, generator=gen) * 3.0).cuda()
+    return (torch.sign(torch.randn(b, h, w, 2, generator=gen)) * (
+        60.0 + torch.rand(b, h, w, 2, generator=gen) * 500.0)).cuda()
+
+
+@pytest.mark.parametrize("kind", ["frac", "clamped"])
+@pytest.mark.parametrize("shape", [(12, 128, 240, 32), (12, 16, 30, 120), (3, 17, 23, 5),
+                                   (2, 9, 11, 7)])
+def test_warp_adjoint_flows(gen, shape, kind):
+    """B7 on an in-image flow and on an all-clamped one (every pixel on the
+    border corners: the block's shared corner sums), at two training levels
+    and at C = 5 and 7 (the scalar path), against the plain version; the
+    vector path runs exactly when C is a multiple of 4."""
+    b, h, w, c = shape
+    g = _randn(gen, *shape)
+    flow = _flow(gen, kind, b, h, w)
+    before, vec_before = wa.warp_adjoint.launches, wa.warp_adjoint.vector_launches
+    got = wa.warp_adjoint(g, flow)
+    want = wa.warp_adjoint_plain(g, flow)
+    assert wa.warp_adjoint.launches == before + 1
+    assert wa.warp_adjoint.vector_launches == vec_before + (c % 4 == 0)
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(12, 64, 120, 24), (2, 13, 37, 5)])
+def test_warp_adjoint_runs_agree(gen, shape):
+    """Float atomics add in an order that changes from run to run: two runs
+    on one input agree to the B7 line, not bit for bit."""
+    b, h, w, c = shape
+    g = _randn(gen, *shape)
+    flow = _mixed_flow(gen, b, h, w)
+    first, second = wa.warp_adjoint(g, flow), wa.warp_adjoint(g, flow)
+    assert _rel_err(first, second) <= 1e-5
+
+
 def test_flow_warp_batched_backward_on_the_card(gen):
     """The autograd backward launches B7 for the feature cotangent and
     matches torch's autograd of the plain gather; the flow cotangent (plain
@@ -388,11 +430,13 @@ def test_dmsct_train_step_on_the_card():
 
 
 # (windows, L, C) with a swin geometry (k, hs, ws): 1080p scale 1, the train
-# shape's two scales, a ragged one (L not a multiple of 32 or 64), and L near
-# the kernels' 1024 (a 32 x L score tile of ~128 KB in shared memory).
+# shape's two scales, ragged ones (L not a multiple of the 32-row query
+# tile or the 64-key tile: the last block has nq < 32 rows, the last key
+# tile a share without keys), and L up to the kernels' 1024.
 B2_SHAPES = [((128, 448, 128), (8, 16, 28)), ((96, 480, 128), (2, 16, 30)),
              ((1536, 120, 128), (8, 8, 15)), ((8, 35, 128), (2, 5, 7)),
-             ((4, 1000, 128), (2, 20, 50))]
+             ((4, 1000, 128), (2, 20, 50)), ((12, 91, 128), (2, 7, 13)),
+             ((4, 1024, 128), (2, 32, 32))]
 
 
 @pytest.mark.parametrize("mode", ["none", "shift", "mask"])
@@ -412,6 +456,20 @@ def test_window_attention(gen, shape, geom, mode):
         want = wn.window_attention_plain(q, k, v, **kwargs)
     assert wn.window_attention_fused.launches == before + 1
     assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["none", "shift", "mask"])
+def test_window_attention_runs_bit_equal(gen, mode):
+    """The key shares' softmax states merge in a fixed order and no atomics
+    run: two B2a runs are bit-equal."""
+    shape, geom = (12, 91, 128), (2, 7, 13)
+    q, k, v = (_randn(gen, *shape, scale=2.0) for _ in range(3))
+    kwargs = {"shift": {"shift_windows": geom},
+              "mask": {"mask": wn.geometry_mask(*geom, device="cuda")}}.get(mode, {})
+    with torch.no_grad():
+        first = wn.window_attention_fused(q, k, v, **kwargs)
+        second = wn.window_attention_fused(q, k, v, **kwargs)
+    assert torch.equal(first, second)
 
 
 def _sublayer_weights(gen, c):

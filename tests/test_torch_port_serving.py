@@ -42,7 +42,7 @@ def clip():
 
 @pytest.fixture(scope="module")
 def variables(module):
-    return module.init_eval_variables(seed=0)
+    return module.init_eval_variables(seed=0, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -140,6 +140,33 @@ def test_entry_points_raise_without_cuda(monkeypatch, clip, tmp_path):
     assert not (tmp_path / "out").exists() and not (tmp_path / "o.png").exists()
 
 
+def test_initialisers_default_to_the_card(monkeypatch, tmp_path):
+    """The weight initialisers resolve a missing device to the card as every
+    other entry point does (JAX's init_eval_variables puts the variables on
+    the default accelerator): without a card and without device they raise
+    the resolve_device error; with device="cpu" they return CPU tensors."""
+    from color_transfer_tpu_torch.methods.video import build_deep
+    from color_transfer_tpu_torch.run.checkpoint import restore_eval_variables
+
+    module, dc = DMSCTModule(**KW), DCMCS3DIModule(**DC_KW)
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    torch.save({"variables": module.init_eval_variables(device="cpu")}, ckpt / "state.pt")
+    (ckpt / "meta.json").write_text("{}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "DMSCTModule.init_eval_variables": lambda **d: module.init_eval_variables(**d),
+        "DCMCS3DIModule.init_eval_variables": lambda **d: dc.init_eval_variables(**d),
+        "restore_eval_variables": lambda **d: restore_eval_variables(module, ckpt, **d),
+        "build_deep": lambda **d: build_deep("dmsct", module_kwargs=KW, **d)[1],
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device: pass device='cpu'"):
+            call()
+        variables = call(device="cpu")
+        assert variables and all(v.device.type == "cpu" for v in variables.values()), name
+
+
 def _write_pair(directory, stem, t, r, distorted=True):
     from PIL import Image
 
@@ -234,7 +261,7 @@ def test_dcmcs3di_video_matches_model_call(clip, compute_dtype):
     out = color_transfer_between_videos(t, r, method="dcmcs3di", device="cpu",
                                         module_kwargs=dict(DC_KW, compute_dtype=compute_dtype))
     assert out.shape == (3, 32, 48, 3) and out.dtype == torch.float32
-    variables = module.init_eval_variables(seed=0)
+    variables = module.init_eval_variables(seed=0, device="cpu")
     with torch.no_grad():
         for i in range(len(t)):
             want, _ = torch.func.functional_call(
@@ -249,8 +276,8 @@ def test_dcmcs3di_init_is_uniform_and_seeded():
     """init_eval_variables: U(+-1/sqrt(fan_in)) for kernels and biases,
     the same for one seed, another for another seed."""
     module = DCMCS3DIModule(**DC_KW)
-    a, b = module.init_eval_variables(seed=0), module.init_eval_variables(seed=0)
-    c = module.init_eval_variables(seed=1)
+    a, b = (module.init_eval_variables(seed=0, device="cpu") for _ in range(2))
+    c = module.init_eval_variables(seed=1, device="cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["extraction.0.weight"], c["extraction.0.weight"])
     for name in ("extraction.0", "transfer.0", "matcher.query", "transfer.3"):
@@ -480,7 +507,11 @@ def test_kernel_ab_times_two_copies_side_by_side(tmp_path):
     assert not (other / "_build").exists()
     assert "color_transfer_tpu_torch" not in (other / "ops" / "row_attention.py").read_text()
     rows = kernel_ab.run(other, torch.device("cpu"), small=True, iters=1)
-    assert len(rows) == 4 + 6  # B5: 2 modes x 2 dtypes; B6: 3 chains x 2 batches
+    # B5: 2 modes x 2 dtypes; B6: 3 chains x 2 batches; B7: 4 levels x 2
+    # flows; B2a and B2b.
+    assert len(rows) == 4 + 6 + 8 + 2
+    assert [r["case"] for r in kernel_ab.run(other, torch.device("cpu"), small=True, iters=1,
+                                             only="^window")] == [r["case"] for r in rows[-2:]]
     for row in rows:
         assert row["order"] == ["other", "tree", "tree", "other"]
         assert len(row["ms"]) == 4 and all(t > 0 for t in row["ms"])

@@ -136,6 +136,120 @@ def test_attention_argument_checks(rng):
         tw.window_attention_fused(q, q, q, shift_windows=(2, 2, 4))
 
 
+# -- the card's 3xTF32 recipe, emulated ---------------------------------------
+#
+# The attention core on the card (csrc/win_common.cuh::attend) multiplies on
+# the tensor cores in TF32: each f32 operand x is split as big = tf32(x),
+# small = tf32(x - big) (cvt.rna: round to nearest, ties away from zero, to
+# TF32's 10 stored mantissa bits) and each product is small*big + big*small
+# + big*big, summed in f32. A TF32 product is exact in f32 (11 x 11 bits),
+# so torch's f32 matmul of TF32 values on the CPU computes the same terms.
+
+KERNEL_RTOL = 1e-4  # the card's line for B2a against its plain version
+
+
+def tf32_round(x):
+    """cvt.rna.tf32.f32 on f32 bits: add half of the 13 dropped bits' range
+    to the magnitude (sign-magnitude, so ties go away from zero; a carry
+    moves into the exponent), then clear them. inf and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def _split(x):
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def _matmul_3xtf32(a, b):
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _matmul_1xtf32(a, b):
+    return tf32_round(a) @ tf32_round(b)
+
+
+def _attention_emulated(matmul, q, k, v, mask=None):
+    """window_attention_plain's math with both products through ``matmul``."""
+    scores = matmul(q, k.transpose(-1, -2)) * np.float32(1.0 / np.sqrt(q.shape[-1]))
+    if mask is not None:
+        n = mask.shape[0]
+        scores = (scores.reshape(-1, n, *scores.shape[1:]) + mask).reshape(scores.shape)
+    return matmul(torch.softmax(scores, dim=-1), v)
+
+
+def _tf32_reference(x):
+    """The rounding rule on one float, with exact fractions: the nearest
+    multiple of TF32's spacing at x's binade (2^(e - 10), and 2^-136 below
+    the normal range), ties away from zero; past the largest finite value,
+    inf."""
+    from fractions import Fraction
+
+    if not np.isfinite(x) or x == 0.0:
+        return x
+    mag = Fraction(abs(x))
+    e = max(mag.numerator.bit_length() - mag.denominator.bit_length(), -126)
+    if Fraction(2) ** e > mag:
+        e -= 1
+    e = max(e, -126)
+    step = Fraction(2) ** (e - 10)
+    q = mag / step
+    n = int(q)
+    if q - n >= Fraction(1, 2):
+        n += 1
+    out = n * step
+    if out >= Fraction(2) ** 128:
+        return float(np.copysign(np.inf, x))
+    return float(np.copysign(float(out), x))
+
+
+def test_tf32_rounding_rule():
+    """The bit trick against the rule on hand-picked values: exact TF32
+    values, ties (up and away from zero, both signs), the carry into the
+    exponent, subnormals (and a tie among them), the largest finite value
+    (which rounds to inf), +-inf and 0."""
+    tie = 1.0 + 2.0**-11  # halfway between two TF32 neighbours of 1
+    values = [1.0, -1.0, 0.0, -0.0, tie, -tie, 1.0 + 3 * 2.0**-11, 1.0 + 2.0**-11 - 2.0**-23,
+              2.0 - 2.0**-23, 3.14159265, -2.71828, 1e-40, -1e-40, 2.0**-140 * 3,
+              2.0**-149, 2.0**-137, 5.9e-39, 1.17549435e-38, 3.4028235e38, np.inf, -np.inf,
+              65504.0, 1e30, -7.25e-20]
+    x = torch.tensor(values, dtype=torch.float32)
+    got = tf32_round(x)
+    want = torch.tensor([_tf32_reference(float(v)) for v in x], dtype=torch.float32)
+    assert torch.equal(got, want), [(float(a), float(b), float(c))
+                                    for a, b, c in zip(x, got, want) if a != a or b != c]
+    assert float(tf32_round(torch.tensor([tie]))) == 1.0 + 2.0**-10  # away from zero
+    assert torch.isnan(tf32_round(torch.tensor([float("nan")]))).all()
+
+
+@pytest.mark.parametrize("mode", ["none", "shift", "mask"])
+def test_3xtf32_attention_matches_jax(rng, mode, capsys):
+    """Window attention through the card's 3xTF32 arithmetic, in the three
+    mask modes, against JAX's window_attention_xla (f32) within the card's
+    line (1e-4 of max(1, max|ref|)); plain TF32 (1xTF32) printed beside it."""
+    kw, hs, ws, c = 2, 5, 7, 128
+    bp, length = 2 * kw * kw, hs * ws
+    q, k, v = (_tokens(rng, bp, length, c) * 2 for _ in range(3))
+    mask = None
+    if mode == "shift":
+        mask = jw.shift_window_mask(kw * hs, kw * ws, kw).astype(np.float32)
+    elif mode == "mask":
+        mask = np.where(rng.uniform(size=(kw * kw, length, length)) > 0.7, -100.0,
+                        0.0).astype(np.float32)
+    want = np.asarray(jw.window_attention_xla(
+        *map(jnp.asarray, (q, k, v)), None if mask is None else jnp.asarray(mask)))
+    args = (_t(q), _t(k), _t(v), None if mask is None else _t(mask))
+    line = KERNEL_RTOL * max(1.0, float(np.abs(want).max()))
+    err3, err1 = (float(np.abs(_attention_emulated(mm, *args).numpy() - want).max())
+                  for mm in (_matmul_3xtf32, _matmul_1xtf32))
+    with capsys.disabled():
+        print(f"\n3xTF32 attention ({mode}): max|d| {err3:.2e}; 1xTF32 {err1:.2e}; "
+              f"line {line:.2e}")
+    assert err3 <= line and err1 > err3
+
+
 # -- B2b: the attention sublayer ------------------------------------------------
 
 

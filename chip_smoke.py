@@ -245,6 +245,7 @@ def build():
                 entry = re.search(r"Compiling entry function '\w*?\d(row_attention_bf16|"
                                   r"row_attention_f32|conv3x3_bf16|conv3x3_f32|"
                                   r"window_attention_kernel|sublayer_kernel|"
+                                  r"kv_projection_kernel|ffn_kernel|pack_weights_kernel|"
                                   r"warp_adjoint_kernel)((?:I(?:L[ib]\d+E)+)?)", line)
                 if entry:  # e.g. row_attention_bf16 ILi64ELb1ELb0E: <C = 64, out, no colsum>
                     _log(f"  {entry.group(1)} {entry.group(2)}")
@@ -1583,15 +1584,14 @@ def check_win_kernels(g):
     """B2a (no mask, the shift mask from geometry, a mask operand), B2b
     (self-attention with the shift and the residual, cross-attention
     without) and B2c against their plain versions at B2_SHAPES, line
-    KERNEL_RTOL of max(1, max|ref|): f32 FMA sums (B2c, B2b's projections)
-    and 3xTF32 MMAs (the attention core) against cuBLAS's f32 products, in
-    another order. At B2_TIMED (1080p scale 1 and half its windows) each is
-    timed beside its plain version and, for B2a, one
-    scaled_dot_product_attention with the tiled float mask (f32), whose
-    device kernels one profiled call names. Each attention row's bound is
-    printed twice: at the f32 FMA rate and for 3xTF32 at TF32's rate. Returns
-    the rows of B2a (shift mode), B2b (cross-attention, the bound's two
-    token inputs) and B2c at 1080p scale 1."""
+    KERNEL_RTOL of max(1, max|ref|): 3xTF32 MMAs (every product) against
+    cuBLAS's f32 products, in another order. At B2_TIMED (1080p scale 1 and
+    half its windows) each is timed beside its plain version and, for B2a,
+    one scaled_dot_product_attention with the tiled float mask (f32), whose
+    device kernels one profiled call names. Each row's bound is printed twice: for 3xTF32 at TF32's rate
+    (the route taken) and at the f32 FMA rate. Returns the rows of B2a
+    (shift mode), B2b (cross-attention, the bound's two token inputs) and
+    B2c at 1080p scale 1."""
     import torch.nn.functional as F
 
     from color_transfer_tpu_torch.ops import win_attention as wn
@@ -1664,31 +1664,29 @@ def check_win_kernels(g):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     # Bounds: each input read once and each output written once (f32), and
-    # the products' operations at the rate of the route each takes: the
-    # projections and the FFN f32 FMAs, the attention core three TF32
-    # products (3xTF32) each (softmax and LayerNorm are small beside them).
-    # Each attention row also prints its bound were the attention f32 FMAs.
+    # the products' operations at the rate of the route taken: three TF32
+    # products (3xTF32) each (softmax, GELU and LayerNorm are small beside
+    # them). Each row also prints its bound were the products f32 FMAs.
     attn = 4 * bp * length * length * c  # QK^T and PV
     proj = 8 * bp * length * c * c  # the q, k/v and merge projections
-    for label, nbytes, f32_ops in (("B2a", 4 * 4 * n, attn),
-                                   ("B2b", 4 * (3 * n + 4 * c * c + 2 * c), proj + attn)):
-        ms_fma, _ = bound(nbytes, {"f32": f32_ops})
-        ms_route, by = bound(nbytes, {"f32": f32_ops - attn, "tf32": 3 * attn})
-        _log(f"{label} bound at {tuple(kept[0])}: {ms_fma:.4f} ms were the attention f32 FMAs "
-             f"(67 TFLOP/s); {ms_route:.4f} ms ({by}) for the route taken, 3xTF32 at 495 "
-             "TFLOP/s")
+    ffn = tokens * 2 * 3 * c * B2_FFN  # [src | msg] W0 and h W2
+    io = {"B2a": 4 * 4 * n,  # q, k, v read, out written
+          "B2b": 4 * (3 * n + 4 * c * c + 2 * c),  # x_src, x_tgt, out, the weights
+          "B2c": 4 * (3 * n + 3 * c * B2_FFN + 2 * c)}  # x_src, x_msg, out, W0, W2
+    flops = {"B2a": attn, "B2b": proj + attn, "B2c": ffn}
+    for label in io:
+        ms_fma, _ = bound(io[label], {"f32": flops[label]})
+        ms_route, by = bound(io[label], {"tf32": 3 * flops[label]})
+        _log(f"{label} bound at {tuple(kept[0])}: {ms_route:.4f} ms ({by}) for the route "
+             f"taken, 3xTF32 at 495 TFLOP/s; {ms_fma:.4f} ms were the products f32 FMAs "
+             "(67 TFLOP/s)")
     return [
-        # q, k, v read, out written; QK^T and PV.
         _with_bound(row("window_attention_fused", "win_attention.cu", 175, "B2a shift"),
-                    4 * 4 * n, {"tf32": 3 * attn}, sdpa_ms),
-        # x_src, x_tgt read, out written, the weights; the projections and the
-        # attention.
+                    io["B2a"], {"tf32": 3 * flops["B2a"]}, sdpa_ms),
         _with_bound(row("window_sublayer_fused", "win_sublayer.cu", 321, "B2b cross"),
-                    4 * (3 * n + 4 * c * c + 2 * c), {"f32": proj, "tf32": 3 * attn}, None),
-        # x_src, x_msg read, out written, W0 and W2; the two products.
+                    io["B2b"], {"tf32": 3 * flops["B2b"]}, None),
         _with_bound(row("ffn_fused", "win_ffn.cu", 524, "B2c"),
-                    4 * (3 * n + 3 * c * B2_FFN + 2 * c),
-                    {"f32": tokens * 2 * 3 * c * B2_FFN}, None),
+                    io["B2c"], {"tf32": 3 * flops["B2c"]}, None),
     ]
 
 
@@ -1830,6 +1828,16 @@ def gates():
              f"{'pass' if summary['pass'] else 'fail'}")
         if len(rows) != 31 or not deep_gate.rows_finite(rows):
             raise AssertionError(f"gate {model} {recipe}: a row is missing or not finite")
+        if (model, recipe) == ("dmsct", "fused"):
+            # The rows that read far below the others (81.84 dB at
+            # distortion 28 since PR 7): do occlusion flags flip there, and
+            # does the image differ around them? The best row is the
+            # control. Reported only.
+            by_psnr = sorted(rows, key=lambda r: r["pair_psnr"])
+            for i in sorted({by_psnr[0]["i"], by_psnr[1]["i"], 28, by_psnr[-1]["i"]}):
+                _log(f"gate {model} {recipe}: occlusion trace " + json.dumps(
+                    deep_gate.occlusion_flips(i, height=GATE_HEIGHT, width=GATE_WIDTH,
+                                              device="cuda")))
         # Is a verdict the weights' or the recipe's? DCMCS3DI bf16 always runs
         # the three seeds; another recipe only when it fails.
         if not summary["pass"] or (model, recipe) == ("dcmcs3di", "bf16"):

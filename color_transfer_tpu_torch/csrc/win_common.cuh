@@ -1,17 +1,12 @@
 // Pieces shared by the matcher transformer's kernels: win_attention.cu (B2a),
 // win_sublayer.cu (B2b) and win_ffn.cu (B2c). f32 operands, tokens 128
-// floats wide (GMFlow's d_model). The projections and the FFN are f32 FMA
-// sums (no TF32); the attention core (attend) runs on the tensor cores in
-// 3xTF32, f32's accuracy (below).
-//
-// Every block owns kRows = 32 query rows (or tokens) and runs kThreads = 256
-// threads. An output tile of 32 x 128 is spread as: thread (ty, tx) =
-// (tid / 16, tid % 16) owns rows ty and ty + 16 and the columns 4tx..4tx+3
-// and 64+4tx..67+4tx, so each step of a product reads two scalars of the left
-// operand (broadcast across the 16 threads of a row) and one or two float4s
-// of the right operand (consecutive across tx). Tiles in shared memory use a
-// row stride of 128 + 4 floats: rows stay 16-byte aligned and two rows that
-// a warp reads at once fall in different banks.
+// floats wide (GMFlow's d_model). Every product runs on the tensor cores in
+// 3xTF32 (mma.sync.m16n8k8), f32's accuracy: the attention core (attend)
+// and the weight products (the GEMM core at the end of this file: B2b's q,
+// k/v and merge projections, B2c's two FFN products). Blocks run kThreads =
+// 256 threads (8 warps). Tiles of 128 floats in shared memory use a row
+// stride of 128 + 4 (kCP: rows stay 16-byte aligned, two rows a warp reads
+// at once fall in different banks) or 128 + 16 (kQS, below).
 
 #pragma once
 
@@ -24,98 +19,40 @@ namespace win {
 
 constexpr int kC = 128;           // token width
 constexpr int kCP = kC + 4;       // shared-memory row stride of a 128-wide tile
-constexpr int kRows = 32;         // query rows / tokens per block
-constexpr int kTile = 64;         // key, value or weight rows staged at a time
+constexpr int kRows = 32;         // query rows per attention block
+constexpr int kTile = 64;         // key or value rows staged at a time
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // 227 KB: what one block may use on sm_90
 
-__device__ __forceinline__ int tx() { return threadIdx.x & 15; }
-__device__ __forceinline__ int ty() { return threadIdx.x >> 4; }
-
-// `rows` rows of NC floats into shared memory (row stride ds): row i from
-// src + i * ld, zeros for rows at or beyond `valid`. src rows 16-byte aligned.
-template <int NC>
-__device__ __forceinline__ void load_rows(float* dst, int ds, const float* src,
-                                          long long ld, int rows, int valid) {
-  constexpr int kV = NC / 4;
-  for (int i = threadIdx.x; i < rows * kV; i += kThreads) {
-    const int r = i / kV;
-    const int c = (i - r * kV) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) v = *reinterpret_cast<const float4*>(src + r * ld + c);
-    *reinterpret_cast<float4*>(dst + r * ds + c) = v;
-  }
-}
-
-// acc[i][4j + e] += sum_k A[row_i][k] * B[k][64j + 4tx + e] over k < depth,
-// rows ty and ty + 16; A and B in shared memory with row strides sa and sb.
-template <int NJ>
-__device__ __forceinline__ void gemm_rows(float (&acc)[2][4 * NJ], const float* A,
-                                          int sa, const float* B, int sb, int depth) {
-  const float* a0 = A + ty() * sa;
-  const float* a1 = A + (ty() + 16) * sa;
-  const float* b = B + 4 * tx();
-#pragma unroll 4
-  for (int k = 0; k < depth; ++k) {
-    const float x0 = a0[k];
-    const float x1 = a1[k];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 w = *reinterpret_cast<const float4*>(b + k * sb + 64 * j);
-      acc[0][4 * j + 0] = fmaf(x0, w.x, acc[0][4 * j + 0]);
-      acc[0][4 * j + 1] = fmaf(x0, w.y, acc[0][4 * j + 1]);
-      acc[0][4 * j + 2] = fmaf(x0, w.z, acc[0][4 * j + 2]);
-      acc[0][4 * j + 3] = fmaf(x0, w.w, acc[0][4 * j + 3]);
-      acc[1][4 * j + 0] = fmaf(x1, w.x, acc[1][4 * j + 0]);
-      acc[1][4 * j + 1] = fmaf(x1, w.y, acc[1][4 * j + 1]);
-      acc[1][4 * j + 2] = fmaf(x1, w.z, acc[1][4 * j + 2]);
-      acc[1][4 * j + 3] = fmaf(x1, w.w, acc[1][4 * j + 3]);
-    }
-  }
-}
-
-// acc = A @ W[:, 0:128]: A is 32 x 128 in shared memory (stride kCP), W a
-// 128 x ldw row-major matrix in device memory, staged through `buf` (kTile
-// x kCP) 64 rows at a time. Starts with a barrier (A's writes become
-// visible); the caller puts one before A or buf is written again.
-__device__ __forceinline__ void project(float (&acc)[2][8], const float* A,
-                                        const float* W, int ldw, float* buf) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < kC; k0 += kTile) {
-    __syncthreads();
-    load_rows<kC>(buf, kCP, W + static_cast<long long>(k0) * ldw, ldw, kTile, kTile);
-    __syncthreads();
-    gemm_rows<2>(acc, A + k0, kCP, buf, kCP, kTile);
-  }
-}
-
-// This thread's part of a 32 x 128 tile into shared memory (stride ds).
-__device__ __forceinline__ void store_tile(float* dst, int ds, float (&acc)[2][8]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<float4*>(dst + (ty() + 16 * i) * ds + 64 * j + 4 * tx()) =
-          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
-}
-
-// out[r] = LayerNorm(Y[r]) (+ res[r]) for the first `valid` rows of Y (32 x
-// 128 in shared memory, stride kCP), one warp per row, each lane 4 columns.
-// The JAX package's formula (ops/win_attention.py::layer_norm): f32 mean and
-// mean of squares, var = max(0, E[y^2] - E[y]^2), mul = rsqrt(var + 1e-6) *
-// scale, y' = (y - mean) * mul + bias. res (shared or device memory, row
-// stride res_ld) may be null; out rows are 128 floats apart.
+// out[r] = LayerNorm(Y[r]) (+ res[r]) for the first `valid` of kRowsT rows
+// of Y (rows of 128 floats in shared memory, stride kCP), one warp per row,
+// each lane 4 columns; a warp's residual rows are loaded before its first
+// row is normalised. The JAX package's formula
+// (ops/win_attention.py::layer_norm): f32 mean and mean of squares, var =
+// max(0, E[y^2] - E[y]^2), mul = rsqrt(var + 1e-6) * scale, y' = (y - mean)
+// * mul + bias. res (device memory, row stride res_ld) may be null; out
+// rows are 128 floats apart.
+template <int kRowsT>
 __device__ __forceinline__ void layer_norm_store(const float* Y, const float* scale,
                                                  const float* bias, const float* res,
                                                  long long res_ld, float* out, int valid) {
+  constexpr int kPer = kRowsT / (kThreads / 32);  // rows a warp
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float4 s = *reinterpret_cast<const float4*>(scale + 4 * lane);
   const float4 b = *reinterpret_cast<const float4*>(bias + 4 * lane);
-  for (int r = warp; r < valid; r += kThreads / 32) {
+  float4 x[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int r = warp + q * (kThreads / 32);
+    x[q] = res != nullptr && r < valid
+               ? *reinterpret_cast<const float4*>(res + r * res_ld + 4 * lane)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int r = warp + q * (kThreads / 32);
+    if (r >= valid) break;
     const float4 y = *reinterpret_cast<const float4*>(Y + r * kCP + 4 * lane);
     float sum = (y.x + y.y) + (y.z + y.w);
     float sq = (y.x * y.x + y.y * y.y) + (y.z * y.z + y.w * y.w);
@@ -133,11 +70,10 @@ __device__ __forceinline__ void layer_norm_store(const float* Y, const float* sc
     o.z = (y.z - mean) * (inv * s.z) + b.z;
     o.w = (y.w - mean) * (inv * s.w) + b.w;
     if (res != nullptr) {
-      const float4 x = *reinterpret_cast<const float4*>(res + r * res_ld + 4 * lane);
-      o.x += x.x;
-      o.y += x.y;
-      o.z += x.z;
-      o.w += x.w;
+      o.x += x[q].x;
+      o.y += x[q].y;
+      o.z += x[q].z;
+      o.w += x[q].w;
     }
     *reinterpret_cast<float4*>(out + static_cast<long long>(r) * kC + 4 * lane) = o;
   }
@@ -200,9 +136,10 @@ constexpr int kQS = kC + 16;  // row stride of the Q halves and the K tile
 
 // The attention kernels' shared memory, in floats: Q's big and small halves
 // (kRows x kQS each), the K tile (kTile x kQS) and the V tile (kTile x kCP).
-// Outside attend the K and V tiles are free for the caller's 32-row tiles
-// and weight tiles (a 32 x kCP tile fits the K tile, a kTile x kCP one the
-// V tile); attend leaves its result in sm.qb.
+// Outside attend the K and V tiles are free for the caller: B2b puts a
+// 32-row tile's TF32 halves (2 x 32 x kQS floats) in the K tile and two
+// staged weight slices (2 x kSliceU4 uint4, 8192 floats) in the V tile;
+// attend leaves its result in sm.qb (row stride kCP).
 struct AttnSmem {
   float *qb, *qs, *k, *v;
   __device__ explicit AttnSmem(float* base)
@@ -238,8 +175,32 @@ __device__ __forceinline__ void split4(const float4& x, float* big, float* small
   *reinterpret_cast<uint4*>(small) = s;
 }
 
+// kRowsT rows of 128 floats (src + i * ld, device or shared memory, 16-byte
+// aligned; zeros from row `valid` on) split into TF32 halves at big and
+// small (row stride ds). A thread's loads are all issued before its first
+// split, so their latencies overlap.
+template <int kRowsT>
+__device__ __forceinline__ void split_rows(float* big, float* small, int ds, const float* src,
+                                           long long ld, int valid) {
+  constexpr int kPer = kRowsT * kC / 4 / kThreads;  // float4s a thread
+  static_assert(kPer * kThreads == kRowsT * kC / 4, "whole float4s a thread");
+  float4 x[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = threadIdx.x + q * kThreads, r = i / (kC / 4), c = (i % (kC / 4)) * 4;
+    x[q] = r < valid ? *reinterpret_cast<const float4*>(src + r * ld + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = threadIdx.x + q * kThreads, r = i / (kC / 4), c = (i % (kC / 4)) * 4;
+    split4(x[q], big + r * ds + c, small + r * ds + c);
+  }
+}
+
 // Q's halves from kRows rows of 128 floats (src + i * ld, device memory,
-// 16-byte aligned), zeros from row `valid` on.
+// 16-byte aligned), zeros from row `valid` on; one float4 at a time (the
+// attention kernels run at 128 registers).
 __device__ __forceinline__ void split_rows(const AttnSmem& sm, const float* src, long long ld,
                                            int valid) {
   for (int i = threadIdx.x; i < kRows * kC / 4; i += kThreads) {
@@ -248,19 +209,6 @@ __device__ __forceinline__ void split_rows(const AttnSmem& sm, const float* src,
     if (r < valid) x = *reinterpret_cast<const float4*>(src + r * ld + c);
     split4(x, sm.qb + r * kQS + c, sm.qs + r * kQS + c);
   }
-}
-
-// Q's halves from this thread's part of a 32 x 128 tile in registers (the
-// gemm_rows layout).
-__device__ __forceinline__ void split_tile(const AttnSmem& sm, float (&acc)[2][8]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int off = (ty() + 16 * i) * kQS + 64 * j + 4 * tx();
-      split4(make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]),
-             sm.qb + off, sm.qs + off);
-    }
 }
 
 // d (16x8, f32) += a (16x8, row) . b (8x8, col), TF32 operands. Not
@@ -560,6 +508,245 @@ __device__ __forceinline__ void attend(const AttnSmem& sm, const float* kbase,
                     ((a.z + b.z) + d.z) + e.z, ((a.w + b.w) + d.w) + e.w);
   }
   __syncthreads();
+}
+
+// ---- the GEMM core: token tile x weight matrix, 3xTF32 mma.sync ----------
+//
+// acc (a warp's MT m-tiles of 16 rows x NT n-tiles of 8 columns) += A . W,
+// A a token tile split into its TF32 halves once, when staged (split_rows;
+// row stride kQS or 256 + 16, so the float4 fragment loads below are free
+// of bank conflicts, as attend's Q loads), W a weight matrix (K x N,
+// input-major) in device memory. The same 3xTF32 rule as attend: small .
+// big, big . small, big . big, f32 accumulators. Each 16-byte B load from
+// shared memory feeds 3 MT MMAs, each A load 3 NT.
+//
+// Weights are split once, not once per block: pack_weights (a small kernel
+// the launch function runs before the product kernel, inside the same call)
+// writes each weight's big and small halves in the B-fragment order of
+// mma.sync into a scratch buffer: for each 16-row chunk of K and each
+// n-tile, 64 uint4, [32 h + lane] = {big b0, big b1, small b0, small b1} of
+// k-step h (of two) for that lane, whose rows are:
+//   * kind kFromSmem (A read from a split tile): rows 4 t4 + 2 h and + 1.
+//     A thread's float4 of channels 4 t4 .. 4 t4 + 3 of a 16-channel chunk
+//     is then the A columns (t4, t4 + 4) of the two k-steps (attend's QK^T
+//     permutation; the sum over channels does not care about the order);
+//   * kind kFromAcc (A is a previous product's accumulator, B2c's h): rows
+//     8 h + 2 t4 and + 1. An accumulator n-tile holds columns 2 t4, 2 t4 + 1
+//     of rows g, g + 8: taken as a k-step in the order (0, 2, 4, 6, 1, 3, 5,
+//     7) it is the A fragment {c0, c2, c1, c3} as it lies (attend's P.V).
+// Chunks of NC columns are stored one after the other, (N / NC) x (K / 16)
+// x (NC / 8) blocks of 1 KB (K and N padded with zeros where a kernel's
+// chunks ask for it), so that a slice of 16 KB (kSliceU4 uint4: a block's
+// unit of staging) is contiguous. Slices reach shared memory by
+// cp.async through a ring of kStages buffers: slice s + kStages - 1 lands
+// while slice s multiplies; one barrier a slice. Each uint4 a lane reads
+// from a slice is 16 bytes of 512 contiguous ones: no bank conflicts.
+
+constexpr int kFromSmem = 0, kFromAcc = 1;
+constexpr int kSliceU4 = 1024;  // one staged slice: 16 KB of packed fragments
+
+// The row (within a 16-row chunk) of B operand `which` (b0, b1) of k-step h
+// for lane column t4.
+__device__ __forceinline__ int frag_row(int kind, int h, int t4, int which) {
+  return (kind == kFromSmem ? 4 * t4 + 2 * h : 8 * h + 2 * t4) + which;
+}
+
+struct PackJob {
+  const float* w;  // K x N, row-major
+  uint4* dst;      // (Np / NC) x (Kp / 16) x (NC / 8) x 64
+  int K, N;        // the weight's shape
+  int Kp, Np;      // the packed shape: K and N padded with zeros
+  int NC, kind;
+};
+
+struct PackJobs {
+  PackJob job[3];
+};
+
+// One thread per packed uint4 (two weights, each split in two) of job
+// blockIdx.y.
+__global__ void __launch_bounds__(kThreads) pack_weights_kernel(PackJobs jobs) {
+  const PackJob p = blockIdx.y == 0 ? jobs.job[0] : blockIdx.y == 1 ? jobs.job[1] : jobs.job[2];
+  const long long u = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (u >= static_cast<long long>(p.Kp) * p.Np / 2) return;
+  const int lane = static_cast<int>(u & 31), h = static_cast<int>((u >> 5) & 1);
+  const long long blk = u >> 6;  // (chunk, row chunk, n-tile)
+  const int nt = p.NC / 8;
+  const int j = static_cast<int>(blk % nt);
+  const long long rest = blk / nt;
+  const int rc = static_cast<int>(rest % (p.Kp / 16));
+  const int cc = static_cast<int>(rest / (p.Kp / 16));
+  const int col = cc * p.NC + 8 * j + (lane >> 2);
+  float x[2];
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const int row = 16 * rc + frag_row(p.kind, h, lane & 3, which);
+    x[which] = row < p.K && col < p.N ? p.w[static_cast<long long>(row) * p.N + col] : 0.f;
+  }
+  uint4 out;
+  split_tf32(x[0], out.x, out.z);
+  split_tf32(x[1], out.y, out.w);
+  p.dst[u] = out;
+}
+
+// Packs up to three weights (n of them) in one launch on `stream`.
+__host__ inline cudaError_t pack_weights(const PackJobs& jobs, int n, cudaStream_t stream) {
+  long long most = 0;  // packed uint4s of the largest job
+  for (int i = 0; i < n; ++i) {
+    const PackJob& p = jobs.job[i];
+    if (p.Kp % 16 != 0 || p.NC % 8 != 0 || p.Np % p.NC != 0 || p.Kp < p.K || p.Np < p.N)
+      return cudaErrorInvalidValue;
+    const long long n_u4 = static_cast<long long>(p.Kp) * p.Np / 2;
+    most = n_u4 > most ? n_u4 : most;
+  }
+  const dim3 grid(static_cast<unsigned>((most + kThreads - 1) / kThreads), n);
+  pack_weights_kernel<<<grid, kThreads, 0, stream>>>(jobs);
+  return cudaGetLastError();
+}
+
+// One packed slice (kSliceU4 uint4) global -> shared, asynchronously, as
+// part of the caller's current commit group.
+__device__ __forceinline__ void issue_slice(uint4* dst, const uint4* src) {
+#pragma unroll
+  for (int q = 0; q < kSliceU4 / kThreads; ++q) {
+    const int i = threadIdx.x + q * kThreads;
+    cp_async16(reinterpret_cast<float*>(dst + i), reinterpret_cast<const float*>(src + i), true);
+  }
+}
+
+// A 16-channel chunk of a split tile times NT n-tiles of a staged block
+// row, for MT m-tiles of 16 rows: ab and as point at this thread's (row g,
+// channel 4 t4) of the big and small halves of the warp's first m-tile
+// (row stride lda); blocks at the chunk's first n-tile block; the warp
+// takes n-tiles t0 + ts i (NT even). Each B fragment loaded feeds 3 MT
+// MMAs, each A fragment 3 NT.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[MT][NT][4], const float* ab,
+                                          const float* as, int lda, const uint4* blocks, int t0,
+                                          int ts) {
+  const int lane = threadIdx.x & 31;
+  uint32_t fb[MT][2][4], fs[MT][2][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const uint4 b0 = *reinterpret_cast<const uint4*>(ab + 16 * m * lda);
+    const uint4 b1 = *reinterpret_cast<const uint4*>(ab + (16 * m + 8) * lda);
+    const uint4 s0 = *reinterpret_cast<const uint4*>(as + 16 * m * lda);
+    const uint4 s1 = *reinterpret_cast<const uint4*>(as + (16 * m + 8) * lda);
+    const uint32_t b[2][4] = {{b0.x, b1.x, b0.y, b1.y}, {b0.z, b1.z, b0.w, b1.w}};
+    const uint32_t sm[2][4] = {{s0.x, s1.x, s0.y, s1.y}, {s0.z, s1.z, s0.w, s1.w}};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fb[m][h][e] = b[h][e];
+        fs[m][h][e] = sm[h][e];
+      }
+  }
+  // Two n-tiles at a time, the six MMA phases of both in turn: 2 MT
+  // independent accumulators between two dependent MMAs (ptxas keeps the
+  // source's order: one tile at a time issued chains of dependent MMAs).
+#pragma unroll
+  for (int i = 0; i < NT; i += 2) {
+    uint4 w0[2], w1[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint4* blk = blocks + (t0 + ts * (i + u)) * 64 + lane;
+      w0[u] = blk[0];
+      w1[u] = blk[32];
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + u], fs[m][0], w0[u].x, w0[u].y);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + u], fs[m][1], w1[u].x, w1[u].y);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + u], fb[m][0], w0[u].z, w0[u].w);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + u], fb[m][1], w1[u].z, w1[u].w);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + u], fb[m][0], w0[u].x, w0[u].y);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_tf32(acc[m][i + u], fb[m][1], w1[u].x, w1[u].y);
+  }
+}
+
+// One k-step whose A fragments (MT m-tiles) are in registers (big pb,
+// small ps) times NT n-tiles: blocks at the first n-tile's block, offset by
+// 32 h + lane. Each B fragment loaded feeds 3 MT MMAs.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_step(float (&acc)[MT][NT][4], const uint32_t (&pb)[MT][4],
+                                         const uint32_t (&ps)[MT][4], const uint4* blocks) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const uint4 w = blocks[64 * j];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ps[m], w.x, w.y);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], pb[m], w.z, w.w);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], pb[m], w.x, w.y);
+  }
+}
+
+// acc += A . W over K = 128 for a 128-column chunk of W: A split in shared
+// memory (ab, as at this thread's row g of the warp's first m-tile, channel
+// 4 t4; stride lda), W packed (kind kFromSmem, NC = 128) from `src`, eight
+// 16-row slices through a two-buffer ring; the warp takes n-tiles t0 .. t0
+// + NT - 1. Starts with a barrier (A's halves become visible; the caller is
+// done with `ring`), ends without one.
+template <int MT, int NT>
+__device__ __forceinline__ void gemm_k128(float (&acc)[MT][NT][4], const float* ab,
+                                          const float* as, int lda, const uint4* src,
+                                          uint4* ring, int t0) {
+  constexpr int kSlices = kC / 16;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NT; ++i) acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.f;
+  __syncthreads();
+  issue_slice(ring, src);
+  cp_async_commit();
+#pragma unroll 1
+  for (int s = 0; s < kSlices; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // slice s visible; every warp is done with slice s - 1
+    if (s + 1 < kSlices) issue_slice(ring + ((s + 1) & 1) * kSliceU4, src + (s + 1) * kSliceU4);
+    cp_async_commit();
+    mma_chunk<MT, NT>(acc, ab + 16 * s, as + 16 * s, lda, ring + (s & 1) * kSliceU4, t0, 1);
+  }
+}
+
+// This thread's part of a warp's MT x NT tile (rows row0 + 16 m + g, + 8;
+// the columns of n-tiles t0 ..) as float2 pairs at dst (row stride ld);
+// rows from `valid` on are not written. add: dst += the tile.
+template <int MT, int NT>
+__device__ __forceinline__ void store_acc(float* dst, long long ld, const float (&acc)[MT][NT][4],
+                                          int row0, int t0, int valid, bool add = false) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = row0 + 16 * m + g + 8 * e;
+      if (r >= valid) continue;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        float2* p = reinterpret_cast<float2*>(dst + r * ld + 8 * (t0 + i) + 2 * t4);
+        *p = add ? make_float2(p->x + acc[m][i][2 * e], p->y + acc[m][i][2 * e + 1])
+                 : make_float2(acc[m][i][2 * e], acc[m][i][2 * e + 1]);
+      }
+    }
 }
 
 }  // namespace win

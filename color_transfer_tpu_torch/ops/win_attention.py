@@ -16,11 +16,14 @@ Each function has two implementations:
     exact (erf) GELU;
   * a CUDA kernel hand-written for sm_90a: csrc/win_attention.cu,
     csrc/win_sublayer.cu, csrc/win_ffn.cu (their headers say what bounds
-    them and how they are laid out). The projections and the FFN are f32
-    FMAs with no TF32; the attention core (csrc/win_common.cuh::attend) runs
-    on the tensor cores in 3xTF32 (each operand split into two TF32 halves,
-    three products), which keeps f32's error scale
-    (tests/test_torch_port_win_attention.py emulates it on the CPU).
+    them and how they are laid out). Every product runs on the tensor cores
+    in 3xTF32 (each operand split into two TF32 halves, three products),
+    which keeps f32's error scale: the attention core
+    (csrc/win_common.cuh::attend) and the weight products (the GEMM core
+    there: B2b's projections, B2c's FFN; the weights' halves are packed
+    once a call by a small kernel of the same call).
+    tests/test_torch_port_win_attention.py emulates the arithmetic on the
+    CPU.
 
 ``window_attention_fused``, ``window_sublayer_fused`` and ``ffn_fused`` route
 by device: a CPU tensor takes the plain version; a CUDA tensor launches the
@@ -28,13 +31,15 @@ kernel or raises. Each is a torch.autograd.Function whose backward is
 autograd of the plain version, as JAX's custom VJPs run the XLA twins; the
 DMSCT matcher is frozen, so no path of the port needs it. Each counts its
 kernel launches in ``.launches``, one per call (a ``window_sublayer_fused``
-call is two CUDA kernels: the k/v projection, then the rest).
+call is three CUDA kernels: the weight packing, the k/v projection, then
+the rest; a ``ffn_fused`` call two: the packing, then the FFN).
 
 ``eligible`` and ``ffn_eligible`` are the JAX package's routing guards,
 copied so that the same layers take the fused route in both packages.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -190,13 +195,20 @@ def check_kernel_inputs(tokens, tensors, ffn_dim=None):
         raise ValueError(f"F must be a multiple of 64, got {ffn_dim}")
 
 
-def _kernel(source, symbol, argtypes):
+def _kernel(source, symbol, argtypes, restype=ctypes.c_int):
     from color_transfer_tpu_torch.ops import _build
 
     fn = getattr(_build.load(source), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
+
+
+@functools.cache
+def _packed_words(source, symbol, *args):
+    """32-bit words of a kernel's split-weights scratch (a constant of the
+    source for given shapes: asked of the library once per process)."""
+    return _kernel(source, symbol, [ctypes.c_int] * len(args), ctypes.c_longlong)(*args)
 
 
 def _run(fn, device, *args):
@@ -235,12 +247,15 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
     x_src = tensors[0]
     bp, length, c = x_src.shape
     fn = _kernel("win_sublayer", "window_sublayer_forward",
-                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    # The three weights' TF32 halves in mma.sync's fragment order.
+    packed = torch.empty(_packed_words("win_sublayer", "window_sublayer_packed_words"),
+                         dtype=torch.int32, device=x_src.device)
     kv = torch.empty(bp, length, 2 * c, dtype=x_src.dtype, device=x_src.device)
     out = torch.empty_like(x_src)
     geom = (0, 0, 0) if shift_windows is None else shift_windows
-    _run(fn, x_src.device, *(t.data_ptr() for t in tensors), kv.data_ptr(), out.data_ptr(),
-         bp, length, int(shift_windows is not None), *geom, int(add_residual),
+    _run(fn, x_src.device, *(t.data_ptr() for t in tensors), packed.data_ptr(), kv.data_ptr(),
+         out.data_ptr(), bp, length, int(shift_windows is not None), *geom, int(add_residual),
          1.0 / math.sqrt(c))
     window_sublayer_fused.launches += 1
     return out
@@ -251,10 +266,14 @@ def _launch_ffn(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=Fal
     check_kernel_inputs(tensors[0], tensors[1:], ffn_dim=w0.shape[1])
     x_src = tensors[0]
     fn = _kernel("win_ffn", "ffn_forward",
-                 [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                 [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_void_p])
+    # W0 and W2's TF32 halves in mma.sync's fragment order.
+    packed = torch.empty(_packed_words("win_ffn", "ffn_packed_words", w0.shape[1]),
+                         dtype=torch.int32, device=x_src.device)
     out = torch.empty_like(x_src)
-    _run(fn, x_src.device, *(t.data_ptr() for t in tensors), out.data_ptr(),
+    _run(fn, x_src.device, *(t.data_ptr() for t in tensors),
+         packed.data_ptr(), out.data_ptr(),
          x_src.numel() // x_src.shape[-1], w0.shape[1], int(add_residual))
     ffn_fused.launches += 1
     return out

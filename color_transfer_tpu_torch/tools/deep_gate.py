@@ -163,6 +163,62 @@ def run_gate(model, recipe, *, height=544, width=960, left=None, right=None,
     return summary, rows
 
 
+def occlusion_flips(row, *, height=544, width=960, seed=0, device=None,
+                    module_kwargs=None, radius=32):
+    """Why one row of DMSCT's ``fused`` gate reads below the others: at
+    distortion ``row`` of the grid, the matcher's output fused against
+    float32 on shared weights. GMFlow's forward/backward consistency check
+    thresholds the flow into occlusion masks, and the corrector reads the
+    forward mask, so a flow that moves by a rounding can flip a pixel's flag.
+    Returns the pixels whose forward and backward flags flip, the flow's
+    max|d| at the flipped forward pixels and elsewhere, the corrected
+    image's pair PSNR and max|d| at and away from those pixels, and the
+    share of the image's squared difference within ``radius`` pixels of a
+    flipped one (the corrector's convolutions spread a flip). A report, not
+    a check."""
+    from color_transfer_tpu_torch.core.precision import full_f32_inference
+    from color_transfer_tpu_torch.core.resize import derive_matcher_size
+    from color_transfer_tpu_torch.methods.video import resolve_device
+
+    device = resolve_device(device)
+    gt, ref = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for a in load_pair(height, width))
+    modules = {"f32": build("dmsct", "", module_kwargs),
+               "fused": build("dmsct", "fused", module_kwargs)}
+    variables = modules["f32"].init_eval_variables(seed=seed, device=device)
+    mv = {k[len("matcher."):]: v for k, v in variables.items() if k.startswith("matcher.")}
+    t4 = setup_grid_distortions()[row](gt).clamp(0.0, 1.0)[None]
+    r4 = ref[None]
+    size = derive_matcher_size(height, width)
+    with full_f32_inference():
+        flows = {name: torch.func.functional_call(m.model.matcher, mv, (t4 * 255.0, r4 * 255.0),
+                                                  {"inference_size": size})
+                 for name, m in modules.items()}
+        images = {name: forward("dmsct", m, variables)(t4, r4).clamp(0.0, 1.0)
+                  for name, m in modules.items()}
+    a, b = flows["fused"], flows["f32"]
+    fwd = (a["fwd_occ"] != b["fwd_occ"])[..., 0]
+    bwd = (a["bwd_occ"] != b["bwd_occ"])[..., 0]
+    dflow = (a["flow"] - b["flow"]).abs().amax(dim=-1)
+    dimg = (images["fused"] - images["f32"]).abs().amax(dim=-1)
+
+    def peak(x, where):
+        return float(x[where].max()) if bool(where.any()) else 0.0
+
+    near = torch.nn.functional.max_pool2d(fwd[:, None].float(), 2 * radius + 1, stride=1,
+                                          padding=radius)[:, 0] > 0
+    sq = ((images["fused"] - images["f32"]) ** 2).sum(dim=-1)
+    total = float(sq.sum())
+
+    return {"row": row, "pixels": int(fwd.numel()),
+            "fwd_occ_flips": int(fwd.sum()), "bwd_occ_flips": int(bwd.sum()),
+            "fwd_occluded_f32": int(b["fwd_occ"].sum()),
+            "flow_max_d_at_flips": peak(dflow, fwd), "flow_max_d_elsewhere": peak(dflow, ~fwd),
+            "pair_psnr": float(metrics.psnr(images["fused"], images["f32"])),
+            "image_max_d_at_flips": peak(dimg, fwd), "image_max_d_elsewhere": peak(dimg, ~fwd),
+            f"image_sq_d_share_within_{radius}px": float(sq[near].sum()) / total if total else 0.0}
+
+
 def rows_finite(rows):
     return all(math.isfinite(v) for r in rows for v in r.values())
 

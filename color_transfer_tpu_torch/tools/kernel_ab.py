@@ -17,9 +17,11 @@ bf16 operands and precise) and B6 (``resb_chain`` in bf16: chains of 1, 6
 and 18 blocks) at the 1080p path's shapes, B7 (``warp_adjoint``) at DMSCT's
 four training levels (batch 12, 256x480 crops) on a mixed flow (sub-pixel,
 zero and clamped displacements) and an in-image one, and B2a
-(``window_attention_fused``, the shift mask) and B2b
-(``window_sublayer_fused``, cross-attention) at the fused route's 1080p
-shape (256, 448, 128), through their public wrappers, CUDA events after
+(``window_attention_fused``, the shift mask), B2b
+(``window_sublayer_fused``: cross-attention, and self-attention with the
+shift mask and the residual) and B2c (``ffn_fused``, F = 1024, the
+residual) at the fused route's 1080p shape (256, 448, 128), through their
+public wrappers, CUDA events after
 warm-up, and prints one JSON line per case with both sides' times in the
 order run. ``--only REGEX`` keeps the cases whose name matches.
 ``--device cpu --small`` runs tiny shapes through the plain versions (a
@@ -132,6 +134,13 @@ def cases(device, small):
            ops.win_attention.window_attention_fused(x, y, z, shift_windows=geom))
     yield (f"window_sublayer cross {(bp, length, c)}", lambda ops:
            ops.win_attention.window_sublayer_fused(x, y, *weights, *norm))
+    yield (f"window_sublayer self shift residual {(bp, length, c)}", lambda ops:
+           ops.win_attention.window_sublayer_fused(x, x, *weights, *norm, shift_windows=geom,
+                                                   add_residual=True))
+    f = 64 if small else 1024
+    w0, w2 = randn(2 * c, f, scale=(2 * c) ** -0.5), randn(f, c, scale=f**-0.5)
+    yield (f"ffn {(bp, length, c)} F={f}", lambda ops:
+           ops.win_attention.ffn_fused(x, y, w0, w2, *norm, add_residual=True))
 
 
 def run(other, device, small=False, iters=3, only=None):

@@ -55,6 +55,22 @@ def test_recipes_report_the_jax_summary(model, recipe):
     assert math.isfinite(summary["worst_pair_psnr_db"])
 
 
+def test_occlusion_flips_report():
+    """The gate row's trace: the fused matcher against f32 at one distortion.
+    On the CPU the fused layers take their plain versions, which differ from
+    the unfused layers only by rounding (the flows differ, by ~5e-5 here):
+    no occlusion flag flips, so nothing is reported at flipped pixels. The
+    card's run reports the real count."""
+    report = deep_gate.occlusion_flips(28, height=64, width=96, device="cpu",
+                                       module_kwargs=TINY["dmsct"])
+    assert report["row"] == 28 and report["pixels"] == 64 * 96
+    assert report["fwd_occ_flips"] == 0 and report["bwd_occ_flips"] == 0
+    assert report["flow_max_d_at_flips"] == report["image_max_d_at_flips"] == 0.0
+    assert report["image_sq_d_share_within_32px"] == 0.0
+    assert 0.0 < report["flow_max_d_elsewhere"] < 1e-3  # the routes compute differently
+    assert all(math.isfinite(report[k]) for k in ("pair_psnr", "image_max_d_elsewhere"))
+
+
 @pytest.mark.parametrize("recipe", ["bf16", "bf16m", "bf16c", "bf16+fused", "bf16-nofuse",
                                     "bf16+refine32"])
 def test_recipes_the_port_lacks_raise(recipe):

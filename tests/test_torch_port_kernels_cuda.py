@@ -12,9 +12,9 @@ bf16 as stated at each test. B3 and B4 round operation by operation as
 their plain versions do (IEEE division, no FMA contraction): B3 within
 1e-6 * bins (4 ulps at the table's top value), B4 within 1e-6 of values ~1.
 B7's float atomics add in an order that changes from run to run: within
-1e-5 * max(1, max|ref|). B2a, B2b and B2c on the f32 line: B2c and B2b's
-projections are f32 FMAs, the attention core 3xTF32 MMAs (f32's error
-scale), against cuBLAS's f32 products; sums in another order.
+1e-5 * max(1, max|ref|). B2a, B2b and B2c on the f32 line: every product
+is 3xTF32 MMAs (f32's error scale), against cuBLAS's f32 products; sums in
+another order.
 """
 
 import math
@@ -496,7 +496,7 @@ def test_window_sublayer(gen, shape, geom, self_attn):
 
 
 @pytest.mark.parametrize("shape,f", [((128, 448, 128), 1024), ((1536, 120, 128), 1024),
-                                     ((3, 37, 128), 64)])
+                                     ((3, 37, 128), 64), ((8, 35, 128), 1024)])
 def test_ffn(gen, shape, f):
     c = shape[-1]
     xs, xm = _randn(gen, *shape), _randn(gen, *shape)
@@ -508,6 +508,39 @@ def test_ffn(gen, shape, f):
         want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=True)
     assert wn.ffn_fused.launches == before + 1
     assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,f", [((3, 37, 128), 64), ((8, 35, 128), 1024),
+                                     ((96, 480, 128), 1024)])
+def test_ffn_runs_bit_equal(gen, shape, f):
+    """B2c sums in a fixed order (no atomics; the four F quarters added in
+    the epilogue in one order): two runs are bit-equal, also for token
+    counts that are not a multiple of its 64-token tile."""
+    c = shape[-1]
+    xs, xm = _randn(gen, *shape), _randn(gen, *shape)
+    w0, w2 = _randn(gen, 2 * c, f, scale=(2 * c) ** -0.5), _randn(gen, f, c, scale=f**-0.5)
+    ns, nb = 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1)
+    with torch.no_grad():
+        first = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
+        second = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("self_attn", [True, False])
+@pytest.mark.parametrize("shape,geom", [((12, 91, 128), (2, 7, 13)),
+                                        ((4, 1024, 128), (2, 32, 32))])
+def test_window_sublayer_runs_bit_equal(gen, shape, geom, self_attn):
+    """B2b: the projections and the attention core sum in a fixed order, so
+    two runs are bit-equal (L = 91 and 1024: ragged 32-query and 64-token
+    tiles, and the longest window)."""
+    xs = _randn(gen, *shape)
+    xt = xs if self_attn else _randn(gen, *shape)
+    w = _sublayer_weights(gen, shape[-1])
+    kwargs = {"shift_windows": geom, "add_residual": True} if self_attn else {}
+    with torch.no_grad():
+        first = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
+        second = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
+    assert torch.equal(first, second)
 
 
 def test_window_sublayer_gradient_on_the_card(gen):

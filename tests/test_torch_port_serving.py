@@ -508,10 +508,11 @@ def test_kernel_ab_times_two_copies_side_by_side(tmp_path):
     assert "color_transfer_tpu_torch" not in (other / "ops" / "row_attention.py").read_text()
     rows = kernel_ab.run(other, torch.device("cpu"), small=True, iters=1)
     # B5: 2 modes x 2 dtypes; B6: 3 chains x 2 batches; B7: 4 levels x 2
-    # flows; B2a and B2b.
-    assert len(rows) == 4 + 6 + 8 + 2
+    # flows; B2a, B2b (cross; self with the shift and the residual) and B2c.
+    assert len(rows) == 4 + 6 + 8 + 4
     assert [r["case"] for r in kernel_ab.run(other, torch.device("cpu"), small=True, iters=1,
-                                             only="^window")] == [r["case"] for r in rows[-2:]]
+                                             only="^window")] == [r["case"] for r in rows[-4:-1]]
+    assert rows[-1]["case"].startswith("ffn ")
     for row in rows:
         assert row["order"] == ["other", "tree", "tree", "other"]
         assert len(row["ms"]) == 4 and all(t > 0 for t in row["ms"])

@@ -17,6 +17,7 @@ rtol 1e-5 and atol 1e-5 (weight gradients sum over every token and reach
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -248,6 +249,69 @@ def test_3xtf32_attention_matches_jax(rng, mode, capsys):
         print(f"\n3xTF32 attention ({mode}): max|d| {err3:.2e}; 1xTF32 {err1:.2e}; "
               f"line {line:.2e}")
     assert err3 <= line and err1 > err3
+
+
+def _ffn_emulated(matmul, xs, xm, w0, w2, ns, nb):
+    """ffn_plain's math with both products through ``matmul``: B2c's
+    arithmetic on the card, where gelu(h) is split as it leaves the first
+    product's accumulator."""
+    h = F.gelu(matmul(torch.cat([xs, xm], dim=-1), w0))
+    return xs + tw.layer_norm(matmul(h, w2), ns, nb)
+
+
+def _sublayer_emulated(matmul, xs, xt, wq, wkv, wm, ns, nb, mask=None):
+    """window_sublayer_plain's math with the three projections and the
+    attention's two products through ``matmul`` (B2b on the card)."""
+    c = wq.shape[1]
+    kv = matmul(xt, wkv)
+    msg = _attention_emulated(matmul, matmul(xs, wq), kv[..., :c], kv[..., c:], mask)
+    return tw.layer_norm(matmul(msg, wm), ns, nb)
+
+
+def _report(label, err3, err1, line):
+    print(f"\n3xTF32 {label}: max|d| {err3:.2e}; 1xTF32 {err1:.2e}; line {line:.2e}")
+    assert err3 <= line and err1 > err3
+
+
+@pytest.mark.parametrize("f", [64, 1024])
+def test_3xtf32_ffn_matches_jax(rng, f, capsys):
+    """B2c through the card's 3xTF32 arithmetic (both products, the exact
+    GELU, JAX's LayerNorm, the residual) against JAX's ffn_xla at f32
+    HIGHEST, within the card's line; 1xTF32 printed beside it."""
+    c = 128
+    xs, xm = _tokens(rng, 3, 37, c), _tokens(rng, 3, 37, c)
+    w0, w2, ns, nb = _ffn_weights(rng, c, f)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jw.ffn_xla(*map(jnp.asarray, (xs, xm, w0, w2)),
+                                     norm=(jnp.asarray(ns), jnp.asarray(nb)), add_residual=True))
+    args = tuple(map(_t, (xs, xm, w0, w2, ns, nb)))
+    line = KERNEL_RTOL * max(1.0, float(np.abs(want).max()))
+    err3, err1 = (float(np.abs(_ffn_emulated(mm, *args).numpy() - want).max())
+                  for mm in (_matmul_3xtf32, _matmul_1xtf32))
+    with capsys.disabled():
+        _report(f"FFN (F = {f})", err3, err1, line)
+
+
+@pytest.mark.parametrize("shift", [False, True])
+def test_3xtf32_sublayer_matches_jax(rng, shift, capsys):
+    """B2b through the card's 3xTF32 arithmetic (the q, k/v and merge
+    projections and the attention's two products) against JAX's
+    window_sublayer_xla at f32 HIGHEST, shifted and unshifted."""
+    kw, hs, ws, c = 2, 5, 7, 128
+    bp, length = 2 * kw * kw, hs * ws
+    xs, xt = _tokens(rng, bp, length, c), _tokens(rng, bp, length, c)
+    w = _sublayer_weights(rng, c)
+    mask = jw.shift_window_mask(kw * hs, kw * ws, kw).astype(np.float32) if shift else None
+    with jax.default_matmul_precision("highest"):
+        jargs = tuple(map(jnp.asarray, (xs, xt, *w)))
+        want = np.asarray(jw.window_sublayer_xla(
+            *jargs[:5], None if mask is None else jnp.asarray(mask), norm=jargs[5:]))
+    args = tuple(map(_t, (xs, xt, *w))) + (None if mask is None else _t(mask),)
+    line = KERNEL_RTOL * max(1.0, float(np.abs(want).max()))
+    err3, err1 = (float(np.abs(_sublayer_emulated(mm, *args).numpy() - want).max())
+                  for mm in (_matmul_3xtf32, _matmul_1xtf32))
+    with capsys.disabled():
+        _report(f"sublayer ({'shifted' if shift else 'unshifted'})", err3, err1, line)
 
 
 # -- B2b: the attention sublayer ------------------------------------------------

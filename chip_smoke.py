@@ -11,7 +11,13 @@ fallback):
                 win_ffn.cu for sm_90a, all nine at once.
   3. kernels  — each kernel against its plain torch version on the card,
                 at the main paths' shapes and at a ragged small shape, with
-                timings (CUDA events, warmed up): B1 local correlation; B6
+                timings (CUDA events, warmed up): B1 local correlation at
+                the 1080p matcher shape on a mixed flow (the per-pixel
+                route), a smooth flow (the staged route) and a step between
+                them (both routes in one call), at the training shape (24,
+                64, 120, 128) and a ragged shape: the kernel's route of
+                every tile held to ``tile_boxes``, two runs bit-equal, the
+                staged share printed, each timed beside its bound; B6
                 ResB chain (one block at (2, 1080, 1920, 64) in f32 and
                 bf16, the 18-block extraction chain in bf16, ragged shapes
                 at 16, 32 and 64 channels; timed per block and per conv
@@ -28,7 +34,9 @@ fallback):
                 a warm timed pass, peak memory, device time by stage (CUDA
                 events) and the device's busy share (torch.profiler); then
                 the same model on a small pair, stage by stage, against the
-                CPU (plain torch) run.
+                CPU (plain torch) run. B1 is checked and timed on the
+                arguments of the served frame's first B1 call (the flow the
+                GRU loop gives it): B1's reported time.
   5. dcmcs3di — full-width DCMCS3DI (18 extraction and 6 transfer ResB
                 blocks, 64 channels, seeded random weights) serves the same
                 2 pairs through the kernel route (``inference=True,
@@ -39,9 +47,10 @@ fallback):
                 model with precise row attention on a small pair, stage by
                 stage, against the CPU run.
   6. classical — B3 (IDT transport apply) at a 1080p chunk (8, 3, 2073600)
-                and a ragged N, B4 (regrain sweeps) at 1080p level 0 (nbit
-                4), the smallest 1080p level 34x60 (nbit 64) and 13x22
-                (nbit 7), each against its plain version and timed; then
+                and a ragged N, B4 (regrain sweeps) at the six levels of an
+                8-frame 1080p chunk (1080x1920 with 4 sweeps down to 34x60
+                with 64) and 13x22 (nbit 7), bit-equal to its plain version,
+                each level timed beside its bound, and the chunk's sum; then
                 all five classical methods (Reinhard, CCS, MK, IDT,
                 grading) serve 8 synthetic 1080x1920 frames per frame
                 through color_transfer_between_videos, MK also in global
@@ -129,10 +138,15 @@ BF16_BLOCK_ULPS, BF16_CHAIN_ULPS = 4, 32
 CLASSICAL = ("reinhard", "correlated_color_space", "monge_kantorovitch", "idt",
              "automated_color_grading")
 CLASSICAL_FRAMES, N_ITER, LEVELS = 8, 4, 6
+# B4's six calls of an 8-frame 1080p chunk: (frames, H, W, sweeps), the
+# pyramid of methods/iterative.py (NBITS = 4, 16, 32, 64, 64, 64).
+REGRAIN_LEVELS = tuple((CLASSICAL_FRAMES, h, w, n) for h, w, n in (
+    (1080, 1920, 4), (540, 960, 16), (270, 480, 32), (135, 240, 64), (68, 120, 64),
+    (34, 60, 64)))
 # B3 and B4 against their plain versions: the kernels round operation by
 # operation as the plain versions do (IEEE division, no FMA contraction), so
 # they agree to rounding: B3 within 1e-6 * bins (bin units; 4 ulps at the top
-# value 255), B4 within 1e-6 of max(1, max|ref|).
+# value 255), B4 within 1e-6 of max(1, max|ref|) and bit-equal.
 B3_LINE, B4_LINE = 1e-6, 1e-6
 # Card against CPU on a small clip. The linear methods: 1e-4 (sums over the
 # frame in another order, cuSOLVER's eigensolver against LAPACK's). IDT and
@@ -279,52 +293,134 @@ def _mixed_flow(g, b, h, w, device):
     return flow.to(device).contiguous()
 
 
-def check_kernels():
-    """Kernel against plain version on the card. Returns per-kernel rows
-    (without the launch count, which the serving run fills in)."""
+def _smooth_flow(b, h, w, device):
+    """A slowly varying field that moves every window well inside the image
+    (the staged route's case)."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    flow = torch.stack([3.5 + 0.3 * torch.sin(yy / 5.0) - 0.02 * xx,
+                        -2.25 + 0.2 * torch.cos(xx / 7.0)], -1)
+    return flow[None].repeat(b, 1, 1, 1).to(device).contiguous()
+
+
+def _step_flow(g, b, h, w, device):
+    """Smooth on the left half of the image, mixed on the right: both of
+    B1's routes in one call."""
+    left = torch.arange(w, device=device)[None, None, :, None] < w // 2
+    return torch.where(left, _smooth_flow(b, h, w, device), _mixed_flow(g, b, h, w, device))
+
+
+def _b1_bound(f0, flow, r):
+    """B1's bound on these inputs: f0, f1 and the flow read once, the
+    (2r+1)^2 outputs written once; the (2r+2)^2 window's C-channel dots of
+    the pixels whose window touches the image (the others compute
+    nothing). No single library call computes it."""
     from color_transfer_tpu_torch.ops import local_corr as lc
 
-    g = torch.Generator().manual_seed(0)
-    row = None
-    # (B, H, W, C, r): the 1080p matcher shape, then a ragged small one.
-    for shape in ((2, 128, 224, 128, 4), (1, 13, 37, 16, 1)):
-        b, h, w, c, r = shape
-        f0 = torch.randn(b, h, w, c, generator=g).cuda()
-        f1 = torch.randn(b, h, w, c, generator=g).cuda()
-        flow = _mixed_flow(g, b, h, w, "cuda")
-        with torch.no_grad():
-            got = lc.local_correlation_with_flow(f0, f1, flow, r)
-            want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
+    b, h, w, c = f0.shape
+    px = b * h * w
+    live = int(lc.window_starts(flow, r)[4].sum())
+    return 4 * (2 * px * c + 2 * px + px * (2 * r + 1) ** 2), {"f32": live * (2 * r + 2) ** 2 * 2 * c}
+
+
+def _window_reuse(flow, r):
+    """Over the 8 x 8 tiles of B1's plan with a live pixel: the median
+    count of in-image taps its windows read, of the distinct positions they
+    read (what a tile's staging would need to hold), and of its box's
+    positions (what the kernel stages when it fits the budget); and the
+    taps over the distinct positions summed over all those tiles."""
+    from color_transfer_tpu_torch.ops import local_corr as lc
+
+    b, h, w, _ = flow.shape
+    k = 2 * r + 2
+    plan = lc.launch_plan(128, r)
+    sx, sy, _, _, live = lc.window_starts(flow, r)
+    ty, tx = -(-h // plan.tile_h), -(-w // plan.tile_w)
+    ys = torch.arange(h, device=flow.device)[None, :, None] // plan.tile_h
+    xs = torch.arange(w, device=flow.device)[None, None, :] // plan.tile_w
+    tile = (torch.arange(b, device=flow.device)[:, None, None] * ty + ys) * tx + xs
+    off = torch.arange(k, device=flow.device)
+    yy = sy[..., None, None] + off[:, None]
+    xx = sx[..., None, None] + off[None, :]
+    read = live[..., None, None] & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    tiles = tile[..., None, None].expand_as(read)[read]
+    keys = torch.unique(tiles * (h * w) + (yy * w + xx)[read])
+    n = b * ty * tx
+    taps = torch.bincount(tiles, minlength=n)
+    distinct = torch.bincount(keys // (h * w), minlength=n)
+    boxes = lc.tile_boxes(flow, r, plan)
+    used = taps > 0
+    box = (boxes["w"] * boxes["h"]).flatten()[used]
+    return (float(taps[used].float().median()), float(distinct[used].float().median()),
+            float(box.float().median()), float(taps.sum() / distinct.sum()), plan.budget)
+
+
+def check_b1(f0, f1, flow, r, label):
+    """B1 against its plain version on these inputs: the kernel's route of
+    each tile (held to ``tile_boxes``, the Python statement of its choice),
+    two runs bit-equal, the error on the KERNEL_RTOL line; both timed.
+    Returns (err, ms, plain_ms, staged share)."""
+    from color_transfer_tpu_torch.ops import local_corr as lc
+
+    with torch.no_grad():
+        got, routes = lc._launch(f0, f1, flow, r, routes=True)
+        again = lc._launch(f0, f1, flow, r)
+        want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = max(1.0, float(want.abs().max()))
-        with torch.no_grad():
-            ms = _time_ms(lambda: lc.local_correlation_with_flow(f0, f1, flow, r))
-            plain_ms = _time_ms(
-                lambda: lc.local_correlation_with_flow_plain(f0, f1, flow, r)
-            )
-        _log(f"local_corr {shape}: max|d|={err:.3e} (line {KERNEL_RTOL * scale:.3e}) "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not np.isfinite(err) or err > KERNEL_RTOL * scale:
-            raise AssertionError(f"local_corr kernel disagrees at {shape}: {err}")
-        if row is None:  # the main path's shape is the one reported
-            row = {
-                "name": "local_correlation_with_flow",
-                "route": "cuda",
-                "source": "color_transfer_tpu_torch/csrc/local_corr.cu",
-                "replaces": "color_transfer_tpu/ops/local_corr.py:68",
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-            }
-            # f0, f1, flow read, the (2r+1)^2 outputs written; the outputs'
-            # bilinear taps need a (2r+2)^2 window of C-channel dots per pixel
-            # (the kernel computes a (2r+3)^2 one, its last row and column
-            # unread; the epilogue is small beside the dots). No single
-            # library call computes it.
-            px = b * h * w
-            _with_bound(row, 4 * (2 * px * c + 2 * px + px * (2 * r + 1) ** 2),
-                        {"f32": px * (2 * r + 2) ** 2 * 2 * c}, None)
+        staged = lc.tile_boxes(flow, r, lc.launch_plan(f0.shape[-1], r))["staged"]
+        if not torch.equal(routes.bool(), staged):
+            raise AssertionError(f"local_corr {label}: the kernel's routes are not tile_boxes'")
+        if not torch.equal(got, again):
+            raise AssertionError(f"local_corr {label}: two runs differ")
+        ms = _time_ms(lambda: lc.local_correlation_with_flow(f0, f1, flow, r))
+        plain_ms = _time_ms(lambda: lc.local_correlation_with_flow_plain(f0, f1, flow, r),
+                            iters=5)
+    share = float(routes.float().mean())
+    bound_ms, bound_by = bound(*_b1_bound(f0, flow, r))
+    _log(f"local_corr {label} {tuple(f0.shape)} r={r}: max|d|={err:.3e} (line "
+         f"{KERNEL_RTOL * scale:.3e}), staged tiles {share:.4f}, two runs bit-equal, kernel "
+         f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms")
+    if not np.isfinite(err) or err > KERNEL_RTOL * scale:
+        raise AssertionError(f"local_corr kernel disagrees at {label}: {err}")
+    return err, ms, plain_ms, share
+
+
+def check_kernels():
+    """Kernel against plain version on the card. Returns per-kernel rows
+    (without the launch count, which the serving run fills in; B1's time is
+    the served flow's, which phase 4 fills in too)."""
+    g = torch.Generator().manual_seed(0)
+    row = None
+    # B1 at the 1080p matcher shape on three flows (the mixed flow sends
+    # almost every tile to the per-pixel route, the smooth flow every tile
+    # to the staged route, the step both), at the training shape, and at a
+    # ragged small shape.
+    for shape, kinds in (((2, 128, 224, 128, 4), ("mixed", "smooth", "step")),
+                         ((24, 64, 120, 128, 4), ("mixed", "smooth")),
+                         ((1, 13, 37, 16, 1), ("mixed", "smooth"))):
+        b, h, w, c, r = shape
+        f0 = torch.randn(b, h, w, c, generator=g).cuda()
+        f1 = torch.randn(b, h, w, c, generator=g).cuda()
+        for kind in kinds:
+            flow = {"mixed": lambda: _mixed_flow(g, b, h, w, "cuda"),
+                    "smooth": lambda: _smooth_flow(b, h, w, "cuda"),
+                    "step": lambda: _step_flow(g, b, h, w, "cuda")}[kind]()
+            err, ms, plain_ms, share = check_b1(f0, f1, flow, r, f"{kind} flow")
+            if shape[0] == 2 and kind == "mixed" and share > 0.05:
+                raise AssertionError(f"the mixed flow staged {share:.3f} of the tiles")
+            if kind == "smooth" and share != 1.0:
+                raise AssertionError(f"the smooth flow staged {share:.3f} of the tiles")
+            if kind == "step" and not 0.3 < share < 0.7:
+                raise AssertionError(f"the step flow staged {share:.3f} of the tiles")
+            if row is None:
+                row = {"name": "local_correlation_with_flow", "route": "cuda",
+                       "source": "color_transfer_tpu_torch/csrc/local_corr.cu",
+                       "replaces": "color_transfer_tpu/ops/local_corr.py:68",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                _with_bound(row, *_b1_bound(f0, flow, r), None)
+        del f0, f1
     return [row, check_resb_chain(g), check_row_attention(g)]
 
 
@@ -609,11 +705,26 @@ def serve(rows):
     variables = module.init_eval_variables(seed=0, device="cuda")
     target, reference = _dmsct_pairs()
 
+    from color_transfer_tpu_torch.models import gmflow
+    from color_transfer_tpu_torch.ops import local_corr
+
+    served = []  # the first B1 call's arguments: the flow the GRU loop gives it
+    call = gmflow.local_correlation_with_flow
+
+    def keep(f0, f1, flow, local_radius):
+        if not served:
+            served.extend([t.clone() for t in (f0, f1, flow)] + [local_radius])
+        return call(f0, f1, flow, local_radius)
+
     _reset_launches()
-    out = color_transfer_between_videos(
-        target, reference, method="dmsct", module=module, variables=variables,
-        device="cuda",
-    )
+    gmflow.local_correlation_with_flow = keep
+    try:
+        out = color_transfer_between_videos(
+            target, reference, method="dmsct", module=module, variables=variables,
+            device="cuda",
+        )
+    finally:
+        gmflow.local_correlation_with_flow = call
     torch.cuda.synchronize()
     counts = _launches()
     launches = counts["local_correlation_with_flow"]
@@ -656,6 +767,19 @@ def serve(rows):
     busy_ms = _device_busy_ms(clip)
     _log(f"serve: device busy {busy_ms / FRAMES:.1f} ms/frame (profiled pass), "
          f"busy share of the warm pass {busy_ms / FRAMES / ms_frame:.3f}")
+    # B1 on the flow the served frame's GRU loop gave its first call: the
+    # row's time and bound.
+    f0, f1, flow, r = served
+    err, ms, plain_ms, share = check_b1(f0, f1, flow, r, "served flow")
+    live = float(local_corr.window_starts(flow, r)[4].float().mean())
+    taps, distinct, box, reuse, budget = _window_reuse(flow, r)
+    _log(f"serve: B1 on the served flow: staged tiles {share:.4f}, pixels whose window "
+         f"touches the image {live:.4f}; a tile with a live pixel reads a median {taps:.0f} "
+         f"taps at {distinct:.0f} distinct positions (all tiles: {reuse:.2f} taps a position), "
+         f"its box a median {box:.0f} positions (the budget {budget})")
+    rows[0].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    _with_bound(rows[0], *_b1_bound(f0, flow, r), None)
+    del served, f0, f1, flow
     numbers = {"out": out.cpu(), "ms_frame": ms_frame, "peak": peak,
                "transformer": stages["matcher.transformer"] / FRAMES}
     return module, variables, target, reference, numbers
@@ -1023,8 +1147,12 @@ def check_classical_kernels(g):
                 4 * (2 * x.numel() + fp.numel() + 3 * lo.numel()),
                 {"f32": 10 * x.numel()}, None))
         del x, got, want, args
-    for frames, h, w, nbit in ((CLASSICAL_FRAMES, HEIGHT, WIDTH, 4),
-                               (CLASSICAL_FRAMES, 34, 60, 64), (1, 13, 22, 7)):
+    # B4 at the six levels of an 8-frame 1080p chunk (1080x1920 with 4
+    # sweeps down to 34x60 with 64), then a ragged shape: bit-equal to the
+    # plain version (torch.equal), and on the B4_LINE too.
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    err_max, bytes_total, ops_total = 0.0, 0, 0
+    for frames, h, w, nbit in REGRAIN_LEVELS + ((1, 13, 22, 7),):
         out0 = torch.rand(frames, h, w, 3, generator=g).cuda()
         const = torch.rand(frames, h, w, 3, generator=g).cuda()
         phis = (torch.rand(frames, 4, h, w, generator=g) * 15).cuda()
@@ -1034,24 +1162,39 @@ def check_classical_kernels(g):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         line = B4_LINE * max(1.0, float(want.abs().max()))
+        if not (torch.equal(got, want) and err <= line):
+            raise AssertionError(f"regrain_sweeps kernel disagrees at {(frames, h, w, nbit)}: "
+                                 f"{err} (bit-equal required)")
         ms = _time_ms(lambda: rs.regrain_sweeps(*args))
         plain_ms = _time_ms(lambda: rs.regrain_sweeps_plain(*args), iters=5)
-        _log(f"regrain_sweeps (B4) ({frames}, {h}, {w}, 3) nbit {nbit}: max|d|={err:.3e} "
-             f"(line {line:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not err <= line:
-            raise AssertionError(f"regrain_sweeps kernel disagrees at {(frames, h, w)}: {err}")
-        if len(rows) == 1:  # 1080p level 0 is the reported shape
-            # out0, const, the four phis and inv_den read once, out written
-            # once; ~12 f32 operations per pixel, channel and sweep. No
-            # single library call computes it.
-            rows.append(_with_bound(
-                {"name": "regrain_sweeps", "route": "cuda",
-                 "source": "color_transfer_tpu_torch/csrc/regrain_stencil.cu",
-                 "replaces": "color_transfer_tpu/ops/regrain_stencil.py:27",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
-                4 * (3 * out0.numel() + phis.numel() + inv_den.numel()),
-                {"f32": 12 * out0.numel() * nbit}, None))
+        # out0, const, the four phis and inv_den read once, out written once;
+        # ~12 f32 operations per pixel, channel and sweep. No single library
+        # call computes it.
+        nbytes = 4 * (3 * out0.numel() + phis.numel() + inv_den.numel())
+        ops = 12 * out0.numel() * nbit
+        bound_ms, bound_by = bound(nbytes, {"f32": ops})
+        plan = rs.launch_plan(h, w, nbit)
+        _log(f"regrain_sweeps (B4) ({frames}, {h}, {w}, 3) nbit {nbit}: bit-equal, max|d|="
+             f"{err:.3e} (line {line:.3e}); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+             f"({bound_by}), plain {plain_ms:.4f} ms; "
+             f"{plan.route}, {plan.passes} launch(es), {plan.sweeps} sweeps a pass, "
+             f"{plan.tile_h}x{plan.tile_w} {'tiles' if plan.route == 'trapezoid' else 'rows a block'}"
+             + (f", clusters of {plan.cluster}" if plan.route == "cluster" else ""))
+        if frames == CLASSICAL_FRAMES:
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                totals[key] += v
+            err_max, bytes_total, ops_total = max(err_max, err), bytes_total + nbytes, ops_total + ops
         del out0, const, phis, inv_den, got, want, args
+    _log(f"regrain_sweeps (B4) an 8-frame 1080p chunk's six calls: kernel {totals['ms']:.4f} ms, "
+         f"bound {totals['bound_ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms")
+    # The row: the chunk's six calls (the main path's work), beside the sum of
+    # their bytes and operations' bound.
+    rows.append(_with_bound(
+        {"name": "regrain_sweeps", "route": "cuda",
+         "source": "color_transfer_tpu_torch/csrc/regrain_stencil.cu",
+         "replaces": "color_transfer_tpu/ops/regrain_stencil.py:27",
+         "max_abs_err": err_max, "ms": totals["ms"], "plain_ms": totals["plain_ms"]},
+        bytes_total, {"f32": ops_total}, None))
     torch.cuda.empty_cache()
     return rows
 

@@ -9,140 +9,403 @@
 // For every pixel p of f0 (B, H, W, C):
 //   b = clamp(p + flow[p]) into [-(r+2), W+r+1] x [-(r+2), H+r+1]
 //   base = floor(b) - r, (wx, wy) = b - floor(b)
-//   dots[i][j] = <f0[p], f1[base + (j, i)]> for the (2r+3)^2 integer taps,
+//   dots[i][j] = <f0[p], f1[base + (j, i)]> for the (2r+2)^2 integer taps,
 //                zero where the tap lies outside the image
 //   out[p][i*(2r+1)+j] = bilinear(dots, wx, wy)[i][j] / sqrt(C)
 // Every tap of a pixel shares one bilinear phase (the window offsets are
 // integers), so the dots are taken once on the integer grid and the
-// 4-corner combination runs on the (2r+3)^2 grid of dots.
+// 4-corner combination of taps (i, j), (i, j+1), (i+1, j), (i+1, j+1) gives
+// output (i, j): the (2r+1)^2 outputs read (2r+2)^2 dots (the TPU kernels
+// and the plain version take (2r+3)^2 and crop).
 //
-// What bounds it on the card: per pixel it reads (2r+3)^2 * C * 4 bytes of
-// f1 (121 * 128 * 4 = 62 KB at r = 4, C = 128) against (2r+3)^2 * C FMAs
-// (about 15.5 k): 0.25 FMA per byte, far below what the SMs could compute
-// per byte, so the kernel is bound by load bandwidth. Neighbouring pixels'
-// windows overlap almost entirely, so nearly all of those bytes come from
-// L1/L2, not from device memory (f1 itself is 29 MB at the 1080p matcher
-// shape (2, 128, 224, 128), which fits the 50 MB L2).
+// What bounds it on the card: the call's bytes (f0, f1, flow read, the
+// (2r+1)^2 outputs written: 78 MB at (2, 128, 224, 128), r = 4, 0.023 ms)
+// and its (2r+2)^2 * C FMAs a pixel (0.022 ms in f32) are close; but each
+// pixel's dots read (2r+2)^2 * C floats of f1 (51 KB at r = 4, C = 128),
+// 2.9 GB a call, so what bounds a kernel that does not share them between
+// pixels is the load path. The previous design (one warp a pixel, a 512-byte
+// lane-strided read and a shuffle reduction a tap) ran at 0.40 ms.
 //
-// Design (a simple correct first version):
-//   * one warp per pixel, 8 consecutive pixels of one row per block, so the
-//     block's 8 windows overlap and hit L1;
-//   * the channel dot is lane-strided: each lane holds up to two float4 of
-//     f0[p] in registers (C <= 256) and reads the matching float4 of each
-//     f1 tap (coalesced 512-byte row reads at C = 128), then the warp
-//     reduces with shuffles;
-//   * taps outside the image are skipped by a warp-uniform bounds check in
-//     place of the zero-padded copy of f1 the TPU kernels build;
-//   * the (2r+3)^2 dots stay in shared memory and the bilinear epilogue and
-//     crop run fused before the (2r+1)^2 stores.
-// Staging f1 row bands in shared memory or contracting on tensor cores is
-// later work.
+// Design: a block owns an 8 x 8 tile of output pixels (the tile, the
+// channel slice, the stages and the staging budget come from
+// ops/local_corr.py::launch_plan). It computes its pixels' window starts
+// and the bounding box of the windows of its live pixels (those whose
+// window touches the image; the others write zeros and compute nothing).
+//   * Staged route, when the box fits the budget: the box of f1 and the
+//     tile's f0 stream through shared memory in 32-channel slices, two
+//     stages, by cp.async; box positions outside the image are zero-filled
+//     by the copy (src-size 0), so no tap tests a bound and no padded copy
+//     of f1 is made. A thread owns two window rows of one pixel (2 x
+//     (2r+2) accumulators in registers across the slices: no shuffle
+//     reduction). A box position's slice is 128 bytes, and lane l takes the
+//     slice's float4 k in the order (k + l) mod 8, so any 8 lanes of a
+//     quarter-warp read 8 different bank groups, conflict-free whatever
+//     positions their windows hit. After the last slice the dots go to
+//     shared memory and the bilinear epilogue writes the tile's outputs.
+//     A smooth flow gives a small box whatever its magnitude.
+//   * Per-pixel route, in the same kernel, when the box does not fit: one
+//     warp a pixel, eight taps at a time (a quarter of the channels a lane,
+//     eight 16-byte loads in flight, two shuffle steps a tap), a bounds
+//     test a tap; a pixel whose window misses the image writes zeros.
+// The route is chosen per tile from the data. No atomics: two runs are
+// bit-equal.
+//
+// Measured (an H100 80GB HBM3 at 700 W, at (2, 128, 224, 128), r = 4): a
+// smooth flow stages every tile, 0.17 ms, about twice what its shared-memory
+// loads need; the served frame's flow at random init is rough (a tile's
+// box a median 2,940 positions where any window is live), two thirds of
+// the tiles take the per-pixel route and read their windows from L2 at
+// ~6.3 TB/s: 0.22 ms.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxVecPerLane = 2;  // float4 per lane: C <= 32 * 4 * 2 = 256
+constexpr int kMaxTilePx = 64;
+constexpr int kSlice = 32;          // channels a stage holds
+constexpr int kVec = kSlice / 4;    // float4 of a position in a slice
+constexpr int kRegVec = 8;          // per-pixel route: a lane's float4 of f0 in registers
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-local_corr_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
-                  const float* __restrict__ flow, float* __restrict__ out,
-                  int n_pix, int H, int W, int C, int r, float sqrt_c) {
-  extern __shared__ float smem[];
-  const int k = 2 * r + 3;
-  const int m = 2 * r + 1;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= n_pix) return;  // the whole warp leaves together
-  float* dots = smem + warp * k * k;
+struct Args {
+  const float* f0;
+  const float* f1;
+  const float* flow;
+  float* out;
+  unsigned char* routes;  // per tile 1 staged, 0 per pixel; may be null
+  int h, w, c;
+  int tile_h, tile_w, stages, budget;
+  float sqrt_c;
+};
 
-  const int hw = H * W;
-  const int b = p / hw;
-  const int rem = p - b * hw;
-  const int y = rem / W;
-  const int x = rem - y * W;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0));
+}
 
-  const float bx = fminf(fmaxf(static_cast<float>(x) + flow[2 * (size_t)p],
-                               -(r + 2.0f)), W + r + 1.0f);
-  const float by = fminf(fmaxf(static_cast<float>(y) + flow[2 * (size_t)p + 1],
-                               -(r + 2.0f)), H + r + 1.0f);
-  const float x0 = floorf(bx);
-  const float y0 = floorf(by);
-  const float wx = bx - x0;
-  const float wy = by - y0;
-  const int sx = static_cast<int>(x0) - r;
-  const int sy = static_cast<int>(y0) - r;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  const int nvec = C >> 2;
-  const float4* a = reinterpret_cast<const float4*>(f0 + (size_t)p * C);
-  float4 av[kMaxVecPerLane];
-#pragma unroll
-  for (int v = 0; v < kMaxVecPerLane; ++v) {
-    const int idx = lane + 32 * v;
-    av[v] = idx < nvec ? a[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ void cp_async_wait_all_but(int n) {
+  if (n <= 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  } else if (n == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  } else {
+    asm volatile("cp.async.wait_group 2;\n" ::);
+  }
+}
+
+__device__ __forceinline__ float bilinear(const float* d, int k, int i, int j, float wx,
+                                          float wy) {
+  const float d00 = d[i * k + j];
+  const float d01 = d[i * k + j + 1];
+  const float d10 = d[(i + 1) * k + j];
+  const float d11 = d[(i + 1) * k + j + 1];
+  return d00 * (1.f - wy) * (1.f - wx) + d01 * (1.f - wy) * wx + d10 * wy * (1.f - wx) +
+         d11 * wy * wx;
+}
+
+// R: the radius. A block has tile_h * tile_w * (R + 1) threads: pixel
+// tid % npx, window rows tid / npx and tid / npx + R + 1.
+template <int R>
+__global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Args a) {
+  constexpr int K = 2 * R + 2;  // taps a side the epilogue reads
+  constexpr int M = 2 * R + 1;  // outputs a side
+  constexpr int RP = R + 1;     // a thread's second row is RP below its first
+  __shared__ int s_sx[kMaxTilePx], s_sy[kMaxTilePx], s_state[kMaxTilePx];
+  __shared__ float s_wx[kMaxTilePx], s_wy[kMaxTilePx];
+  __shared__ int s_box[4];
+  extern __shared__ float4 smem4[];
+
+  const int npx = a.tile_h * a.tile_w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const int b = blockIdx.z;
+  const int ty0 = blockIdx.y * a.tile_h;
+  const int tx0 = blockIdx.x * a.tile_w;
+  const size_t frame = static_cast<size_t>(b) * a.h * a.w;
+
+  // Window starts and phases; state 0: outside the image (no output),
+  // 1: the window misses the image (zeros), 2: live.
+  if (tid < npx) {
+    const int y = ty0 + tid / a.tile_w;
+    const int x = tx0 + tid % a.tile_w;
+    int state = 0, sx = 0, sy = 0;
+    float wx = 0.f, wy = 0.f;
+    if (y < a.h && x < a.w) {
+      const size_t p = frame + static_cast<size_t>(y) * a.w + x;
+      const float bx = fminf(fmaxf(static_cast<float>(x) + a.flow[2 * p], -(R + 2.0f)),
+                             a.w + R + 1.0f);
+      const float by = fminf(fmaxf(static_cast<float>(y) + a.flow[2 * p + 1], -(R + 2.0f)),
+                             a.h + R + 1.0f);
+      const float x0 = floorf(bx);
+      const float y0 = floorf(by);
+      wx = bx - x0;
+      wy = by - y0;
+      sx = static_cast<int>(x0) - R;
+      sy = static_cast<int>(y0) - R;
+      state = (sx + K - 1 >= 0 && sx < a.w && sy + K - 1 >= 0 && sy < a.h) ? 2 : 1;
+    }
+    s_sx[tid] = sx;
+    s_sy[tid] = sy;
+    s_wx[tid] = wx;
+    s_wy[tid] = wy;
+    s_state[tid] = state;
+  }
+  __syncthreads();
+  // The bounding box of the live pixels' windows (empty when none is live).
+  if (warp == 0) {
+    int x_lo = INT_MAX, y_lo = INT_MAX, x_hi = INT_MIN, y_hi = INT_MIN;
+    for (int i = lane; i < npx; i += 32) {
+      if (s_state[i] == 2) {
+        x_lo = min(x_lo, s_sx[i]);
+        x_hi = max(x_hi, s_sx[i]);
+        y_lo = min(y_lo, s_sy[i]);
+        y_hi = max(y_hi, s_sy[i]);
+      }
+    }
+    x_lo = __reduce_min_sync(0xffffffffu, x_lo);
+    y_lo = __reduce_min_sync(0xffffffffu, y_lo);
+    x_hi = __reduce_max_sync(0xffffffffu, x_hi);
+    y_hi = __reduce_max_sync(0xffffffffu, y_hi);
+    if (lane == 0) {
+      const bool any = x_lo != INT_MAX;
+      s_box[0] = any ? x_lo : 0;
+      s_box[1] = any ? y_lo : 0;
+      s_box[2] = any ? x_hi - x_lo + K : 0;
+      s_box[3] = any ? y_hi - y_lo + K : 0;
+    }
+  }
+  __syncthreads();
+  const int bx0 = s_box[0], by0 = s_box[1], bw = s_box[2], bh = s_box[3];
+  const bool staged = bw * bh <= a.budget;
+  if (a.routes != nullptr && tid == 0) {
+    a.routes[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] =
+        staged ? 1 : 0;
   }
 
-  const float* f1b = f1 + (size_t)b * hw * C;
-  for (int i = 0; i < k; ++i) {
-    const int yy = sy + i;
-    const bool row_in = yy >= 0 && yy < H;
-    for (int j = 0; j < k; ++j) {
-      const int xx = sx + j;
-      float s = 0.f;
-      if (row_in && xx >= 0 && xx < W) {  // uniform across the warp
-        const float4* q =
-            reinterpret_cast<const float4*>(f1b + ((size_t)yy * W + xx) * C);
+  if (staged) {
+    const int n_box = bw * bh * kVec;                    // float4 of the box a slice
+    const int stage_vec = (a.budget + kMaxTilePx) * kVec;  // float4 a stage
+    const int n_slices = (a.c + kSlice - 1) / kSlice;
+    auto stage_slice = [&](int sl) {
+      float4* st = smem4 + (sl % a.stages) * stage_vec;
+      const int ch0 = sl * kSlice;
+      for (int i = tid; i < n_box + npx * kVec; i += nthreads) {
+        const int c4 = i & (kVec - 1);
+        const int ch = ch0 + 4 * c4;
+        const float* src = a.f1;
+        bool in;
+        float4* dst;
+        if (i < n_box) {
+          const int pos = i / kVec;
+          const int yy = by0 + pos / bw;
+          const int xx = bx0 + pos % bw;
+          in = yy >= 0 && yy < a.h && xx >= 0 && xx < a.w && ch < a.c;
+          if (in) src = a.f1 + (frame + static_cast<size_t>(yy) * a.w + xx) * a.c + ch;
+          dst = st + i;
+        } else {
+          const int j = i - n_box;
+          const int px = j / kVec;
+          const int y = ty0 + px / a.tile_w;
+          const int x = tx0 + px % a.tile_w;
+          in = y < a.h && x < a.w && ch < a.c;
+          if (in) src = a.f0 + (frame + static_cast<size_t>(y) * a.w + x) * a.c + ch;
+          dst = st + a.budget * kVec + j;
+        }
+        cp_async16(dst, src, in);
+      }
+    };
+
+    const int p = tid % npx;
+    const int row = tid / npx;
+    const bool live = s_state[p] == 2;
+    const int base0 = live ? (s_sy[p] + row - by0) * bw + (s_sx[p] - bx0) : 0;
+    const int base1 = base0 + RP * bw;
+    float acc0[K], acc1[K];
 #pragma unroll
-        for (int v = 0; v < kMaxVecPerLane; ++v) {
-          const int idx = lane + 32 * v;
-          if (idx < nvec) {
-            const float4 t = q[idx];
-            s = fmaf(av[v].x, t.x, s);
-            s = fmaf(av[v].y, t.y, s);
-            s = fmaf(av[v].z, t.z, s);
-            s = fmaf(av[v].w, t.w, s);
+    for (int j = 0; j < K; ++j) acc0[j] = acc1[j] = 0.f;
+
+    for (int sl = 0; sl < a.stages - 1; ++sl) {
+      if (sl < n_slices) stage_slice(sl);
+      cp_async_commit();
+    }
+    for (int sl = 0; sl < n_slices; ++sl) {
+      cp_async_wait_all_but(a.stages - 2);
+      __syncthreads();  // slice sl is in, and slice sl - 1's stage is free
+      if (sl + a.stages - 1 < n_slices) stage_slice(sl + a.stages - 1);
+      cp_async_commit();
+      if (live) {
+        const float4* box = smem4 + (sl % a.stages) * stage_vec;
+        const float4* fa = box + (a.budget + p) * kVec;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const int c4 = (k + lane) & (kVec - 1);
+          const float4 av = fa[c4];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const float4 t = box[(base0 + j) * kVec + c4];
+            acc0[j] = fmaf(av.x, t.x, acc0[j]);
+            acc0[j] = fmaf(av.y, t.y, acc0[j]);
+            acc0[j] = fmaf(av.z, t.z, acc0[j]);
+            acc0[j] = fmaf(av.w, t.w, acc0[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const float4 t = box[(base1 + j) * kVec + c4];
+            acc1[j] = fmaf(av.x, t.x, acc1[j]);
+            acc1[j] = fmaf(av.y, t.y, acc1[j]);
+            acc1[j] = fmaf(av.z, t.z, acc1[j]);
+            acc1[j] = fmaf(av.w, t.w, acc1[j]);
           }
         }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) dots[i * k + j] = s;
     }
+    cp_async_wait_all_but(0);
+    __syncthreads();  // every stage read: the first one takes the dots
+    float* dots = reinterpret_cast<float*>(smem4);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        dots[(p * K + row) * K + j] = acc0[j];
+        dots[(p * K + row + RP) * K + j] = acc1[j];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < npx * M * M; i += nthreads) {
+      const int px = i / (M * M);
+      const int t = i - px * M * M;
+      const int y = ty0 + px / a.tile_w;
+      const int x = tx0 + px % a.tile_w;
+      if (y >= a.h || x >= a.w) continue;
+      float v = 0.f;
+      if (s_state[px] == 2) {
+        const int ii = t / M;
+        v = bilinear(dots + px * K * K, K, ii, t - ii * M, s_wx[px], s_wy[px]) / a.sqrt_c;
+      }
+      a.out[(frame + static_cast<size_t>(y) * a.w + x) * (M * M) + t] = v;
+    }
+    return;
   }
-  __syncwarp();
 
-  float* o = out + (size_t)p * m * m;
-  for (int t = lane; t < m * m; t += 32) {
-    const int i = t / m;
-    const int j = t - i * m;
-    const float d00 = dots[i * k + j];
-    const float d01 = dots[i * k + j + 1];
-    const float d10 = dots[(i + 1) * k + j];
-    const float d11 = dots[(i + 1) * k + j + 1];
-    const float v = d00 * (1.f - wy) * (1.f - wx) + d01 * (1.f - wy) * wx +
-                    d10 * wy * (1.f - wx) + d11 * wy * wx;
-    o[t] = v / sqrt_c;
+  // Per-pixel route: one warp a pixel, eight taps at a time: lane (tq, g)
+  // takes tap tq of the group over the channel quarter g (float4 g, g + 4,
+  // ...), so a lane has its eight 16-byte loads of a tap in flight at once
+  // and two shuffle steps sum a tap.
+  float* dots = reinterpret_cast<float*>(smem4) + warp * K * K;
+  const int nwarps = nthreads >> 5;
+  const int nvec = a.c >> 2;
+  const int tq = lane >> 2;
+  const int g = lane & 3;
+  for (int px = warp; px < npx; px += nwarps) {
+    const int y = ty0 + px / a.tile_w;
+    const int x = tx0 + px % a.tile_w;
+    const int state = s_state[px];
+    if (state == 0) continue;
+    const size_t p = frame + static_cast<size_t>(y) * a.w + x;
+    float* o = a.out + p * (M * M);
+    if (state == 1) {
+      for (int t = lane; t < M * M; t += 32) o[t] = 0.f;
+      continue;
+    }
+    const float4* f0v = reinterpret_cast<const float4*>(a.f0 + p * a.c);
+    float4 av[kRegVec];
+#pragma unroll
+    for (int m = 0; m < kRegVec; ++m) {
+      const int idx = g + 4 * m;
+      av[m] = idx < nvec ? f0v[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const int sx = s_sx[px], sy = s_sy[px];
+    for (int t0 = 0; t0 < K * K; t0 += 8) {
+      const int tap = t0 + tq;
+      const int i = tap / K;
+      const int xx = sx + tap - i * K;
+      const int yy = sy + i;
+      float s = 0.f;
+      if (tap < K * K && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w) {
+        const float4* q = reinterpret_cast<const float4*>(
+            a.f1 + (frame + static_cast<size_t>(yy) * a.w + xx) * a.c);
+#pragma unroll
+        for (int m = 0; m < kRegVec; ++m) {
+          const int idx = g + 4 * m;
+          if (idx < nvec) {
+            const float4 t = q[idx];
+            s = fmaf(av[m].x, t.x, s);
+            s = fmaf(av[m].y, t.y, s);
+            s = fmaf(av[m].z, t.z, s);
+            s = fmaf(av[m].w, t.w, s);
+          }
+        }
+        for (int idx = g + 4 * kRegVec; idx < nvec; idx += 4) {  // C > 128
+          const float4 f = f0v[idx];
+          const float4 t = q[idx];
+          s = fmaf(f.x, t.x, s);
+          s = fmaf(f.y, t.y, s);
+          s = fmaf(f.z, t.z, s);
+          s = fmaf(f.w, t.w, s);
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (g == 0 && tap < K * K) dots[tap] = s;
+    }
+    __syncwarp();
+    for (int t = lane; t < M * M; t += 32) {
+      const int ii = t / M;
+      o[t] = bilinear(dots, K, ii, t - ii * M, s_wx[px], s_wy[px]) / a.sqrt_c;
+    }
+    __syncwarp();  // the dots are read before the next pixel's overwrite them
   }
+}
+
+template <int R>
+int launch(const Args& a, int batch, int smem, cudaStream_t stream) {
+  const int npx = a.tile_h * a.tile_w;
+  cudaError_t err = cudaFuncSetAttribute(local_corr_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((a.w + a.tile_w - 1) / a.tile_w),
+                  static_cast<unsigned>((a.h + a.tile_h - 1) / a.tile_h),
+                  static_cast<unsigned>(batch));
+  local_corr_kernel<R><<<grid, npx * (R + 1), smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). The
-// caller checks shapes, dtypes and contiguity and allocates `out`
-// (B, H, W, (2r+1)^2).
-extern "C" int local_corr_forward(const float* f0, const float* f1,
-                                  const float* flow, float* out, int B, int H,
-                                  int W, int C, int r, float sqrt_c,
+// Launches on `stream`; returns the CUDA error code (0 on success). The
+// caller checks shapes, dtypes and contiguity, allocates `out`
+// (B, H, W, (2r+1)^2) and, when it wants them, `routes` (one byte a tile,
+// frame-major, then tile rows, then tile columns; else null), and passes
+// ops/local_corr.py::launch_plan's tile, slice, stages, budget (box
+// positions a stage holds) and shared-memory bytes.
+extern "C" int local_corr_forward(const float* f0, const float* f1, const float* flow,
+                                  float* out, unsigned char* routes, int B, int H, int W,
+                                  int C, int r, int tile_h, int tile_w, int slice,
+                                  int stages, int budget, int smem, float sqrt_c,
                                   void* stream) {
-  const int n_pix = B * H * W;
-  if (n_pix == 0) return 0;
-  const int k = 2 * r + 3;
-  const int blocks = (n_pix + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const size_t smem = sizeof(float) * kWarpsPerBlock * k * k;
-  local_corr_kernel<<<blocks, kWarpsPerBlock * 32, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      f0, f1, flow, out, n_pix, H, W, C, r, sqrt_c);
-  return static_cast<int>(cudaGetLastError());
+  if (static_cast<long long>(B) * H * W == 0) return 0;
+  const int npx = tile_h * tile_w;
+  const int k = 2 * r + 2;
+  if (slice != kSlice || npx < 32 || npx > kMaxTilePx || npx % 32 != 0 || stages < 1 ||
+      stages > 3 || budget < 1 ||
+      static_cast<long long>(stages) * (budget + kMaxTilePx) * kSlice * 4 > smem ||
+      static_cast<long long>(budget + kMaxTilePx) * kSlice < static_cast<long long>(npx) * k * k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{f0, f1, flow, out, routes, H, W, C, tile_h, tile_w, stages, budget, sqrt_c};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 0: return launch<0>(a, B, smem, st);
+    case 1: return launch<1>(a, B, smem, st);
+    case 2: return launch<2>(a, B, smem, st);
+    case 3: return launch<3>(a, B, smem, st);
+    case 4: return launch<4>(a, B, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -12,7 +12,10 @@ Two implementations of one function:
     stays O(B*HW*k*C) (the full (B, HW, k, k, C) patch gather would be
     3.5 GB at the 1080p matcher shape).
   * the CUDA kernel in csrc/local_corr.cu (hand-written for sm_90a; see its
-    header for what bounds it and how it is laid out).
+    header for what bounds it and how it is laid out): a block owns a tile
+    of output pixels and stages the bounding box of their windows in shared
+    memory when it fits ``launch_plan``'s budget, else takes each pixel
+    with one warp; ``tile_boxes`` states its per-tile choice.
 
 ``local_correlation_with_flow`` routes by device: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises. Its
@@ -20,15 +23,70 @@ plain version; a CUDA tensor launches the kernel or raises. Its
 """
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from color_transfer_tpu_torch.core.sampling import coords_grid
 
-_WARPS_PER_BLOCK = 8  # csrc/local_corr.cu kWarpsPerBlock
-_SMEM_LIMIT = 48 * 1024  # static-launch shared memory without opt-in
+# csrc/local_corr.cu's limits: radius 0-4 (one instantiation each), C a
+# multiple of 4 up to 256, 32-channel slices, a tile of 32 or 64 pixels, at
+# most 3 stages.
+MAX_RADIUS, MAX_CHANNELS, SLICE, MAX_TILE_PX = 4, 256, 32, 64
+# Shared memory of one H100 SM (233,472 bytes), 1 KB of it reserved for
+# each block, the rest shared by the blocks on the SM; one block takes at
+# most 227 KB. The kernel's own static arrays (window starts, phases,
+# states, the box: 1,296 bytes) with a margin.
+SM_SMEM, BLOCK_RESERVED, BLOCK_SMEM_LIMIT, KERNEL_STATIC = 233472, 1024, 227 * 1024, 1536
+
+
+class CorrPlan(NamedTuple):
+    """csrc/local_corr.cu's launch: tile_h x tile_w output pixels a block,
+    ``threads`` a block, ``slice`` channels a stage, ``stages`` stages of
+    ``budget`` box positions (plus the tile's f0) each, ``smem`` bytes of
+    dynamic shared memory."""
+
+    tile_h: int
+    tile_w: int
+    threads: int
+    slice: int
+    stages: int
+    budget: int
+    smem: int
+
+
+# The launch: 8 x 8 output tiles, two stages (a slice's copy overlaps the
+# previous one's dots), two blocks an SM (the kernel's registers, 96 a
+# thread at r = 4, allow two; its shared memory is sized to match).
+TILE, STAGES, BLOCKS_PER_SM = (8, 8), 2, 2
+
+
+@functools.cache
+def launch_plan(c, local_radius):
+    """The kernel's launch at C channels and radius r: an 8 x 8 tile,
+    (r + 1) threads a pixel, two stages of 32-channel slices, and the most
+    box positions a stage can hold with two blocks on an SM. A smooth
+    flow's 8 x 8 tile at r = 4 needs a box of 17 x 17 = 289 positions; the
+    budget leaves room for the windows' spread (the slices make it the same
+    for every C)."""
+    if not 0 <= local_radius <= MAX_RADIUS:
+        raise ValueError(f"local_radius must be in [0, {MAX_RADIUS}], got {local_radius}")
+    if c % 4 or not 4 <= c <= MAX_CHANNELS:
+        raise ValueError(f"C must be a multiple of 4 in [4, {MAX_CHANNELS}], got {c}")
+    th, tw = TILE
+    npx = th * tw
+    per_block = min(SM_SMEM // BLOCKS_PER_SM - BLOCK_RESERVED - KERNEL_STATIC,
+                    BLOCK_SMEM_LIMIT - KERNEL_STATIC)
+    position = SLICE * 4  # bytes of a box position (or a tile pixel) a slice
+    budget = per_block // (STAGES * position) - MAX_TILE_PX
+    k = 2 * local_radius + 2
+    if budget * SLICE < npx * k * k:  # the dots reuse the first stage
+        raise ValueError("the staging budget cannot hold the tile's dots")
+    return CorrPlan(th, tw, npx * (local_radius + 1), SLICE, STAGES, budget,
+                    STAGES * (budget + MAX_TILE_PX) * position)
 
 
 def _bilinear_epilogue(dots, wx, wy, r, c):
@@ -82,12 +140,55 @@ def local_correlation_with_flow_plain(feature0, feature1, flow, local_radius):
     )
 
 
+def window_starts(flow, local_radius):
+    """The kernel's (and the plain version's) window of each pixel: the
+    integer start (sx, sy) of its (2r+2)^2 taps, its bilinear phase (wx,
+    wy) and whether the window touches the image (``live``)."""
+    b, h, w, _ = flow.shape
+    r = local_radius
+    base = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
+    bx = base[..., 0].clamp(-(r + 2.0), w + r + 1.0)
+    by = base[..., 1].clamp(-(r + 2.0), h + r + 1.0)
+    x0, y0 = torch.floor(bx), torch.floor(by)
+    sx, sy = x0.long() - r, y0.long() - r
+    k = 2 * r + 2
+    live = (sx + k - 1 >= 0) & (sx < w) & (sy + k - 1 >= 0) & (sy < h)
+    return sx, sy, bx - x0, by - y0, live
+
+
+def tile_boxes(flow, local_radius, plan):
+    """Per tile of ``plan`` (B, tiles down, tiles across): the origin (x0,
+    y0) and size (w, h) of the bounding box of its live pixels' windows
+    (0 x 0 at the origin when none is live), and ``staged``: whether the
+    kernel stages the box (w * h <= plan.budget) or takes each pixel with a
+    warp."""
+    b, h, w, _ = flow.shape
+    sx, sy, _, _, live = window_starts(flow, local_radius)
+    th, tw = plan.tile_h, plan.tile_w
+    ty, tx = -(-h // th), -(-w // tw)
+    big = 2**40
+
+    def tiles(v, fill):  # (B, H, W) -> (B, ty, tx, th * tw), ragged edge filled
+        v = torch.where(live, v, torch.full_like(v, fill))
+        v = F.pad(v, (0, tx * tw - w, 0, ty * th - h), value=fill)
+        return v.reshape(b, ty, th, tx, tw).permute(0, 1, 3, 2, 4).reshape(b, ty, tx, th * tw)
+
+    k = 2 * local_radius + 2
+    x_lo, y_lo = tiles(sx, big).amin(-1), tiles(sy, big).amin(-1)
+    x_hi, y_hi = tiles(sx, -big).amax(-1), tiles(sy, -big).amax(-1)
+    any_live = x_lo < big
+    zero = torch.zeros_like(x_lo)
+    box_w = torch.where(any_live, x_hi - x_lo + k, zero)
+    box_h = torch.where(any_live, y_hi - y_lo + k, zero)
+    return {"x0": torch.where(any_live, x_lo, zero), "y0": torch.where(any_live, y_lo, zero),
+            "w": box_w, "h": box_h, "staged": box_w * box_h <= plan.budget}
+
+
 def check_kernel_inputs(feature0, feature1, flow, local_radius):
     """Raise ValueError for inputs the CUDA kernel does not take: it reads
     contiguous, 16-byte aligned float32 (B, H, W, C) features with C a
-    multiple of 4 up to 256, a contiguous float32 (B, H, W, 2) flow, and
-    0 <= r with its
-    (2r+3)^2 dots per warp inside 48 KB of shared memory."""
+    multiple of 4 up to 256 (``MAX_CHANNELS``), a contiguous float32
+    (B, H, W, 2) flow, and 0 <= r <= 4 (``MAX_RADIUS``)."""
     for name, t in (("feature0", feature0), ("feature1", feature1),
                     ("flow", flow)):
         if t.dtype != torch.float32:
@@ -105,16 +206,18 @@ def check_kernel_inputs(feature0, feature1, flow, local_radius):
         )
     if flow.shape != (b, h, w, 2):
         raise ValueError(f"flow must be {(b, h, w, 2)}, got {tuple(flow.shape)}")
-    if c % 4 or not 4 <= c <= 256:
-        raise ValueError(f"C must be a multiple of 4 in [4, 256], got {c}")
-    k = 2 * local_radius + 3
-    if local_radius < 0 or 4 * _WARPS_PER_BLOCK * k * k > _SMEM_LIMIT:
-        raise ValueError(f"local_radius {local_radius} out of range")
-    if b * h * w * k * k >= 2**31:
-        raise ValueError("too many pixels for 32-bit indexing")
+    if c % 4 or not 4 <= c <= MAX_CHANNELS:
+        raise ValueError(f"C must be a multiple of 4 in [4, {MAX_CHANNELS}], got {c}")
+    if not 0 <= local_radius <= MAX_RADIUS:
+        raise ValueError(f"local_radius {local_radius} out of range [0, {MAX_RADIUS}]")
+    if max(h, w) >= 2**24 or -(-h // TILE[0]) >= 2**16 or b >= 2**16:
+        raise ValueError(f"features {tuple(feature0.shape)} too large for the launch grid")
 
 
-def _launch(feature0, feature1, flow, local_radius):
+def _launch(feature0, feature1, flow, local_radius, routes=False):
+    """Launch the kernel as ``launch_plan`` sizes it. ``routes``: also
+    return the kernel's route of each tile (B, tiles down, tiles across;
+    1 staged, 0 per pixel)."""
     if not (feature0.device == feature1.device == flow.device):
         raise ValueError("feature0, feature1 and flow must share one device")
     if torch.is_grad_enabled() and any(
@@ -129,25 +232,32 @@ def _launch(feature0, feature1, flow, local_radius):
 
     lib = _build.load("local_corr")
     fn = lib.local_corr_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     b, h, w, c = feature0.shape
+    plan = launch_plan(c, local_radius)
     out = torch.empty(
         (b, h, w, (2 * local_radius + 1) ** 2), dtype=torch.float32,
         device=feature0.device,
     )
+    tiles = None
+    if routes:
+        tiles = torch.empty((b, -(-h // plan.tile_h), -(-w // plan.tile_w)),
+                            dtype=torch.uint8, device=feature0.device)
     with torch.cuda.device(feature0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             feature0.data_ptr(), feature1.data_ptr(), flow.data_ptr(),
-            out.data_ptr(), b, h, w, c, local_radius, math.sqrt(c), stream,
+            out.data_ptr(), None if tiles is None else tiles.data_ptr(),
+            b, h, w, c, local_radius, plan.tile_h, plan.tile_w, plan.slice,
+            plan.stages, plan.budget, plan.smem, math.sqrt(c), stream,
         )
     if err != 0:
         raise RuntimeError(f"local_corr_forward launch failed: CUDA error {err}")
     local_correlation_with_flow.launches += 1
-    return out
+    return (out, tiles) if routes else out
 
 
 def local_correlation_with_flow(feature0, feature1, flow, local_radius):

@@ -20,12 +20,17 @@ zero and clamped displacements) and an in-image one, and B2a
 (``window_attention_fused``, the shift mask), B2b
 (``window_sublayer_fused``: cross-attention, and self-attention with the
 shift mask and the residual) and B2c (``ffn_fused``, F = 1024, the
-residual) at the fused route's 1080p shape (256, 448, 128), through their
-public wrappers, CUDA events after
-warm-up, and prints one JSON line per case with both sides' times in the
-order run. ``--only REGEX`` keeps the cases whose name matches.
-``--device cpu --small`` runs tiny shapes through the plain versions (a
-rehearsal: no device numbers).
+residual) at the fused route's 1080p shape (256, 448, 128), B1
+(``local_correlation_with_flow``, r = 4) at the 1080p matcher shape (2,
+128, 224, 128) on a smooth and a mixed flow and on the flow the served
+frame's GRU loop gives it (``--served``: full-width DMSCT with seeded
+random weights serves one synthetic 1080p pair first, and its first B1
+call's arguments are kept), and at the training shape (24, 64, 120, 128),
+and B4 (``regrain_sweeps``) at the six levels of an 8-frame 1080p chunk,
+through their public wrappers, CUDA events after warm-up, and prints one
+JSON line per case with both sides' times in the order run. ``--only
+REGEX`` keeps the cases whose name matches. ``--device cpu --small`` runs
+tiny shapes through the plain versions (a rehearsal: no device numbers).
 """
 
 import argparse
@@ -86,7 +91,61 @@ def _time_ms(fn, device, iters):
     return start.elapsed_time(end) / iters
 
 
-def cases(device, small):
+def _smooth_flow(b, h, w):
+    """A slowly varying field that moves every window well inside the image."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    flow = torch.stack([3.5 + 0.3 * torch.sin(yy / 5.0) - 0.02 * xx,
+                        -2.25 + 0.2 * torch.cos(xx / 7.0)], -1)
+    return flow[None].repeat(b, 1, 1, 1)
+
+
+def _mixed_flow(g, b, h, w):
+    """Sub-pixel, zero and far (clamped) displacements, one kind per pixel."""
+    frac = torch.randn(b, h, w, 2, generator=g) * 3.0
+    far = torch.sign(torch.randn(b, h, w, 2, generator=g)) * (
+        60.0 + torch.rand(b, h, w, 2, generator=g) * 500.0)
+    kind = torch.randint(0, 3, (b, h, w, 1), generator=g)
+    return torch.where(kind == 0, frac, torch.where(kind == 1, 0.0 * frac, far))
+
+
+def served_b1_args(device, small=False):
+    """The arguments of the first B1 call when full-width DMSCT (seeded
+    random weights) serves one synthetic 1080p pair (``small``: a 64x96
+    pair through a one-layer matcher)."""
+    import numpy as np
+
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+    from color_transfer_tpu_torch.models import gmflow
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+    h, w = (64, 96) if small else (1080, 1920)
+    module = DMSCTModule(matcher_num_layers=1, matcher_num_reg_refine=1) if small else DMSCTModule()
+    variables = module.init_eval_variables(seed=0, device=device)
+    low = np.random.default_rng(0).uniform(0, 1, (1, 3, 34, 60)).astype(np.float32)
+    scene = torch.nn.functional.interpolate(torch.from_numpy(low), size=(h, w + 16),
+                                            mode="bilinear", align_corners=False)
+    scene = scene.permute(0, 2, 3, 1)
+    target = scene[:, :, :w].contiguous()
+    reference = (scene[:, :, 16:] * 0.9 + 0.05).clamp(0, 1).contiguous()
+    kept = []
+    call = gmflow.local_correlation_with_flow
+
+    def keep(f0, f1, flow, local_radius):
+        if not kept:
+            kept.extend(t.clone() for t in (f0, f1, flow))
+        return call(f0, f1, flow, local_radius)
+
+    gmflow.local_correlation_with_flow = keep
+    try:
+        color_transfer_between_videos(target, reference, method="dmsct", module=module,
+                                      variables=variables, device=device)
+    finally:
+        gmflow.local_correlation_with_flow = call
+    return kept
+
+
+def cases(device, small, served=False):
     """(name, call(one side's ops modules)) per case, on shared inputs."""
     g = torch.Generator().manual_seed(0)
     h, w, c = (6, 40, 16) if small else (1080, 1920, 64)
@@ -141,9 +200,37 @@ def cases(device, small):
     w0, w2 = randn(2 * c, f, scale=(2 * c) ** -0.5), randn(f, c, scale=f**-0.5)
     yield (f"ffn {(bp, length, c)} F={f}", lambda ops:
            ops.win_attention.ffn_fused(x, y, w0, w2, *norm, add_residual=True))
+    del x, y, z, weights, norm, w0, w2
+
+    corr_shapes = ((2, 12, 20, 32), (3, 8, 16, 32)) if small else (
+        (2, 128, 224, 128), (24, 64, 120, 128))
+    for shape in corr_shapes:
+        f0, f1 = randn(*shape), randn(*shape)
+        flows = [("smooth", _smooth_flow(*shape[:3]).to(device)),
+                 ("mixed", _mixed_flow(g, *shape[:3]).to(device))]
+        for kind, flow in flows:
+            yield (f"local_corr {shape} r=4 {kind} flow", lambda ops, a=f0, b=f1, fl=flow:
+                   ops.local_corr.local_correlation_with_flow(a, b, fl, 4))
+    if served:
+        f0, f1, flow = served_b1_args(device, small)
+        yield (f"local_corr {tuple(f0.shape)} r=4 served flow", lambda ops:
+               ops.local_corr.local_correlation_with_flow(f0, f1, flow, 4))
+    del f0, f1, flows
+
+    levels = ((32, 48, 4), (16, 24, 16), (8, 12, 32)) if small else (
+        (1080, 1920, 4), (540, 960, 16), (270, 480, 32), (135, 240, 64), (68, 120, 64),
+        (34, 60, 64))
+    for h, w, nbit in levels:
+        out0 = torch.rand(8, h, w, 3, generator=g).to(device)
+        const = torch.rand(8, h, w, 3, generator=g).to(device)
+        phis = (torch.rand(8, 4, h, w, generator=g) * 15).to(device)
+        inv_den = (0.8 / (phis.sum(dim=1) + 1.0)).contiguous()
+        yield (f"regrain_sweeps (8, {h}, {w}) nbit={nbit}",
+               lambda ops, a=(out0, const, phis, inv_den, nbit):
+               ops.regrain_stencil.regrain_sweeps(*a))
 
 
-def run(other, device, small=False, iters=3, only=None):
+def run(other, device, small=False, iters=3, only=None, served=False):
     """One row per case (those whose name matches the regex ``only``):
     {"case", "order", "ms"} with the sides in the order run (other, tree,
     tree, other)."""
@@ -154,13 +241,14 @@ def run(other, device, small=False, iters=3, only=None):
         for side, name in (("tree", PACKAGE), ("other", other.name)):
             sides[side] = argparse.Namespace(
                 **{mod: importlib.import_module(f"{name}.ops.{mod}") for mod in
-                   ("row_attention", "conv_chain", "warp_adjoint", "win_attention")})
+                   ("row_attention", "conv_chain", "warp_adjoint", "win_attention",
+                    "local_corr", "regrain_stencil")})
     finally:
         sys.path.pop(0)
     order = ("other", "tree", "tree", "other")
     rows = []
     with torch.no_grad():
-        for name, call in cases(device, small):
+        for name, call in cases(device, small, served):
             if only is not None and not re.search(only, name):
                 continue
             ms = [_time_ms(lambda: call(sides[side]), device, iters) for side in order]
@@ -180,6 +268,8 @@ def main(argv=None):
                     help="torch device (default: the card; cpu to rehearse)")
     ap.add_argument("--small", action="store_true", help="tiny shapes")
     ap.add_argument("--only", default=None, help="time only the cases matching this regex")
+    ap.add_argument("--served", action="store_true",
+                    help="also time B1 on the flow the served DMSCT frame gives it")
     args = ap.parse_args(argv)
     if args.prepare:
         print(prepare(args.prepare, args.other))
@@ -189,7 +279,7 @@ def main(argv=None):
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    run(args.other, device, args.small, only=args.only)
+    run(args.other, device, args.small, only=args.only, served=args.served)
     return 0
 
 

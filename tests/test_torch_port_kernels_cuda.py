@@ -11,6 +11,9 @@ Lines: f32 max|d| <= 1e-4 * max(1, max|ref|) (sums in another order);
 bf16 as stated at each test. B3 and B4 round operation by operation as
 their plain versions do (IEEE division, no FMA contraction): B3 within
 1e-6 * bins (4 ulps at the table's top value), B4 within 1e-6 of values ~1.
+B4 is also held bit-equal (torch.equal) at the six 1080p levels and on
+each of its two routes. B1's routes are forced by the flow (staged,
+per-pixel, both in one call) and its two runs are bit-equal.
 B7's float atomics add in an order that changes from run to run: within
 1e-5 * max(1, max|ref|). B2a, B2b and B2c on the f32 line: every product
 is 3xTF32 MMAs (f32's error scale), against cuBLAS's f32 products; sums in
@@ -58,6 +61,67 @@ def test_local_corr(gen, shape):
         got = lc.local_correlation_with_flow(f0, f1, flow, r)
         want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
     assert lc.local_correlation_with_flow.launches == before + 1
+    assert _rel_err(got, want) <= 1e-4
+
+
+def _smooth_flow(b, h, w):
+    """A slowly varying field that keeps every window inside the image."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    flow = torch.stack([3.5 + 0.3 * torch.sin(yy / 5.0) - 0.02 * xx,
+                        -2.25 + 0.2 * torch.cos(xx / 7.0)], -1)
+    return flow[None].repeat(b, 1, 1, 1).cuda()
+
+
+def _b1_flow(gen, kind, b, h, w):
+    if kind == "smooth":
+        return _smooth_flow(b, h, w)
+    mixed = _mixed_flow(gen, b, h, w)
+    if kind == "mixed":
+        return mixed
+    if kind == "clamped":  # every window pushed past the image's edges
+        return torch.where(mixed >= 0, 1e4, -1e4)
+    left = torch.arange(w, device="cuda")[None, None, :, None] < w // 2
+    return torch.where(left, _smooth_flow(b, h, w), mixed)  # "step"
+
+
+@pytest.mark.parametrize("kind", ["smooth", "mixed", "step", "clamped"])
+@pytest.mark.parametrize("shape", [(2, 40, 72, 128, 4), (1, 13, 37, 16, 1), (2, 24, 33, 64, 2)])
+def test_local_corr_routes(gen, shape, kind):
+    """B1's two routes, forced by the flow: every tile of a smooth flow is
+    staged, the mixed flow sends tiles to the per-pixel route, the step
+    runs both in one call, the clamped flow has no live pixel (zeros). The
+    kernel's route of each tile is tile_boxes'; two runs are bit-equal."""
+    b, h, w, c, r = shape
+    f0, f1 = _randn(gen, b, h, w, c), _randn(gen, b, h, w, c)
+    flow = _b1_flow(gen, kind, b, h, w).contiguous()
+    with torch.no_grad():
+        got, routes = lc._launch(f0, f1, flow, r, routes=True)
+        again = lc._launch(f0, f1, flow, r)
+        want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
+    staged = lc.tile_boxes(flow, r, lc.launch_plan(c, r))["staged"]
+    assert torch.equal(routes.bool(), staged)
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= 1e-4
+    if kind in ("smooth", "clamped"):
+        assert bool(staged.all())
+    if kind == "clamped":
+        assert not bool(got.any())
+    if kind == "step" and shape[0] == 2 and r == 4:
+        assert 0 < int(staged.sum()) < staged.numel()
+    if kind == "mixed" and r == 4:
+        assert not bool(staged.all())
+
+
+@pytest.mark.parametrize("r", [0, 1, 2, 3, 4])
+def test_local_corr_radii(gen, r):
+    """Every instantiated radius, on both routes (a step flow)."""
+    b, h, w, c = 1, 19, 45, 32
+    f0, f1 = _randn(gen, b, h, w, c), _randn(gen, b, h, w, c)
+    flow = _b1_flow(gen, "step", b, h, w).contiguous()
+    with torch.no_grad():
+        got = lc.local_correlation_with_flow(f0, f1, flow, r)
+        want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
     assert _rel_err(got, want) <= 1e-4
 
 
@@ -281,6 +345,55 @@ def test_regrain_sweeps(gen, frames, h, w, nbit):
     want = rs.regrain_sweeps_plain(out0, const, phis, invd, nbit)
     assert rs.regrain_sweeps.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("h,w,nbit", [(1080, 1920, 4), (540, 960, 16), (270, 480, 32),
+                                      (135, 240, 64), (68, 120, 64), (34, 60, 64)])
+def test_regrain_sweeps_levels_bit_equal(gen, h, w, nbit):
+    """B4 at the six levels of a 1080p chunk (two frames): bit-equal to the
+    plain version, on the route and plan launch_plan picks."""
+    out0, const, phis, invd = _regrain_inputs(gen, 2, h, w)
+    got = rs.regrain_sweeps(out0, const, phis, invd, nbit)
+    assert torch.equal(got, rs.regrain_sweeps_plain(out0, const, phis, invd, nbit))
+
+
+@pytest.mark.parametrize("h,w,nbit,route,sweeps,tile", [
+    (13, 22, 7, "trapezoid", 3, (4, 8)),      # odd sizes, a short last pass
+    (13, 22, 7, "trapezoid", 7, (8, 8)),      # halos wider than tiles
+    (1, 9, 5, "trapezoid", 2, (1, 4)),        # one row
+    (6, 3, 4, "trapezoid", 4, (2, 4)),        # narrower than a thread's four columns
+    (37, 50, 9, "trapezoid", 4, (24, 56)),    # one tile across, ragged down
+    (13, 22, 7, "cluster", 7, (2, 22)),       # seven bands
+    (135, 240, 64, "cluster", 64, (17, 240)), # the 135 x 240 level's cluster of 8
+    (34, 60, 64, "cluster", 64, (34, 60)),    # a cluster of one block
+    (1, 5, 3, "cluster", 3, (1, 5)),
+])
+def test_regrain_sweeps_forced_routes(gen, h, w, nbit, route, sweeps, tile):
+    """Each route forced by a plan, at odd sizes and tiles that straddle
+    the border: bit-equal to the plain version, also with misaligned
+    inputs (the scalar loads)."""
+    th, tw = tile
+    if route == "trapezoid":
+        rh, rw = th + 2 * sweeps, tw + 2 * sweeps
+    else:
+        rh, rw = th, tw
+    strip, threads = rs._strip_for(rh, rw)
+    plan = rs.LevelPlan(route, sweeps, -(-nbit // sweeps), th, tw, strip, threads,
+                        rs._smem(rh, rw), -(-h // th) if route == "cluster" else 1)
+    for misaligned in (False, True):
+        out0, const, phis, invd = _regrain_inputs(gen, 2, h, w)
+        if misaligned:  # one float past a 16-byte boundary
+            out0 = torch.cat([out0.new_zeros(1), out0.flatten()])[1:].view(out0.shape)
+        got = rs._launch(out0, const, phis, invd, nbit, 0.2, plan=plan)
+        assert torch.equal(got, rs.regrain_sweeps_plain(out0, const, phis, invd, nbit))
+
+
+def _regrain_inputs(gen, frames, h, w):
+    out0 = torch.rand(frames, h, w, 3, generator=gen).cuda()
+    const = torch.rand(frames, h, w, 3, generator=gen).cuda()
+    phis = (torch.rand(frames, 4, h, w, generator=gen) * 15).cuda()
+    invd = (0.8 / (phis.sum(1) + 1.0)).contiguous()
+    return out0, const, phis, invd
 
 
 def _mixed_flow(gen, b, h, w):

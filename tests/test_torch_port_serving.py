@@ -508,11 +508,13 @@ def test_kernel_ab_times_two_copies_side_by_side(tmp_path):
     assert "color_transfer_tpu_torch" not in (other / "ops" / "row_attention.py").read_text()
     rows = kernel_ab.run(other, torch.device("cpu"), small=True, iters=1)
     # B5: 2 modes x 2 dtypes; B6: 3 chains x 2 batches; B7: 4 levels x 2
-    # flows; B2a, B2b (cross; self with the shift and the residual) and B2c.
-    assert len(rows) == 4 + 6 + 8 + 4
+    # flows; B2a, B2b (cross; self with the shift and the residual) and B2c;
+    # B1: 2 shapes x 2 flows; B4: 3 levels (six at full size).
+    assert len(rows) == 4 + 6 + 8 + 4 + 4 + 3
     assert [r["case"] for r in kernel_ab.run(other, torch.device("cpu"), small=True, iters=1,
-                                             only="^window")] == [r["case"] for r in rows[-4:-1]]
-    assert rows[-1]["case"].startswith("ffn ")
+                                             only="^window")] == [r["case"] for r in rows[18:21]]
+    assert rows[21]["case"].startswith("ffn ")
+    assert [r["case"].split()[0] for r in rows[22:]] == ["local_corr"] * 4 + ["regrain_sweeps"] * 3
     for row in rows:
         assert row["order"] == ["other", "tree", "tree", "other"]
         assert len(row["ms"]) == 4 and all(t > 0 for t in row["ms"])

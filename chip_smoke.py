@@ -95,6 +95,35 @@ fallback):
                 fused route's drift stage by stage (transformer, flow, image).
                 A gate verdict is reported, not asserted; every gate row must
                 be finite.
+ 10. train dcmcs3di — runs before phase 9, which reads its checkpoint:
+                ``fit --config configs/dcmcs3di.yaml`` through the CLI at the
+                recipe's full width (18 extraction and 6 transfer ResB
+                blocks, 64 channels; batch 8, 160x320 crops, f32 with TF32
+                off) on a synthetic set of 16 train and 4 validation pairs at
+                288x512 (2 steps an epoch, 3 epochs), once with the chunked
+                training matcher and once with the materialised one: warm
+                ms/step (steps 2-6; step 1 apart), peak memory, no kernel
+                launched, finite losses, every parameter moved, the
+                checkpoints; device ms by span (targets, forward+loss,
+                backward, optimizer), busy share and top kernels of one
+                step; each f32 conv's cuDNN time at the recipe's shape; the
+                two matchers on one batch (the loss 1e-5 relative, each
+                gradient rtol 2e-4 atol 1e-5, JAX's lines); the step at (2,
+                32, 64) against float64 (phase 7's rule); ``predict`` from
+                the best checkpoint.
+  9. test     — the paper's evaluation through ``test``: the five classical
+                methods (configs/others.yaml) and DMSCT (configs/dmsct.yaml,
+                random init) on a synthetic 1080p set (one Test/ pair, 31
+                items; Real-World Test/ two triplets), DCMCS3DI from phase
+                10's checkpoint on a 544x960 set (and a 520x900 scene)
+                natively and with ``--eval_buckets 64``: every metric of
+                both loaders finite, exact launches (DMSCT 6 B1, IDT 4 B3,
+                grading 4 B3 and 6 B4 an item, none otherwise), ms an item
+                by the host clock, the data / forward / metrics spans, peak
+                memory, busy share and host syncs an item; MK's means
+                against a per-item recomputation; Reinhard, CCS and MK on a
+                64x96 set on the card against the CPU; the bucketed
+                DCMCS3DI metrics against the native ones.
 The line before the last is a JSON object with per-kernel results (each
 kernel's time, its plain version's, a library call's where one computes
 the same function, and its bound on the card: the larger of its bytes over
@@ -1404,28 +1433,38 @@ def check_warp_adjoint(g):
     return _with_bound(row, moved, {"f32": ops}, totals["library_ms"])
 
 
-def _write_dataset(root, seed=0, height=288, width=512):
-    """Seeded textured stereo pairs: a smooth low-frequency field plus fine
-    texture, the right view a shifted, colour-cast copy; 24 under Train/,
-    12 under Validation/."""
+def _stereo_pair(rng, height, width, shift=24):
+    """A seeded textured stereo pair: a smooth low-frequency field plus fine
+    texture; the right view a shifted, colour-cast copy. float64 in [0, 1]."""
+    low = torch.from_numpy(rng.uniform(0, 1, (1, 3, 9, 16)).astype(np.float32))
+    field = torch.nn.functional.interpolate(
+        low, size=(height, width + shift), mode="bilinear", align_corners=False)[0]
+    field = field.permute(1, 2, 0).numpy()
+    texture = rng.normal(0, 0.06, (height, width + shift, 1))
+    scene = np.clip(field + texture, 0, 1)
+    left = scene[:, :width]
+    right = np.clip(scene[:, shift:] ** 1.1 * [0.92, 1.0, 0.85] + 0.03, 0, 1)
+    return left, right
+
+
+def _save(path, img):
     from PIL import Image
 
+    Image.fromarray((img * 255 + 0.5).astype(np.uint8)).save(path, compress_level=1)
+
+
+def _write_dataset(root, seed=0, height=288, width=512,
+                   splits=(("Train", 24), ("Validation", 12))):
+    """Seeded stereo pairs (``_stereo_pair``) NNNN_{L,R}.png under each
+    split's directory."""
     rng = np.random.default_rng(seed)
-    for split, n in (("Train", 24), ("Validation", 12)):
+    for split, n in splits:
         d = root / split
         d.mkdir(parents=True)
         for i in range(n):
-            low = torch.from_numpy(rng.uniform(0, 1, (1, 3, 9, 16)).astype(np.float32))
-            field = torch.nn.functional.interpolate(
-                low, size=(height, width + 24), mode="bilinear", align_corners=False)[0]
-            field = field.permute(1, 2, 0).numpy()
-            texture = rng.normal(0, 0.06, (height, width + 24, 1))
-            scene = np.clip(field + texture, 0, 1)
-            left = scene[:, :width]
-            right = np.clip(scene[:, 24:] ** 1.1 * [0.92, 1.0, 0.85] + 0.03, 0, 1)
-            for view, img in (("L", left), ("R", right)):
-                Image.fromarray((img * 255 + 0.5).astype(np.uint8)).save(
-                    d / f"{i:04d}_{view}.png")
+            left, right = _stereo_pair(rng, height, width)
+            _save(d / f"{i:04d}_L.png", left)
+            _save(d / f"{i:04d}_R.png", right)
 
 
 def train(rows):
@@ -2037,6 +2076,547 @@ def drift_stages():
     torch.cuda.empty_cache()
 
 
+# DCMCS3DI training at configs/dcmcs3di.yaml's recipe (batch 8, 160x320
+# crops, full width) on a synthetic set of 16 train and 4 validation pairs at
+# 288x512: 2 steps an epoch, 3 epochs, once a training matcher.
+DC_STEPS, DC_BATCH, DC_CROP = 6, 8, (160, 320)
+# The chunked and the materialised training matcher on one batch with the
+# same weights and target: JAX's own lines (tests/test_parallax_train.py).
+MATCHER_LOSS_RTOL, MATCHER_GRAD_RTOL, MATCHER_GRAD_ATOL = 1e-5, 2e-4, 1e-5
+# The step against float64 (check_dc_train_small): batch 2 of 32x64 crops.
+DC_SMALL = (2, 32, 64)
+# The convs of a DCMCS3DI train step at the recipe's crop, (name, batch,
+# C_in, C_out, k, count a step): the extraction and the matcher head run on
+# both views (2 x 8 images), the value projection and the transfer net on one.
+DC_CONVS = (("extraction stem 3x3", 16, 3, 64, 3, 1),
+            ("ResB 3x3, both views", 16, 64, 64, 3, 38),
+            ("q/k 1x1", 16, 64, 64, 1, 2),
+            ("value 1x1", 8, 64, 64, 1, 1),
+            ("transfer 1x1 (2C+1 -> C)", 8, 129, 64, 1, 1),
+            ("ResB 3x3, one view", 8, 64, 64, 3, 12),
+            ("tail 3x3 64 -> 32", 8, 64, 32, 3, 1),
+            ("tail 3x3 32 -> 3", 8, 32, 3, 3, 1))
+# `test`: the 1080p set (Test/ one pair, 31 items; Real-World Test/scene1
+# two triplets) for the classical methods and DMSCT; the 544x960 set (the
+# same layout, plus scene2 at 520x900, a shape bucketing pads in both axes)
+# for DCMCS3DI, whose evaluation materialises (1, H, W, W) volumes; the
+# 64x96 set for the card against the CPU.
+EVAL_1080, EVAL_544, EVAL_SMALL = (1080, 1920), (544, 960), (64, 96)
+EVAL_BUCKETS = 64
+# Card against CPU of a whole `test` of the linear methods: the metrics'
+# means within 1e-4 relative (the methods' own line on the image, carried).
+EVAL_CPU_RTOL = 1e-4
+# The harness's MK means against a per-item recomputation on the card.
+EVAL_SELF_RTOL = 1e-6
+# Bucketed against native DCMCS3DI output on a 544x960 item, above the rows
+# the padded ones reach: JAX's line (tests/test_bucketing.py).
+EVAL_BUCKET_ATOL = 1e-4
+
+
+def _fit_dcmcs3di(root, data, fused):
+    """One `fit` of configs/dcmcs3di.yaml through the CLI with the given
+    training matcher; returns what it measured and the fitted state."""
+    from color_transfer_tpu_torch.run import cli, modules
+
+    label = "chunked" if fused else "materialised"
+    steps, held = [], {}
+    orig_step = modules.DCMCS3DIModule.train_step
+
+    def timed_step(self, state, batch, seed, metrics=True):
+        if not held:
+            held.update(module=self, state=state, start={
+                k: v.detach().clone() for k, v in state.variables.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_step(self, state, batch, seed, metrics)
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t0) * 1e3, out[1]))
+        held["batch"], held["seed"] = batch, seed
+        return out
+
+    log_dir = root / f"dc_{label}"
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    modules.DCMCS3DIModule.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["fit", "--config", "configs/dcmcs3di.yaml", "--data.data_dir", str(data),
+                       "--data.image_repeats", "1", "--trainer.max_epochs", "3",
+                       "--model.fused_attention", "true" if fused else "false",
+                       "--log_dir", str(log_dir)])
+    finally:
+        modules.DCMCS3DIModule.train_step = orig_step
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _launches()
+    if rc != 0:
+        raise AssertionError(f"fit ({label}) returned {rc}")
+    module, state = held["module"], held["state"]
+    if module.fused_attention != fused or tuple(held["batch"]["gt"].shape[:3]) != (
+            DC_BATCH, *DC_CROP):
+        raise AssertionError(f"fit ({label}) did not run the recipe")
+    ms = [t for t, _ in steps]
+    losses = [float(logs["Training Total Loss"]) for _, logs in steps]
+    warm = ms[1:]
+    _log(f"dcmcs3di train ({label} matcher): fit {fit_s:.1f} s, {len(steps)} steps of "
+         f"{DC_BATCH} x {DC_CROP[0]}x{DC_CROP[1]}; step 1 {ms[0]:.1f} ms (logs the quality "
+         f"metrics), steps 2-{len(ms)} {', '.join(f'{t:.1f}' for t in warm)}: warm "
+         f"{sum(warm) / len(warm):.1f} ms/step; peak memory {peak:.2f} GiB; losses "
+         f"{', '.join(f'{v:.5f}' for v in losses)}; launches {counts}")
+    if len(steps) != DC_STEPS:
+        raise AssertionError(f"fit ({label}) ran {len(steps)} steps, expected {DC_STEPS}")
+    if any(counts.values()):
+        raise AssertionError("DCMCS3DI training launched a kernel (it runs none)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    unmoved = [k for k, v in state.variables.items() if torch.equal(v.detach(), held["start"][k])]
+    _log(f"dcmcs3di train ({label}): {len(state.variables) - len(unmoved)} of "
+         f"{len(state.variables)} parameters moved")
+    if unmoved:
+        raise AssertionError(f"parameters that did not move: {unmoved[:5]}")
+    for which in ("last", "best"):
+        meta = json.loads((log_dir / "checkpoints" / which / "meta.json").read_text())
+        _log(f"dcmcs3di train ({label}): checkpoints/{which}: step {meta['step']}, "
+             f"epoch {meta['epoch']}")
+        if meta["step"] != 2 * (meta["epoch"] + 1) or (which == "last" and meta["epoch"] != 2):
+            raise AssertionError(f"checkpoint {which}: {meta}")
+    records = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    val = [r["Validation PSNR/dataloader_idx_0"] for r in records
+           if "Validation PSNR/dataloader_idx_0" in r]
+    _log(f"dcmcs3di train ({label}): validation PSNR by epoch {[round(v, 4) for v in val]}")
+    return module, state, held["batch"], held["seed"], log_dir
+
+
+def _dc_profile(module, state, batch, seed):
+    """One more step of the fitted state (no quality metrics): device ms by
+    span, busy share, top kernels."""
+    from color_transfer_tpu_torch.models import dcmcs3di as dc
+
+    def step():
+        module.train_step(state, batch, seed, metrics=False)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    spans = _stage_ms(module.model, step, stages=("extraction", "matcher.head", "transfer"),
+                      functions=(("step", module, "train_step"),
+                                 ("targets", module, "synthesize_targets"),
+                                 ("forward+loss", module, "forward_loss"),
+                                 ("optimizer", module, "apply_gradients"),
+                                 ("chunked matcher", dc, "chunked_parallax_train"),
+                                 ("losses", dc, "compute_losses_fused")))
+    backward = spans["step"] - spans["targets"] - spans["forward+loss"] - spans["optimizer"]
+    _log("dcmcs3di train: device ms by span (one step, chunked matcher): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in spans.items()) + f"; backward (step less targets, "
+        f"forward+loss and optimizer) {backward:.2f}")
+    busy = _device_busy_ms(step, top=15)
+    _log(f"dcmcs3di train: one step {wall:.1f} ms wall, device busy {busy:.1f} ms, busy "
+         f"share {busy / wall:.3f}")
+
+
+def _dc_conv_times():
+    """Each f32 conv of a DCMCS3DI train step at the recipe's crop through
+    cuDNN with TF32 off, in the path's NHWC layout: forward, and backward
+    (input and weight gradients), beside its operations' rate."""
+    from color_transfer_tpu_torch.core.precision import full_f32
+    from color_transfer_tpu_torch.models.layers import conv
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, w = DC_CROP
+    total = 0.0
+    with full_f32():
+        for name, b, c_in, c_out, k, count in DC_CONVS:
+            x = torch.randn(b, h, w, c_in, device="cuda", generator=g).requires_grad_(True)
+            wt = (torch.randn(c_out, c_in, k, k, device="cuda", generator=g)
+                  / (c_in * k * k) ** 0.5).requires_grad_(True)
+            bias = torch.zeros(c_out, device="cuda", requires_grad=True)
+            with torch.no_grad():
+                fwd = _time_ms(lambda: conv(x, wt, bias, k // 2), iters=5)
+                cudnn = torch.backends.cudnn
+                with cudnn.flags(enabled=False, benchmark=False, deterministic=False,
+                                 allow_tf32=False):
+                    aten = _time_ms(lambda: conv(x, wt, bias, k // 2), iters=5)
+            y = conv(x, wt, bias, k // 2)
+            gy = torch.ones_like(y)
+            bwd = _time_ms(lambda: torch.autograd.grad(y, (x, wt, bias), gy, retain_graph=True),
+                           iters=5)
+            flops = 2.0 * k * k * c_in * c_out * b * h * w
+            total += count * (aten + bwd)
+            _log(f"dcmcs3di conv {name} ({b}, {h}, {w}, {c_in}) -> {c_out}, x{count} a step: "
+                 f"cuDNN f32 forward {fwd:.3f} ms ({flops / fwd / 1e9:.1f} TFLOP/s), backward "
+                 f"{bwd:.3f} ms ({2 * flops / bwd / 1e9:.1f} TFLOP/s); ATen forward (the "
+                 f"training route) {aten:.3f} ms ({flops / aten / 1e9:.1f} TFLOP/s)")
+            del x, wt, bias, y, gy
+    _log(f"dcmcs3di conv: a step's convs by these times (ATen forward, cuDNN backward) "
+         f"{total:.1f} ms")
+
+
+def _dc_grads(module, state, batch, fused):
+    from color_transfer_tpu_torch.core.precision import full_f32
+
+    module.fused_attention = fused
+    with full_f32():
+        _, total, _ = module.forward_loss(state, batch)
+        grads = torch.autograd.grad(total, list(state.variables.values()))
+    return float(total.detach()), [gr.detach() for gr in grads]
+
+
+def _dc_matchers_agree(batch):
+    """The chunked and the materialised matcher on one recipe batch, the
+    same weights (seed 0) and the same target: the total loss and every
+    gradient on JAX's own lines."""
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    module = DCMCS3DIModule()
+    state = module.init_state(0, batch)
+    b = {**batch, "target": (batch["gt"] ** 1.2 * 0.9 + 0.04).clamp(0, 1)}
+    loss_c, g_c = _dc_grads(module, state, b, True)
+    loss_m, g_m = _dc_grads(module, state, b, False)
+    d_loss = abs(loss_c - loss_m) / abs(loss_m)
+    # np.testing.assert_allclose's rule: |c - m| <= atol + rtol |m|, element-wise.
+    excess = max(float(((c - m).abs() / (MATCHER_GRAD_ATOL + MATCHER_GRAD_RTOL * m.abs())).max())
+                 for c, m in zip(g_c, g_m))
+    _log(f"dcmcs3di matchers on one batch ({DC_BATCH} x {DC_CROP[0]}x{DC_CROP[1]}): total "
+         f"loss chunked {loss_c:.8f}, materialised {loss_m:.8f} (relative {d_loss:.2e}, line "
+         f"{MATCHER_LOSS_RTOL}); gradients: worst |c - m| / ({MATCHER_GRAD_ATOL} + "
+         f"{MATCHER_GRAD_RTOL} |m|) = {excess:.3f} over {len(g_c)} tensors")
+    if d_loss > MATCHER_LOSS_RTOL or excess > 1.0:
+        raise AssertionError("the chunked and the materialised matchers disagree on the card")
+
+
+def _dc_step(device, dtype, batch, target):
+    """One train step of full-width DCMCS3DI (chunked matcher, seed-0
+    variables) on ``device`` in ``dtype`` with the target given -> (loss,
+    {name: gradient on the CPU in float64})."""
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    module = DCMCS3DIModule()
+    b = {k: v.to(device, dtype) for k, v in batch.items()}
+    state = module.init_state(0, b, num_train_steps=10)
+    state.variables = {k: v.detach().to(dtype).requires_grad_(True)
+                       for k, v in state.variables.items()}
+    state.optimizer = torch.optim.Adam(list(state.variables.values()), lr=module.learning_rate)
+    module.synthesize_targets = lambda bb, gen, tt=target.to(device, dtype): {**bb, "target": tt}
+    grads = {}
+    apply_gradients = module.apply_gradients
+
+    def record(st):
+        grads.update({k: v.grad.detach().cpu().double() for k, v in st.variables.items()})
+        apply_gradients(st)
+
+    module.apply_gradients = record
+    _, logs = module.train_step(state, b, seed=0, metrics=False)
+    return float(logs["Training Total Loss"]), grads
+
+
+def check_dc_train_small():
+    """The full-width DCMCS3DI train step on the card against float64 on
+    the CPU at DC_SMALL: each gradient no further from float64 than
+    TRAIN_F64_RATIO times the CPU float32 run's distance plus 1e-5 of its
+    scale (phase 7's rule), the loss within TRAIN_LOSS_RTOL of the CPU's."""
+    n, h, w = DC_SMALL
+    t, r = _classical_clip(n, h, w, seed=5)
+    batch = {"gt": t, "reference": r}
+    target = (t ** 1.2 * 0.9 + 0.04).clamp(0, 1)
+    t0 = time.perf_counter()
+    loss64, g64 = _dc_step("cpu", torch.float64, batch, target)
+    loss_cpu, g_cpu = _dc_step("cpu", torch.float32, batch, target)
+    loss_card, g_card = _dc_step("cuda", torch.float32, batch, target)
+    floor = 1e-2 * max(float(v.abs().max()) for v in g64.values())
+    worst, name, far_cpu, far_card = 0.0, None, 0.0, 0.0
+    for k, ref in g64.items():
+        scale = max(float(ref.abs().max()), floor)
+        e_cpu = float((g_cpu[k] - ref).abs().max()) / scale
+        e_card = float((g_card[k] - ref).abs().max()) / scale
+        far_cpu, far_card = max(far_cpu, e_cpu), max(far_card, e_card)
+        excess = e_card / (TRAIN_F64_RATIO * e_cpu + 1e-5)
+        if excess > worst:
+            worst, name = excess, f"{k} (card {e_card:.2e}, CPU {e_cpu:.2e})"
+    d_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    _log(f"dcmcs3di train step {DC_SMALL}, full width, chunked matcher "
+         f"({time.perf_counter() - t0:.1f} s): loss card {loss_card:.8f}, CPU {loss_cpu:.8f}, float64 {loss64:.8f} (card against "
+         f"CPU {d_loss:.2e}, line {TRAIN_LOSS_RTOL}); gradients against float64: worst card "
+         f"error / ({TRAIN_F64_RATIO} x CPU error + 1e-5) = {worst:.3f} at {name} over "
+         f"{len(g64)} tensors; farthest from float64: card {far_card:.2e}, CPU {far_cpu:.2e}")
+    if d_loss > TRAIN_LOSS_RTOL or worst > 1.0:
+        raise AssertionError("the DCMCS3DI train step on the card is further from float64 "
+                             "than the rule allows")
+
+
+def train_dcmcs3di(root):
+    """Phase 10: `fit` of configs/dcmcs3di.yaml at its full width through the
+    CLI, once with each training matcher; checked and measured. Returns the
+    chunked run's best checkpoint (phase 9 evaluates it)."""
+    from PIL import Image
+
+    from color_transfer_tpu_torch.run import cli
+
+    t_phase = time.perf_counter()
+    data = root / "dc_data"
+    _write_dataset(data, splits=(("Train", 16), ("Validation", 4)))
+    fitted = {fused: _fit_dcmcs3di(root, data, fused) for fused in (True, False)}
+    module, state, batch, seed, log_dir = fitted[True]
+    del fitted[False]
+    _dc_profile(module, state, batch, seed)
+    del module, state
+    torch.cuda.empty_cache()
+    _dc_conv_times()
+    _dc_matchers_agree(batch)
+    torch.cuda.empty_cache()
+    check_dc_train_small()
+    best = log_dir / "checkpoints" / "best"
+    pair = root / "dc_pair"
+    pair.mkdir()
+    for view in ("L", "R"):
+        with Image.open(data / "Validation" / f"0000_{view}.png") as img:
+            img.crop((0, 0, 240, 135)).save(pair / f"0000_{view}.png")
+    out = root / "dc_corrected.png"
+    rc = cli.main(["predict", "--method", "dcmcs3di", "--ckpt_path", str(best), "--target",
+                   str(pair / "0000_L.png"), "--reference", str(pair / "0000_R.png"),
+                   "--output", str(out)])
+    with Image.open(out) as img:
+        size = img.size
+    _log(f"dcmcs3di train: predict from checkpoints/best wrote {size[0]}x{size[1]}; phase "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    if rc != 0 or size != (240, 135):
+        raise AssertionError("predict from the DCMCS3DI checkpoint failed")
+    return best
+
+
+def _write_eval_set(root, hw, extra_scene=None, seed=7):
+    """Test/ one pair at ``hw``; Real-World Test/scene1 two triplets at
+    ``hw`` (the distorted view LD a gamma- and colour-cast copy of L);
+    ``extra_scene`` (h, w): scene2 with one triplet at that shape."""
+    rng = np.random.default_rng(seed)
+    (root / "Test").mkdir(parents=True)
+    left, right = _stereo_pair(rng, *hw)
+    _save(root / "Test" / "0000_L.png", left)
+    _save(root / "Test" / "0000_R.png", right)
+    scenes = [("scene1", 2, hw)] + ([("scene2", 1, extra_scene)] if extra_scene else [])
+    for scene, n, (h, w) in scenes:
+        d = root / "Real-World Test" / scene
+        d.mkdir(parents=True)
+        for i in range(n):
+            left, right = _stereo_pair(rng, h, w)
+            distorted = np.clip(left ** 0.8 * [1.08, 0.95, 0.9] + 0.02, 0, 1)
+            for suffix, img in (("L", left), ("LD", distorted), ("R", right)):
+                _save(d / f"{i:04d}_{suffix}.png", img)
+
+
+def _run_test(argv):
+    """`test` through the CLI on the card -> (results, the trainer, wall s)."""
+    import contextlib
+    import io
+
+    from color_transfer_tpu_torch.run import cli, trainer
+
+    held = {}
+    orig = trainer.Trainer.test
+
+    def test(self, *args, **kwargs):
+        held["trainer"] = self
+        return orig(self, *args, **kwargs)
+
+    out = io.StringIO()
+    trainer.Trainer.test = test
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["test", *argv])
+        torch.cuda.synchronize()
+    finally:
+        trainer.Trainer.test = orig
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"test {argv} returned {rc}")
+    text = out.getvalue()
+    return json.loads(text[text.index("{"):]), held["trainer"], wall
+
+
+def _counted(argv, profile=False):
+    """A `test` run under torch's sync debug mode -> (host syncs, wall s,
+    device busy ms of a torch.profiler trace of it when ``profile``)."""
+    import warnings
+
+    held = {}
+
+    def run():
+        held["wall"] = _run_test(argv)[2]
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            busy = _device_busy_ms(run) if profile else run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught), held["wall"], busy
+
+
+def _eval_method(label, argv, items, expect):
+    """One method's `test` on a set: the run, exact kernel launches, spans,
+    host ms an item, peak memory; then a run with no item and one with an
+    item a loader: the set-up's wall time, host syncs an item and the busy
+    share (the profiled run, set-up included). ``expect``: {wrapper name:
+    launches an item}. Returns the results."""
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    results, trainer, wall = _run_test(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _launches()
+    want = {name: expect.get(name, 0) * items for name in counts}
+    spans = {k: sum(v) / len(v) for k, v in trainer.test_spans.items()}
+    counted = {k: len(v) for k, v in trainer.test_spans.items()}
+    if set(counted.values()) != {items} or len(counted) != 3:
+        raise AssertionError(f"{label}: spans an item {counted}")
+    fixed, wall0, _ = _counted([*argv, "--max_batches", "0"])
+    syncs, wall1, busy = _counted([*argv, "--max_batches", "1"], profile=True)
+    _log(f"test {label}: {items} items, {(wall - wall0) * 1e3 / items:.1f} ms an item by the "
+         f"host clock (run {wall:.2f} s less its set-up {wall0:.2f} s); device spans an item "
+         + ", ".join(f"{k} {v:.2f} ms" for k, v in spans.items())
+         + f"; peak memory {peak:.2f} GiB; one item a loader under the profiler: busy "
+         f"{busy:.1f} of {wall1 * 1e3:.1f} ms (share {busy / (wall1 * 1e3):.3f}, set-up "
+         f"included); host syncs an item {(syncs - fixed) / 2:g} (set-up {fixed}); launches "
+         f"{counts}")
+    _log(f"test {label}: " + ", ".join(f"{k.removeprefix('Test ')} {v:.6f}"
+                                        for k, v in results.items()))
+    if counts != want:
+        raise AssertionError(f"test {label}: launches {counts}, expected {want}")
+    bad = [k for k, v in results.items() if not math.isfinite(v)]
+    names = {f"Test {m}/dataloader_idx_{i}" for m in ("PSNR", "SSIM", "iCID", "FSIM")
+             for i in (0, 1)}
+    if set(results) != names or bad:
+        raise AssertionError(f"test {label}: results {sorted(results)}, non-finite {bad}")
+    return results
+
+
+def _bucket_interior(data, ckpt):
+    """DCMCS3DI bucketed against native on the real-world items, output
+    against output: a 544x960 item pads 32 rows (960 is a multiple of 64),
+    so the rows above the receptive field of the padded ones must agree on
+    JAX's line (tests/test_bucketing.py, 1e-4); the 520x900 item also pads
+    columns, whose attention reaches every row (reported). Returns the
+    interior difference of the 544x960 items."""
+    from color_transfer_tpu_torch.run.bucketing import BucketedEvaluator
+    from color_transfer_tpu_torch.run.checkpoint import restore_eval_variables
+    from color_transfer_tpu_torch.run.datamodule import DataModule, to_float
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    module = DCMCS3DIModule()
+    variables = restore_eval_variables(module, ckpt)
+    evaluator = BucketedEvaluator(module, multiple=EVAL_BUCKETS)
+    # Rows a padded row reaches: the stem and 18 ResB blocks, the matcher
+    # head's ResB, 6 ResB blocks and the two tail convs (3x3 each; the 1x1
+    # convs and the row-wise attention add none).
+    band = 1 + 2 * EXTRACTION_LAYERS + 2 + 2 * TRANSFER_LAYERS + 2
+    worst = 0.0
+    for batch in DataModule(data, num_workers=2).test_loaders()[1]:
+        b = {k: torch.from_numpy(v).cuda() for k, v in to_float(batch).items()}
+        native = module.eval_forward(variables, b)
+        out, _ = evaluator.eval_batch(variables, b)
+        h, w = b["gt"].shape[1:3]
+        interior = float((out - native)[:, :h - band].abs().max())
+        _log(f"test dcmcs3di bucketed against native output at {h}x{w}: rows above the "
+             f"{band}-row band {interior:.2e}, whole image "
+             f"{float((out - native).abs().max()):.2e}")
+        if w % EVAL_BUCKETS == 0:
+            worst = max(worst, interior)
+    return worst
+
+
+def _mk_by_hand(data):
+    """MK's per-loader metric means recomputed item by item on the card:
+    each loader item, its grid distortion, eval_forward, quality_metrics."""
+    from color_transfer_tpu_torch.data.distortions import setup_grid_distortions
+    from color_transfer_tpu_torch.run.datamodule import DataModule
+    from color_transfer_tpu_torch.run.modules import ClassicalModule, quality_metrics
+    from color_transfer_tpu_torch.run.trainer import Trainer
+
+    trainer = Trainer(log_dir=data.parent / "mk_by_hand")
+    module, grid = ClassicalModule("monge_kantorovitch"), setup_grid_distortions()
+    means = {}
+    for idx, loader in enumerate(DataModule(data, num_workers=4).test_loaders()):
+        sums, n = {}, 0
+        for batch in loader:
+            d = batch.pop("distortion_idx", None)
+            batch = trainer.device_batch(batch)
+            if "target" not in batch:
+                batch["target"] = grid[int(d[0])](batch["gt"][0])[None]
+            with torch.no_grad():
+                logs = quality_metrics(module.eval_forward(None, batch), batch["gt"])
+            for k, v in logs.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        means.update({f"Test {k}/dataloader_idx_{idx}": v / n for k, v in sums.items()})
+    return means
+
+
+def _worst_rel(a, b):
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+
+
+def evaluate(root, dc_ckpt):
+    """Phase 9: the paper's evaluation, `test` through the CLI: the five
+    classical methods and DMSCT (random init) on the 1080p set, DCMCS3DI
+    from phase 10's checkpoint on the 544x960 set, natively and bucketed;
+    checked and measured."""
+    t_phase = time.perf_counter()
+    sets = {"1080": root / "eval_1080", "544": root / "eval_544", "small": root / "eval_small"}
+    _write_eval_set(sets["1080"], EVAL_1080)
+    _write_eval_set(sets["544"], EVAL_544, extra_scene=(520, 900))
+    _write_eval_set(sets["small"], EVAL_SMALL)
+    _log(f"test: sets written ({time.perf_counter() - t_phase:.1f} s)")
+    items = 31 + 2
+    results = {}
+
+    def classical(method, data):
+        return ["--config", "configs/others.yaml", "--model.func_spec", method,
+                "--data.data_dir", str(data), "--log_dir", str(root / "eval_log")]
+
+    expects = {"idt": {"transport_apply": N_ITER},
+               "automated_color_grading": {"transport_apply": N_ITER,
+                                           "regrain_sweeps": LEVELS}}
+    for method in CLASSICAL:
+        results[method] = _eval_method(method, classical(method, sets["1080"]), items,
+                                       expects.get(method, {}))
+    by_hand = _mk_by_hand(sets["1080"])
+    d_mk = _worst_rel(results["monge_kantorovitch"], by_hand)
+    _log(f"test monge_kantorovitch: the harness's means against a per-item recomputation "
+         f"on the card: worst relative {d_mk:.2e} (line {EVAL_SELF_RTOL})")
+    small = {}
+    for method in CLASSICAL[:3]:
+        argv = classical(method, sets["small"])
+        small[method] = (_run_test(argv)[0], _run_test([*argv, "--device", "cpu"])[0])
+        _log(f"test {method} on {EVAL_SMALL[0]}x{EVAL_SMALL[1]}: card against CPU, worst "
+             f"relative {_worst_rel(*small[method]):.2e} (line {EVAL_CPU_RTOL})")
+    results["dmsct"] = _eval_method(
+        "dmsct (random init)", ["--config", "configs/dmsct.yaml", "--data.data_dir",
+                                str(sets["1080"]), "--log_dir", str(root / "eval_log")],
+        items, {"local_correlation_with_flow": 6})
+    dc = ["--config", "configs/dcmcs3di.yaml", "--ckpt_path", str(dc_ckpt), "--data.data_dir",
+          str(sets["544"]), "--log_dir", str(root / "eval_log")]
+    native = _eval_method("dcmcs3di (phase 10's best, 544x960)", dc, 31 + 3, {})
+    bucketed = _eval_method(f"dcmcs3di bucketed to {EVAL_BUCKETS}", [
+        *dc, "--eval_buckets", str(EVAL_BUCKETS)], 31 + 3, {})
+    drift = {k: bucketed[k] - native[k] for k in native}
+    _log("test dcmcs3di: bucketed less native, " + ", ".join(
+        f"{k.removeprefix('Test ')} {v:+.3e}" for k, v in drift.items())
+        + f" (loader 0: 544x960, padded to {EVAL_BUCKETS}'s multiple 576x960; loader 1: two "
+        "544x960 triplets and one at 520x900, padded to 576x960)")
+    interior = _bucket_interior(sets["544"], dc_ckpt)
+    _log(f"test: phase {time.perf_counter() - t_phase:.1f} s")
+    if interior > EVAL_BUCKET_ATOL:
+        raise AssertionError("bucketed DCMCS3DI leaves its rows above the padded band")
+    if d_mk > EVAL_SELF_RTOL:
+        raise AssertionError("MK's harness means disagree with the per-item recomputation")
+    if any(_worst_rel(*pair) > EVAL_CPU_RTOL for pair in small.values()):
+        raise AssertionError("a linear method's test on the card disagrees with the CPU")
+
+
 def main():
     probe()
     build()
@@ -2059,6 +2639,10 @@ def main():
     del unfused
     matcher_train_shape()
     gates()
+    with tempfile.TemporaryDirectory() as tmp:
+        # Phase 10 before phase 9: the evaluation reads its checkpoint.
+        dc_ckpt = train_dcmcs3di(Path(tmp))
+        evaluate(Path(tmp), dc_ckpt)
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

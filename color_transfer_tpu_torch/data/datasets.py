@@ -1,5 +1,5 @@
 """Host-side datasets and the threaded loader — port of
-color_transfer_tpu/data/datasets.py (the training and validation part).
+color_transfer_tpu/data/datasets.py.
 
   * ArtificialTrainValDataset — ``*_L.*`` (gt) / ``*_R.*`` (reference)
     pairs; a random same-location crop; a horizontal flip swaps the views (a
@@ -7,6 +7,8 @@ color_transfer_tpu/data/datasets.py (the training and validation part).
     ``image_repeats`` virtual-epoch expansion. The crop and flips of item i
     in epoch e come from ``np.random.SeedSequence((seed, e, i))``, the JAX
     package's stream, so both packages cut the same crops.
+  * ArtificialTestDataset — full-size pairs crossed with the 31-distortion
+    grid (the distortion is applied at evaluation, data/distortions.py).
   * RealWorldTestDataset — ``*/*_L.* *_LD.* *_R.*`` triplets.
 
 Images decode with PIL (the JAX package prefers its C++ decoder, with PIL
@@ -87,6 +89,31 @@ class ArtificialTrainValDataset:
         if rng.random() > 0.5:
             gt, reference = gt[::-1], reference[::-1]
         return {"gt": np.ascontiguousarray(gt), "reference": np.ascontiguousarray(reference)}
+
+
+class ArtificialTestDataset:
+    """Full-size pairs; item i is pair i // 31 with distortion i % 31 of
+    the grid (the reference's indexing)."""
+
+    def __init__(self, image_dir, num_distortions=31):
+        image_dir = Path(image_dir)
+        self.gts = sorted(image_dir.glob("*_L.*"))
+        self.references = sorted(image_dir.glob("*_R.*"))
+        assert len(self.gts) == len(self.references), (
+            f"unpaired stereo images in {image_dir}"
+        )
+        self.num_distortions = num_distortions
+
+    def __len__(self):
+        return len(self.gts) * self.num_distortions
+
+    def __getitem__(self, index):
+        pair = index // self.num_distortions
+        return {
+            "gt": read_image(self.gts[pair]),
+            "reference": read_image(self.references[pair]),
+            "distortion_idx": index % self.num_distortions,
+        }
 
 
 class RealWorldTestDataset:

@@ -93,6 +93,12 @@ def apply_uniform_distortions(img, generator=None, perm=None, factors=None,
     return img
 
 
+def distort_batch(gt, generator):
+    """``apply_uniform_distortions`` of each image of a (B, H, W, 3) batch,
+    the draws in order from ``generator`` (a CPU one)."""
+    return torch.stack([apply_uniform_distortions(img, generator) for img in gt])
+
+
 def setup_grid_distortions(max_magnitude=0.5, num=6):
     """The 31-function deterministic test grid (reference utils/data.py:12-22):
     identity + 5 ops x 6 magnitudes in linspace(-max, max)."""

@@ -130,10 +130,15 @@ def _sim(a, b, t):
     return (2.0 * a * b + t) / (a**2 + b**2 + t)
 
 
-def fsim(x, y, data_range=1.0, chromatic=True):
+def fsim(x, y, data_range=1.0, chromatic=True, valid_hw=None):
     """FSIM / FSIMc over channel-last (B, H, W, 3) batches in [0, data_range]:
     0..255 scaling, YIQ luminance, f-fold average pooling, T1 = 0.85, T2 =
-    160, T3 = T4 = 200, lambda = 0.03."""
+    160, T3 = T4 = 200, lambda = 0.03.
+
+    ``valid_hw``: the true (h, w) of a zero-padded batch (run/bucketing.py);
+    the phase-congruency-weighted reduction then leaves out the padded
+    region, whose step edge would otherwise dominate it. The global-FFT
+    phase congruency inside the true region stays slightly perturbed."""
     x = x * (255.0 / data_range)
     y = y * (255.0 / data_range)
     if x.shape[-1] == 3:
@@ -143,6 +148,8 @@ def fsim(x, y, data_range=1.0, chromatic=True):
     f = max(1, round(min(x.shape[-2], x.shape[-1]) / 256))
     if f > 1:
         x, y = avg_pool2d(x, f), avg_pool2d(y, f)
+        if valid_hw is not None:
+            valid_hw = (valid_hw[0] // f, valid_hw[1] // f)
 
     lum_x, lum_y = x[:, 0], y[:, 0]
     pc_x, pc_y = phase_congruency(lum_x), phase_congruency(lum_y)
@@ -155,5 +162,9 @@ def fsim(x, y, data_range=1.0, chromatic=True):
         mag = torch.abs(s_iq) ** lmbda
         s_l = s_l * torch.where(s_iq >= 0, mag, mag * math.cos(math.pi * lmbda))
     pc_max = torch.maximum(pc_x, pc_y)
+    if valid_hw is not None:
+        rows = torch.arange(pc_max.shape[-2], device=pc_max.device)[:, None] < valid_hw[0]
+        cols = torch.arange(pc_max.shape[-1], device=pc_max.device)[None, :] < valid_hw[1]
+        pc_max = pc_max * (rows & cols).to(pc_max.dtype)
     score = (s_l * pc_max).sum(dim=(-2, -1)) / pc_max.sum(dim=(-2, -1))
     return score.mean()

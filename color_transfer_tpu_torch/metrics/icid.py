@@ -24,7 +24,10 @@ _INTENT_WEIGHTS = {
 
 
 def icid(img1, img2, intent="perceptual", omit_maps67=False, downsampling=True,
-         alpha=3):
+         alpha=3, valid_hw=None):
+    """``valid_hw``: the true (h, w) of a zero-padded batch
+    (run/bucketing.py); the final mean then covers the true region only (the
+    11x11 blur band at its border stays an approximation)."""
     if intent not in _INTENT_WEIGHTS:
         raise ValueError(
             "Intent should be either 'perceptual', 'hue-preserving', or 'chromatic'"
@@ -33,6 +36,8 @@ def icid(img1, img2, intent="perceptual", omit_maps67=False, downsampling=True,
     if downsampling:
         h, wd = img1.shape[-3], img1.shape[-2]
         f = max(1, round(min(h, wd) / 256))
+        if f > 1 and valid_hw is not None:
+            valid_hw = (valid_hw[0] // f, valid_hw[1] // f)
         if f > 1:  # torch interpolate with scale_factor=1/f: floor(dim / f)
             out_hw = (h // f, wd // f)
             img1 = torch.movedim(resize_bilinear(torch.movedim(img1, -1, 1), out_hw), 1, -1)
@@ -80,4 +85,9 @@ def icid(img1, img2, intent="perceptual", omit_maps67=False, downsampling=True,
     prod = maps[0]
     for m in maps[1:]:
         prod = prod * m
-    return 1.0 - prod.mean()
+    if valid_hw is None:
+        return 1.0 - prod.mean()
+    h_t, w_t = valid_hw
+    rows = torch.arange(prod.shape[-2], device=prod.device)[:, None] < h_t
+    cols = torch.arange(prod.shape[-1], device=prod.device)[None, :] < w_t
+    return 1.0 - (prod * (rows & cols).to(prod.dtype)).sum() / (prod.shape[0] * h_t * w_t)

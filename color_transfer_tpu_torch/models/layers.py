@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def init_uniform_(conv, generator):
@@ -37,13 +38,19 @@ class Conv(nn.Conv2d):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)
-        if self.compute_dtype in (None, torch.float32):
-            return F.conv2d(x.float(), self.weight, self.bias,
-                            padding=self.padding).permute(0, 2, 3, 1)
-        cd = self.compute_dtype
-        y = F.conv2d(x.to(cd), self.weight.to(cd), None, padding=self.padding)
-        return (y + self.bias.to(cd)[:, None, None]).permute(0, 2, 3, 1)
+        return conv(x, self.weight, self.bias, self.padding, self.compute_dtype)
+
+
+def conv(x, weight, bias, padding, compute_dtype=None):
+    """``Conv.forward`` on explicit weights: NHWC ``x``, an OIHW ``weight``.
+    Without a compute dtype the conv runs in the weights' dtype (float32; a
+    float64 reference run passes float64 weights)."""
+    x = x.permute(0, 3, 1, 2)
+    if compute_dtype in (None, torch.float32):
+        return F.conv2d(x.to(weight.dtype), weight, bias, padding=padding).permute(0, 2, 3, 1)
+    cd = compute_dtype
+    y = F.conv2d(x.to(cd), weight.to(cd), None, padding=padding)
+    return (y + bias.to(cd)[:, None, None]).permute(0, 2, 3, 1)
 
 
 def leaky_relu(x):
@@ -70,3 +77,17 @@ class ResB(nn.Module):
 
     def forward(self, x):
         return x + self.body(x)
+
+    def forward_remat(self, x):
+        """``forward`` under torch.utils.checkpoint: the backward recomputes
+        the block instead of keeping its inner activation. The weights go in
+        as explicit inputs, so the recompute uses this call's tensors
+        (``torch.func.functional_call`` swaps them in only for the call)."""
+        c0, c1 = self.body[0], self.body[2]
+
+        def run(x, w0, b0, w1, b1):
+            y = leaky_relu(conv(x, w0, b0, c0.padding, c0.compute_dtype))
+            return x + conv(y, w1, b1, c1.padding, c1.compute_dtype)
+
+        return checkpoint(run, x, c0.weight, c0.bias, c1.weight, c1.bias,
+                          use_reentrant=False)

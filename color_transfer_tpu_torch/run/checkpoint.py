@@ -103,7 +103,10 @@ def load_checkpoint(path, device="cpu"):
 def restore_eval_variables(module, ckpt_path, device=None):
     """A module's eval variables from a checkpoint directory on ``device``
     (None: the card; raises without one, pass "cpu" for the CPU), checked
-    against the module's own state_dict keys and shapes."""
+    against the module's own state_dict keys and shapes; None for a
+    parameterless module (the classical one)."""
+    if getattr(module, "model", None) is None:
+        return None
     payload, _ = load_checkpoint(ckpt_path, resolve_device(device))
     variables = payload["variables"]
     want = module.model.state_dict()

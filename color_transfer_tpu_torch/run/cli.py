@@ -1,8 +1,11 @@
-"""Command line of the torch port; port of color_transfer_tpu/run/cli.py's
-``fit``, ``validate`` and ``predict`` subcommands:
+"""Command line of the torch port; port of color_transfer_tpu/run/cli.py:
 
-    python -m color_transfer_tpu_torch.cli fit --config configs/dmsct.yaml \
+    python -m color_transfer_tpu_torch.cli fit --config configs/dcmcs3di.yaml \
         --data.data_dir "Artificial Dataset"
+    python -m color_transfer_tpu_torch.cli test --config configs/others.yaml \
+        --model.func_spec methods.linear.color_transfer_between_images
+    python -m color_transfer_tpu_torch.cli test --config configs/dcmcs3di.yaml \
+        --ckpt_path runs/dcmcs3di/checkpoints/best [--eval_buckets 64]
     python -m color_transfer_tpu_torch.cli validate --config configs/dmsct.yaml \
         --ckpt_path runs/dmsct/checkpoints/best
     python -m color_transfer_tpu_torch.cli predict --method dmsct \
@@ -12,13 +15,15 @@
         --target T.png --reference R.png --output OUT.png
 
 Everything runs on the card unless ``--device cpu`` is given; without a
-card the subcommands raise. ``fit`` and ``validate`` take a config and
-dotted overrides (``--trainer.max_epochs 2``, ``--model.learning_rate
-1e-4``; see run/config.py). ``predict`` resolves its method as the JAX
-package does: ``--method``, else the ``class_path`` of the config's model
-section (``--config configs/dmsct.yaml`` serves DMSCT with the config's
-``init_args``), else the classical ``--model.func_spec``, else
-monge_kantorovitch. ``--model.<name> <value>`` passes a keyword to a deep
+card the subcommands raise. ``fit``, ``test`` and ``validate`` take a
+config and dotted overrides (``--trainer.max_epochs 2``,
+``--model.learning_rate 1e-4``; see run/config.py); ``test`` and
+``validate`` print their results as JSON, from the checkpoint's variables
+or, without ``--ckpt_path``, the seed's random init. ``predict`` resolves
+its method as the JAX package does: ``--method``, else the ``class_path``
+of the config's model section (``--config configs/dmsct.yaml`` serves
+DMSCT with the config's ``init_args``), else the classical
+``--model.func_spec``, else monge_kantorovitch. ``--model.<name> <value>`` passes a keyword to a deep
 method's module (``--model.matcher_num_layers 2``); an unknown name raises.
 A config's ``init_args`` reach the module only when the method is the
 config's own class. predict's values are parsed as Python literals
@@ -31,6 +36,7 @@ import argparse
 import ast
 import json
 import sys
+import warnings
 
 _LITERALS = {"true": True, "false": False, "null": None, "none": None}
 
@@ -76,11 +82,14 @@ def _parse(argv):
     command-line values parsed; for fit and validate, every ``--a.b value``
     as given (the config coerces it)."""
     parser = argparse.ArgumentParser(prog="color_transfer_tpu_torch.cli")
-    parser.add_argument("subcommand", choices=["fit", "validate", "predict"])
+    parser.add_argument("subcommand", choices=["fit", "test", "validate", "predict"])
     parser.add_argument("--config", default=None)
     parser.add_argument("--ckpt_path", default=None)
     parser.add_argument("--log_dir", default=None)
     parser.add_argument("--max_batches", type=int, default=None)
+    parser.add_argument("--eval_buckets", type=int, default=None,
+                        help="test: pad each item to a multiple of this and score "
+                             "its true region (run/bucketing.py)")
     parser.add_argument("--method", default=None,
                         help="predict: registry name of a classical method, or "
                              "dmsct / dcmcs3di (default: the config's model "
@@ -144,16 +153,27 @@ def main(argv=None):
         trainer.fit(module, datamodule, resume=args.ckpt_path)
         return 0
 
-    # validate: the checkpoint's variables, or the seed's random init.
     from color_transfer_tpu_torch.run.checkpoint import restore_eval_variables
 
-    sample = trainer.device_batch(datamodule.val_loaders()[0].first_batch())
-    state = module.init_state(trainer.seed, sample)
+    variables = None
     if args.ckpt_path is not None:
-        restored = restore_eval_variables(module, args.ckpt_path, trainer.device)
-        state.variables = {k: v.to(state.variables[k].dtype) for k, v in restored.items()}
-    results = trainer.validate(module, datamodule, state, step=0,
-                               max_batches=args.max_batches)
+        variables = restore_eval_variables(module, args.ckpt_path, trainer.device)
+        if variables is None:
+            warnings.warn(f"--ckpt_path ignored: module '{module.name}' is parameterless",
+                          stacklevel=1)
+
+    if args.subcommand == "validate":
+        sample = trainer.device_batch(datamodule.val_loaders()[0].first_batch())
+        state = module.init_state(trainer.seed, sample)
+        if variables is not None:
+            state.variables = {k: v.to(state.variables[k].dtype)
+                               for k, v in variables.items()}
+        results = trainer.validate(module, datamodule, state, step=0,
+                                   max_batches=args.max_batches)
+    else:
+        results = trainer.test(module, datamodule, variables=variables,
+                               max_batches=args.max_batches,
+                               eval_buckets=args.eval_buckets)
     print(json.dumps(results, indent=2))
     return 0
 

@@ -14,6 +14,7 @@ only with a ``class_path``, so there ``--data.data_dir`` lands beside
 """
 
 import copy
+import inspect
 
 import yaml
 
@@ -25,9 +26,22 @@ _TRAINER_KEYS = {"max_epochs", "log_every", "seed", "monitor", "use_wandb",
 
 
 def _module_registry():
-    from color_transfer_tpu_torch.run.modules import DMSCTModule
+    """Module classes by class_path; the reference's class paths resolve to
+    the equivalent modules."""
+    from color_transfer_tpu_torch.run.modules import (
+        ClassicalModule,
+        DCMCS3DIModule,
+        DMSCTModule,
+    )
 
-    return {"dmsct": DMSCTModule, "methods.dmsct.DMSCT": DMSCTModule}
+    return {
+        "dcmcs3di": DCMCS3DIModule,
+        "dmsct": DMSCTModule,
+        "classical": ClassicalModule,
+        "methods.dcmcs3di.DCMCS3DI": DCMCS3DIModule,
+        "methods.dmsct.DMSCT": DMSCTModule,
+        "methods.Runner": ClassicalModule,
+    }
 
 
 def load_config(path=None, overrides=None):
@@ -70,15 +84,19 @@ def _apply_override(cfg, dotted, value):
     node[keys[-1]] = _coerce(value)
 
 
-def build_module(class_path, init_args=None):
+def build_module(class_path, init_args=None, seed=None):
+    """The module of ``class_path`` built with ``init_args``. The config's
+    seed reaches a module that draws randomness at evaluation (the classical
+    module's rotations) unless init_args pin one."""
     registry = _module_registry()
     if class_path not in registry:
-        raise NotImplementedError(
-            f"module {class_path!r}: the port trains and validates "
-            f"{sorted(registry)} so far (DCMCS3DI training and the classical "
-            "runner are not ported yet)"
-        )
-    return registry[class_path](**dict(init_args or {}))
+        raise KeyError(f"unknown module {class_path!r}; known: {sorted(registry)}")
+    cls = registry[class_path]
+    kwargs = dict(init_args or {})
+    if (seed is not None and "seed" not in kwargs
+            and "seed" in inspect.signature(cls.__init__).parameters):
+        kwargs["seed"] = seed
+    return cls(**kwargs)
 
 
 def build_from_config(cfg, log_dir=None, device=None):
@@ -87,7 +105,8 @@ def build_from_config(cfg, log_dir=None, device=None):
     cfg = copy.deepcopy(cfg)
     model_cfg = cfg.get("model", {})
     module = build_module(model_cfg.get("class_path", "classical"),
-                          model_cfg.get("init_args", {}))
+                          model_cfg.get("init_args", {}),
+                          seed=cfg.get("seed_everything", 42))
 
     data_cfg = cfg.get("data", {})
     data_args = dict(data_cfg.get("init_args", data_cfg if "class_path" not in data_cfg else {}))

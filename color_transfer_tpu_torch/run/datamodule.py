@@ -1,13 +1,13 @@
-"""DataModule — port of color_transfer_tpu/run/datamodule.py (training and
-validation loaders).
+"""DataModule — port of color_transfer_tpu/run/datamodule.py.
 
 Layout under ``data_dir`` (the reference's):
     Train/              NNNN_L.png NNNN_R.png          (train crops)
     Validation/         NNNN_L.png NNNN_R.png          (val crops)
+    Test/               NNNN_L.png NNNN_R.png          (31-distortion grid)
     Real-World Test/    scene*/NNNN_{L,LD,R}.png       (real distortions)
 
-Validation produces up to two loaders (artificial, real-world) like the
-reference. Batches leave the loaders as uint8; ``to_float`` normalises them
+Validation and test each produce up to two loaders (artificial,
+real-world) like the reference. Batches leave the loaders as uint8; ``to_float`` normalises them
 to channel-last float32 in [0, 1].
 """
 
@@ -55,6 +55,20 @@ class DataModule:
             )
             loaders.append(datasets.Loader(ds, batch_size=self.batch_size,
                                            num_threads=self.num_workers, seed=self.seed))
+        rw_dir = self.data_dir / "Real-World Test"
+        if rw_dir.exists():
+            loaders.append(datasets.Loader(datasets.RealWorldTestDataset(rw_dir),
+                                           batch_size=1, num_threads=self.num_workers))
+        return loaders
+
+    def test_loaders(self):
+        """The full-size artificial set (``Test/``, each pair x the 31
+        distortions) and the real-world set, each at batch 1."""
+        loaders = []
+        art_dir = self.data_dir / "Test"
+        if art_dir.exists():
+            loaders.append(datasets.Loader(datasets.ArtificialTestDataset(art_dir),
+                                           batch_size=1, num_threads=self.num_workers))
         rw_dir = self.data_dir / "Real-World Test"
         if rw_dir.exists():
             loaders.append(datasets.Loader(datasets.RealWorldTestDataset(rw_dir),

@@ -1,8 +1,10 @@
-"""DMSCT and DCMCS3DI modules — port of color_transfer_tpu/run/modules.py:
-``DMSCTModule`` whole (the model, its variables, the inference forward,
-and training: AdamW with a per-step cosine schedule, the frozen matcher,
-MSE + 0.1 SSIM, the reference's quality metrics) and the eval half of
-``DCMCS3DIModule``.
+"""Method modules — port of color_transfer_tpu/run/modules.py:
+``DMSCTModule`` (the model, its variables, the inference forward, and
+training: AdamW with a per-step cosine schedule, the frozen matcher, MSE +
+0.1 SSIM), ``DCMCS3DIModule`` (Adam, L1 + MSE + SSIM + the PAM losses, on
+the chunked or the materialised training matcher) and ``ClassicalModule``
+(a registry method under the same evaluation harness). Each logs the
+reference's quality metrics under the JAX package's names.
 
 Variables are a state_dict (name -> tensor), the counterpart of the JAX
 ``{"params", "batch_stats"}`` tree: ``init_eval_variables`` makes seeded
@@ -23,17 +25,21 @@ from ``jax.random`` keys, which torch cannot reproduce.
 """
 
 import dataclasses
+import inspect
 import math
 
 import torch
 
+from color_transfer_tpu_torch import methods
 from color_transfer_tpu_torch import metrics as M
 from color_transfer_tpu_torch.core.precision import full_f32, full_f32_inference
-from color_transfer_tpu_torch.data.distortions import apply_uniform_distortions
+from color_transfer_tpu_torch.data.distortions import distort_batch
+from color_transfer_tpu_torch.methods.iterative import random_rotations
 from color_transfer_tpu_torch.methods.video import resolve_device
-from color_transfer_tpu_torch.models.dcmcs3di import DCMCS3DI
+from color_transfer_tpu_torch.models import dcmcs3di as dc
 from color_transfer_tpu_torch.models.dmsct import DMSCT, compute_losses
 from color_transfer_tpu_torch.models.layers import init_uniform_
+from color_transfer_tpu_torch.run.trainer import derive_seed
 
 
 def quality_metrics(out, gt, prefix="", heavy=True):
@@ -169,9 +175,7 @@ class DMSCTModule:
     def synthesize_targets(self, batch, generator):
         """Per-sample random distortion of the gt view; the permutations and
         factors come from ``generator`` (a CPU one)."""
-        target = torch.stack([apply_uniform_distortions(img, generator)
-                              for img in batch["gt"]])
-        return {**batch, "target": target}
+        return {**batch, "target": distort_batch(batch["gt"], generator)}
 
     def forward_loss(self, state, batch, generator=None):
         """The train-mode forward and the losses -> (result, total, parts)."""
@@ -258,6 +262,9 @@ class DMSCTModule:
                 strict=True,
             )
 
+    def eval_metrics(self, out, gt):
+        return quality_metrics(out, gt, "", True)
+
 
 def _dtype(name):
     """None, a torch dtype or its name ("bfloat16", "float32") -> dtype."""
@@ -270,18 +277,124 @@ def _dtype(name):
 
 
 class DCMCS3DIModule:
-    """Croci et al. corrector, inference only. ``compute_dtype`` None is
-    the float32 recipe; "bfloat16" runs the extraction and transfer convs
-    in bf16 with the matcher in float32."""
+    """Croci et al. corrector: Adam(1e-4) on L1 + MSE + SSIM + 0.005 x the
+    PAM losses (reference methods/dcmcs3di.py:68-92, :146-147).
+
+    ``compute_dtype`` None is the float32 recipe; "bfloat16" runs the
+    extraction and transfer convs in bf16 with the matcher in float32, for
+    evaluation and serving only. ``fused_attention`` trains through the
+    chunked matcher (``attention_chunk`` rows a step; the default, as in the
+    JAX package), else through the materialised one: the same loss values
+    and gradients. ``remat_convs`` recomputes the ResB stacks in the
+    backward."""
+
+    name = "dcmcs3di"
+    # Bucketed evaluation may pass the true width (run/bucketing.py).
+    supports_valid_w = True
 
     def __init__(self, extraction_layers=18, transfer_layers=6, channels=64,
-                 compute_dtype=None):
-        self.model = DCMCS3DI(
+                 learning_rate=1e-4, heavy_metrics=True, fused_attention=True,
+                 attention_chunk=8, compute_dtype=None, remat_convs=False):
+        self.model = dc.DCMCS3DI(
             extraction_layers=extraction_layers,
             transfer_layers=transfer_layers,
             channels=channels,
             compute_dtype=_dtype(compute_dtype),
+            remat_convs=remat_convs,
         ).eval()
+        self.learning_rate = learning_rate
+        self.heavy_metrics = heavy_metrics
+        self.fused_attention = fused_attention
+        self.attention_chunk = attention_chunk
+        self.hparams = {
+            "extraction_layers": extraction_layers,
+            "transfer_layers": transfer_layers,
+            "channels": channels,
+            "learning_rate": learning_rate,
+            "fused_attention": fused_attention,
+            "compute_dtype": compute_dtype,
+            "remat_convs": remat_convs,
+        }
+
+    # -- training --
+
+    def init_state(self, seed, sample_batch, num_train_steps=None):
+        """``init_eval_variables(seed)`` on the sample batch's device, every
+        one a trainable leaf, and Adam over them (optax.adam's defaults)."""
+        variables = self.init_eval_variables(seed, device=sample_batch["gt"].device)
+        for value in variables.values():
+            value.requires_grad_(True)
+        optimizer = torch.optim.Adam(list(variables.values()), lr=self.learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        return TrainState(variables, optimizer, 0, num_train_steps or 10_000)
+
+    synthesize_targets = DMSCTModule.synthesize_targets
+
+    def forward_loss(self, state, batch):
+        """The training forward on the configured matcher and the losses ->
+        (corrected, total, parts)."""
+        args = (batch["target"], batch["reference"])
+        if self.fused_attention:
+            corrected, pam = torch.func.functional_call(
+                self.model, state.variables, args, {"chunk": self.attention_chunk},
+                strict=True)
+            total, parts = dc.compute_losses_fused(corrected, pam, batch)
+            return corrected, total, parts
+        out = torch.func.functional_call(self.model, state.variables, args, strict=True)
+        total, parts = dc.compute_losses(out, batch)
+        return out[0], total, parts
+
+    def apply_gradients(self, state):
+        """One Adam update, then the count moves on."""
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+
+    def train_step(self, state, batch, seed, metrics=True):
+        """One Adam update on ``batch`` ({'gt', 'reference'} (B, H, W, 3) on
+        the state's device): distort the gt into the target (a CPU generator
+        seeded with ``seed``), forward (convs through ATen), losses,
+        backward, step; TF32 off. Returns (state, logs) under the JAX
+        package's names; the quality metrics only when ``metrics``."""
+        if self.model.compute_dtype is not None:
+            raise NotImplementedError(
+                f"DCMCS3DI training in {self.model.compute_dtype}: only float32 "
+                "trains; a bf16 training recipe needs its own gate on the card "
+                "first (ROADMAP.md, section A)"
+            )
+        with full_f32():
+            batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
+            # The forward's convs run through ATen, not cuDNN: with cuDNN's
+            # f32 forward algorithms the step's gradients lie up to 1.5e-4 of
+            # their scale from a float64 run, with ATen's 1.4e-6; ATen costs
+            # 3-10% of a recipe step (chip_smoke.py phase 10, PERF.md).
+            cudnn = torch.backends.cudnn
+            with cudnn.flags(enabled=False, benchmark=cudnn.benchmark,
+                             deterministic=cudnn.deterministic, allow_tf32=False):
+                corrected, total, parts = self.forward_loss(state, batch)
+            total.backward()
+            self.apply_gradients(state)
+            logs = {f"Training {k}": v.detach() for k, v in parts.items()}
+            if metrics:
+                with torch.no_grad():
+                    logs.update(quality_metrics(corrected.detach(), batch["gt"], "Training ",
+                                                self.heavy_metrics))
+            logs["Training Total Loss"] = total.detach()
+        return state, logs
+
+    def val_step(self, state, batch):
+        """The losses and quality metrics of the materialised forward on a
+        batch that carries its target (reference methods/dcmcs3di.py:97-98)."""
+        with full_f32_inference():
+            out = torch.func.functional_call(
+                self.model, state.variables, (batch["target"], batch["reference"]),
+                strict=True)
+            _, parts = dc.compute_losses(out, batch)
+            logs = dict(parts)
+            logs.update(quality_metrics(out[0], batch["gt"], "", self.heavy_metrics))
+        return logs
+
+    # -- inference --
 
     def init_eval_variables(self, seed=0, device=None):
         """Seeded random variables on ``device`` (None: the card, as in
@@ -298,17 +411,90 @@ class DCMCS3DIModule:
         return {k: v.detach().clone().to(device)
                 for k, v in self.model.state_dict().items()}
 
-    def eval_forward(self, variables, batch):
+    def eval_forward(self, variables, batch, valid_w=None):
         """batch: {'target', 'reference'} (B, H, W, 3) in [0, 1] on the
         variables' device -> corrected (B, H, W, 3).
 
         The JAX module's call: ``inference=True`` on the materialised
-        matcher, no kernel route. cuDNN's TF32 is off for the call
+        matcher, no kernel route; ``valid_w`` masks the columns of a padded
+        batch (run/bucketing.py). cuDNN's TF32 is off for the call
         (``full_f32_inference``), so the float32 recipe and the float32
         matcher of the bf16 recipe compute in full float32."""
         with full_f32_inference():
             out, _ = torch.func.functional_call(
                 self.model, variables, (batch["target"], batch["reference"]),
-                {"inference": True}, strict=True,
+                {"inference": True, "valid_w": valid_w}, strict=True,
             )
             return out
+
+    def eval_metrics(self, out, gt):
+        return quality_metrics(out, gt, "", True)
+
+
+class ClassicalModule:
+    """A classical registry method under the evaluation harness (reference
+    methods/__init__.py:10-40): no parameters, metric-only validation.
+
+    ``func_spec`` is a registry name or a reference dotted path
+    (``methods.linear.color_transfer_between_images``). A method that takes
+    rotations (IDT, grading) gets fresh ones for every image, as the
+    reference draws them from its global RNG: call ``c`` of the module
+    draws image j's from a torch.Generator seeded with ``derive_seed(seed,
+    c, j)`` (the JAX module splits ``fold_in(PRNGKey(seed), c)`` per image;
+    that stream cannot be reproduced)."""
+
+    name = "classical"
+
+    def __init__(self, func_spec="monge_kantorovitch", seed=42):
+        self.func_spec = func_spec
+        self.seed = seed
+        self.fn = methods.get_method(func_spec)
+        self.batched = getattr(self.fn, "batched", None)
+        params = inspect.signature(self.batched or self.fn).parameters
+        self.n_iter = params["n_iter"].default if "rotations" in params else None
+        self._call_count = 0
+        self.hparams = {"func_spec": func_spec}
+
+    def init_state(self, seed, sample_batch, num_train_steps=None):
+        """Parameterless: the harness's state is None."""
+        del seed, sample_batch, num_train_steps
+        return None
+
+    def draw_rotations(self, batch_size):
+        """(batch_size, n_iter, 3, 3) rotations for the next call; None for a
+        method that takes none. Advances the call count."""
+        if self.n_iter is None:
+            return None
+        call = self._call_count
+        self._call_count += 1
+        return torch.stack([
+            random_rotations(torch.Generator().manual_seed(derive_seed(self.seed, call, j)),
+                             self.n_iter)
+            for j in range(batch_size)])
+
+    def val_step(self, state, batch):
+        """Metric-only validation (the reference Runner has no losses)."""
+        del state
+        return self.eval_metrics(self.eval_forward(None, batch), batch["gt"])
+
+    def eval_forward(self, variables, batch, rotations=None):
+        """batch: {'target', 'reference'} (B, H, W, 3) -> the method's
+        output clipped to [0, 1]. A method that takes rotations runs image
+        by image on ``rotations`` (B, n_iter, 3, 3), by default the next
+        call's ``draw_rotations``; the others run on the whole batch."""
+        del variables
+        t, r = batch["target"], batch["reference"]
+        if rotations is None:
+            rotations = self.draw_rotations(t.shape[0])
+        with full_f32_inference():
+            if rotations is not None:
+                out = torch.stack([self.fn(t[j], r[j], rotations=rotations[j])
+                                   for j in range(t.shape[0])])
+            elif self.batched is not None:
+                out = self.batched(t, r)
+            else:
+                out = torch.stack([self.fn(t[j], r[j]) for j in range(t.shape[0])])
+        return out.clamp(0.0, 1.0)
+
+    def eval_metrics(self, out, gt):
+        return quality_metrics(out, gt, "", True)

@@ -1,5 +1,5 @@
-"""Training and validation loops — port of color_transfer_tpu/run/trainer.py
-(``fit`` and ``validate``) on one device.
+"""Training and evaluation loops — port of color_transfer_tpu/run/trainer.py
+(``fit``, ``validate`` and ``test``) on one device.
 
 ``fit`` builds the module's train state, resumes from a checkpoint at the
 epoch after the saved one, runs ``module.train_step`` over the train loader
@@ -7,15 +7,21 @@ epoch after the saved one, runs ``module.train_step`` over the train loader
 validates every ``val_every`` epochs and saves ``last`` and, gated on the
 monitored metric, ``best``. Each step's randomness is an integer drawn from
 ``(seed, step)`` (the JAX package folds the step into its key); validation
-targets from ``(seed + 1, batch index)``.
+targets from ``(seed + 1, batch index)``. ``test`` is the paper's
+evaluation: every item of the test loaders through the module's
+``eval_forward`` and the four quality metrics, the artificial set's items
+distorted by their grid distortion.
 """
 
+import contextlib
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from color_transfer_tpu_torch.data.distortions import distort_batch, setup_grid_distortions
 from color_transfer_tpu_torch.methods.video import resolve_device
 from color_transfer_tpu_torch.run.checkpoint import (
     CheckpointManager,
@@ -32,6 +38,38 @@ def derive_seed(*entropy):
     return int(np.random.SeedSequence(entropy).generate_state(1)[0] >> 1)
 
 
+class Spans:
+    """Device time of named spans, from CUDA events around the work each
+    span enqueues (host time while the stream idles counts too); records
+    nothing on the CPU."""
+
+    def __init__(self, device):
+        self.enabled = torch.device(device).type == "cuda"
+        self._events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        if not self.enabled:
+            yield
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self._events.append((name, start, end))
+
+    def ms(self):
+        """{name: [ms of each span, in order]}; synchronises."""
+        if self._events:
+            torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self._events:
+            out.setdefault(name, []).append(start.elapsed_time(end))
+        return out
+
+
 class Trainer:
     def __init__(self, max_epochs=100, log_dir="runs/default", log_every=50, seed=42,
                  monitor="Validation PSNR/dataloader_idx_0", use_wandb=False,
@@ -44,6 +82,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.logger = MetricLogger(self.log_dir, use_wandb=use_wandb)
         self.ckpt = CheckpointManager(self.log_dir / "checkpoints", monitor=monitor)
+        self.test_spans = {}  # the last test's spans per item (Spans.ms)
 
     def device_batch(self, batch):
         """A loader batch as float32 tensors in [0, 1] on the device."""
@@ -108,7 +147,7 @@ class Trainer:
                 if "target" not in batch:
                     # The artificial set: distort the gt as training does.
                     gen = torch.Generator().manual_seed(derive_seed(self.seed + 1, b_i))
-                    batch = module.synthesize_targets(batch, gen)
+                    batch = {**batch, "target": distort_batch(batch["gt"], gen)}
                 logs = module.val_step(state, batch)
                 acc.update({k: float(v) for k, v in logs.items()})
             all_metrics.update({f"Validation {k}/dataloader_idx_{idx}": v
@@ -116,3 +155,65 @@ class Trainer:
         if all_metrics:
             self.logger.log(all_metrics, step=step)
         return all_metrics
+
+    def test(self, module, datamodule, variables=None, max_batches=None,
+             eval_buckets=None):
+        """The evaluation sweep (the reference's ``test``,
+        methods/__init__.py:29-40): mean PSNR, SSIM, iCID and FSIM of each
+        test loader, logged at step 0 as "Test {metric}/dataloader_idx_{i}".
+        A deep module without ``variables`` runs from the seed's random
+        init, as the reference does without a checkpoint.
+
+        ``eval_buckets``: pad each item to a multiple of it and score the
+        true region (run/bucketing.py); only a module that can mask the
+        padded width (``supports_valid_w``) runs so, the others warn and run
+        at native shapes. Each item's ``data``, ``forward`` and ``metrics``
+        spans are kept in ``self.test_spans`` (on the card)."""
+        grid = setup_grid_distortions()
+        if variables is None and hasattr(module, "init_eval_variables"):
+            variables = module.init_eval_variables(self.seed, device=self.device)
+        bucketed = None
+        if eval_buckets:
+            if not getattr(module, "supports_valid_w", False):
+                # The classical methods' statistics span the whole image:
+                # zero padding would pull them towards black.
+                warnings.warn(
+                    f"--eval_buckets ignored: module '{module.name}' cannot "
+                    "mask padded pixels; evaluating at native shapes",
+                    stacklevel=2,
+                )
+            else:
+                from color_transfer_tpu_torch.run.bucketing import BucketedEvaluator
+
+                bucketed = BucketedEvaluator(module, multiple=eval_buckets)
+        spans = Spans(self.device)
+        results = {}
+        for idx, loader in enumerate(datamodule.test_loaders()):
+            acc = MeanAccumulator()
+            for b_i, batch in enumerate(loader):
+                if max_batches is not None and b_i >= max_batches:
+                    break
+                with spans("data"):
+                    dist_idx = batch.pop("distortion_idx", None)
+                    batch = self.device_batch(batch)
+                    if "target" not in batch:
+                        # The artificial set: each item's grid distortion.
+                        idxs = np.atleast_1d(np.asarray(dist_idx)).tolist()
+                        batch["target"] = torch.stack(
+                            [grid[int(d)](batch["gt"][j]) for j, d in enumerate(idxs)])
+                with spans("forward"):
+                    if bucketed is None:
+                        out = module.eval_forward(variables, batch)
+                    else:
+                        out, padded = bucketed.forward(variables, batch)
+                with spans("metrics"), torch.no_grad():
+                    if bucketed is None:
+                        logs = module.eval_metrics(out, batch["gt"])
+                    else:
+                        logs = bucketed.metrics(out, padded["gt"], batch["gt"].shape[1:3])
+                    acc.update({k: float(v) for k, v in logs.items()})
+            results.update({f"Test {k}/dataloader_idx_{idx}": v
+                            for k, v in acc.means().items()})
+        self.test_spans = spans.ms()
+        self.logger.log(results, step=0)
+        return results

@@ -166,8 +166,13 @@ def test_pab_output_warp(params, state_dict, rng):
         _close(port.matcher.value_features(torch.from_numpy(xr)), value)
         _close(tpasm.warp(torch.from_numpy(np.array(value)), att[0]),
                jpasm.warp(value, jatt[0]))
-    with pytest.raises(NotImplementedError):
-        tpasm.output(costs, inference=False)
+        # The training branch: the cycle maps and both masks.
+        att, cycle, masks = tpasm.output(costs, inference=False)
+        jatt, jcycle, jmasks = jpasm.output(jcosts, inference=False)
+        for got, want in zip(att + cycle, jatt + jcycle):
+            _close(got, want)
+        for got, want in zip(masks, jmasks):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 ROUTES = {  # name: (port kwargs, JAX kwargs)
@@ -235,7 +240,19 @@ def test_fused_extraction_rule(state_dict, pair, monkeypatch, dtype, use_kernels
     assert all(d == (td or torch.float32) for d in seen)
 
 
-def test_training_forward_not_ported(state_dict, pair):
-    t, r = (torch.from_numpy(a) for a in pair)
-    with pytest.raises(NotImplementedError):
-        _port(state_dict)(t, r)
+def test_training_forward_matches_jax(params, state_dict, pair):
+    """``inference=False``: the corrected image and the whole aux (both
+    attention maps, both cycle maps, both masks, the warped right view)
+    against JAX's training call."""
+    t, r = pair
+    want, jaux = jdc.DCMCS3DI(EXT, TRA, C).apply({"params": params}, jnp.asarray(t),
+                                                 jnp.asarray(r))
+    with torch.no_grad():
+        got, aux = _port(state_dict)(torch.from_numpy(t), torch.from_numpy(r))
+    _close(got, want)
+    for pair_got, pair_want in zip(aux[:2], jaux[:2]):
+        for g, w in zip(pair_got, pair_want):
+            _close(g, w)
+    for g, w in zip(aux[2], jaux[2]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _close(aux[3], jaux[3])

@@ -247,7 +247,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for name in ("run.cli", "run.trainer", "run.checkpoint", "run.config",
                  "run.datamodule", "run.logging", "ops.warp_adjoint", "metrics.fsim",
-                 "metrics.icid", "data.datasets", "data.distortions"):
+                 "metrics.icid", "data.datasets", "data.distortions", "run.bucketing",
+                 "run.modules", "ops.parallax_train", "models.pasm", "models.dcmcs3di"):
         assert f"color_transfer_tpu_torch.{name}" in modules, name
 
 

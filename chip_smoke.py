@@ -124,6 +124,25 @@ fallback):
                 against a per-item recomputation; Reinhard, CCS and MK on a
                 64x96 set on the card against the CPU; the bucketed
                 DCMCS3DI metrics against the native ones.
+ 11. assets   — runs after phase 9, on its sets: the image decoder that
+                runs (native or PIL, with the build's error), the native
+                decoder bit-equal to PIL on the 1080p PNGs, whole and
+                cropped, a 1080p decode and a 160x320 crop timed both ways,
+                MK's `test` item with each decoder; reference-layout
+                checkpoints fabricated from seeded weights (full-width DMSCT
+                and DCMCS3DI Lightning .ckpt files, unimatch's .pth layout
+                with its upsampler) read strictly and bit-equal to their
+                source, the restored DMSCT's 1080p output bit-equal to the
+                source weights'; the parity sweep (tools/parity_sweep.py)
+                of the four classical methods and DMSCT on the 1080p set and
+                DCMCS3DI bucketed on the 544x960 set, its table, exact B1,
+                B3 and B4 launches; DMSCT and DCMCS3DI image panels through
+                the Trainer's panel logger; a torch.profiler trace
+                (utils/profiling.py) of two DMSCT 1080p serve steps that
+                names B1's kernel.
+Phases 7 and 10 also hold every distinct f32 conv of their recipe's train
+step, at the recipe's shape, to float64 (tools/conv_grads.py) and time the
+step with the backward through cuDNN and through ATen.
 The line before the last is a JSON object with per-kernel results (each
 kernel's time, its plain version's, a library call's where one computes
 the same function, and its bound on the card: the larger of its bytes over
@@ -1762,6 +1781,53 @@ def check_train_small():
          f"{abs(loss_card - loss_cpu) / abs(loss_cpu):.2e}); worst gradient card "
          f"against CPU {e2e:.2e} of scale (reported)")
 
+
+def check_conv_grads(recipe):
+    """The float64 rule at the recipe's shape (ROADMAP C5): one train step
+    of ``recipe`` at its config's batch and crop, full width, and every
+    distinct f32 conv of it (tools/conv_grads.py: the step's own input,
+    weight and output gradient, its layout) has its input, weight and bias
+    gradients recomputed on the card through cuDNN and through ATen and
+    held to float64 on the CPU: the module's own route (``backward_cudnn``)
+    within TRAIN_F64_RATIO times the CPU float32 error plus 1e-5 of scale,
+    the other route reported. Then the step's cost through each route."""
+    from color_transfer_tpu_torch.tools import conv_grads as cg
+
+    t0 = time.perf_counter()
+    module, state, batch = cg.recipe_step(recipe)
+    cases = cg.capture(module, state, batch)
+    routes = {"cudnn": True, "aten": False}
+    own = "cudnn" if module.backward_cudnn else "aten"
+    rows = cg.check(cases, routes)
+    for row in rows:
+        _log(f"{recipe} conv grads: {row['case'].describe()} {row['grad']}: CPU f32 "
+             f"{row['cpu']:.2e}, cuDNN {row['cudnn']:.2e} (excess {row['excess cudnn']:.3f}), "
+             f"ATen {row['aten']:.2e} (excess {row['excess aten']:.3f})")
+    worst = {r: max(rows, key=lambda row: row["excess " + r]) for r in routes}
+    _log(f"{recipe} conv grads: {len(cases)} distinct convs at batch {batch['gt'].shape[0]} x "
+         f"{batch['gt'].shape[1]}x{batch['gt'].shape[2]}, {len(rows)} gradients "
+         f"({time.perf_counter() - t0:.1f} s); the step's route {own}; worst excess "
+         + ", ".join(f"{r} {w['excess ' + r]:.3f} ({w['case'].name} {w['grad']})"
+                     for r, w in worst.items()) + f" (line 1, ratio {cg.RATIO})")
+    del cases, rows
+    torch.cuda.empty_cache()
+    times = {True: [], False: []}
+    for on in (True, False, False, True):
+        module.backward_cudnn = on
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            module.train_step(state, batch, 1, metrics=False)
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t1) * 1e3)
+    _log(f"{recipe} conv grads: one recipe step (no quality metrics), backward through "
+         f"cuDNN {', '.join(f'{t:.1f}' for t in times[True])} ms, through ATen "
+         f"{', '.join(f'{t:.1f}' for t in times[False])} ms (order cuDNN, ATen, ATen, cuDNN)")
+    if worst[own]["excess " + own] > 1.0:
+        raise AssertionError(f"{recipe}: a training conv's gradient on the card is further "
+                             "from float64 than the rule allows")
+
+
 def check_win_kernels(g):
     """B2a (no mask, the shift mask from geometry, a mask operand), B2b
     (self-attention with the shift and the residual, cross-attention
@@ -2111,6 +2177,10 @@ EVAL_SELF_RTOL = 1e-6
 # Bucketed against native DCMCS3DI output on a 544x960 item, above the rows
 # the padded ones reach: JAX's line (tests/test_bucketing.py).
 EVAL_BUCKET_ATOL = 1e-4
+# Phase 11 (assets): the parity sweep's items a loader, the crop a training
+# decode cuts (configs/dcmcs3di.yaml), the panels' training-shape crops.
+SWEEP_BATCHES, DECODE_CROP = 4, (160, 320)
+PANEL_CROPS = {"dmsct": (2, 256, 480), "dcmcs3di": (2, 160, 320)}
 
 
 def _fit_dcmcs3di(root, data, fused):
@@ -2367,6 +2437,7 @@ def train_dcmcs3di(root):
     _dc_matchers_agree(batch)
     torch.cuda.empty_cache()
     check_dc_train_small()
+    check_conv_grads("dcmcs3di")
     best = log_dir / "checkpoints" / "best"
     pair = root / "dc_pair"
     pair.mkdir()
@@ -2617,6 +2688,246 @@ def evaluate(root, dc_ckpt):
         raise AssertionError("a linear method's test on the card disagrees with the CPU")
 
 
+def _decoder(root):
+    """Phase 11, the decoder: which one runs (and the build's error when it
+    is PIL), the native decoder bit-equal to PIL on the 1080p set's PNGs
+    (whole and cropped), a 1080p decode and a training crop timed with each
+    decoder that runs, and MK's `test` item by the host clock with each."""
+    from PIL import Image
+
+    from color_transfer_tpu_torch.data import native_loader as nl
+
+    native = nl.available()
+    _log("assets: decoder " + ("native" if native else
+                               f"pil (native build failed: {nl.build_error()})"))
+    path = root / "eval_1080" / "Test" / "0000_L.png"
+    ch, cw = DECODE_CROP
+
+    def pil():
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"))
+
+    def host_ms(fn, n=10):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    times = {"PIL 1080p": host_ms(pil), f"PIL {ch}x{cw} crop": host_ms(lambda: pil()[:ch, :cw])}
+    if native:
+        pngs = sorted((root / "eval_1080").rglob("*.png"))
+        rng = np.random.default_rng(11)
+        for png in pngs:
+            with Image.open(png) as img:
+                want = np.asarray(img.convert("RGB"))
+            top, left = int(rng.integers(0, want.shape[0] - ch + 1)), int(
+                rng.integers(0, want.shape[1] - cw + 1))
+            if not (np.array_equal(nl.read_image(png), want) and np.array_equal(
+                    nl.read_image_crop(png, top, left, ch, cw),
+                    want[top:top + ch, left:left + cw])):
+                raise AssertionError(f"the native decoder disagrees with PIL on {png.name}")
+        _log(f"assets: {len(pngs)} PNGs decoded natively bit-equal to PIL, whole and cropped")
+        times.update({
+            "native 1080p": host_ms(lambda: nl.read_image(path)),
+            f"native {ch}x{cw} crop at the top": host_ms(
+                lambda: nl.read_image_crop(path, 0, 0, ch, cw)),
+            f"native {ch}x{cw} crop at the bottom": host_ms(
+                lambda: nl.read_image_crop(path, 1080 - ch, 1920 - cw, ch, cw))})
+    _log("assets: host ms a decode (one thread): "
+         + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    argv = ["--config", "configs/others.yaml", "--model.func_spec", "monge_kantorovitch",
+            "--data.data_dir", str(root / "eval_1080"), "--log_dir", str(root / "assets_log")]
+    items = 31 + 2
+    per_item = {}
+    for label in ("native", "PIL", "native") if native else ("PIL",):
+        saved = nl._lib
+        if label == "PIL":
+            nl._lib = False
+        try:
+            wall0 = _run_test([*argv, "--max_batches", "0"])[2]
+            wall = _run_test(argv)[2]
+        finally:
+            nl._lib = saved
+        per_item.setdefault(label, []).append((wall - wall0) * 1e3 / items)
+    _log("assets: MK `test` on the 1080p set, host ms an item (run less its set-up), by "
+         "decoder: " + ", ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)}"
+                                 for k, vs in per_item.items()))
+
+
+def _fabricate_ckpts(root):
+    """Reference-layout checkpoints from seeded weights (the port's names
+    are the reference's): a full-width DMSCT Lightning .ckpt, a full-width
+    DCMCS3DI one, and unimatch's .pth layout with heads the flow model does
+    not use. Returns (paths, {kind: source state_dict})."""
+    from color_transfer_tpu_torch.run.modules import (
+        DCMCS3DIModule,
+        DMSCTModule,
+        random_state_dict,
+    )
+
+    g = torch.Generator().manual_seed(21)
+    dm = random_state_dict(DMSCTModule().model, seed=21)
+    dc = DCMCS3DIModule().init_eval_variables(21, device="cpu")
+    extra = {"encoder._conv_head.weight": (1408, 352, 1, 1), "encoder._bn1.weight": (1408,),
+             "matcher.upsampler.0.weight": (256, 130, 3, 3), "matcher.upsampler.0.bias": (256,)}
+    unused = {k: torch.randn(shape, generator=g) for k, shape in extra.items()}
+    paths = {"dmsct": root / "dmsct.ckpt", "dcmcs3di": root / "dcmcs3di.ckpt",
+             "unimatch": root / "gmflow-scale2-regrefine6-mixdata.pth"}
+    torch.save({"state_dict": {**dm, **unused}, "hyper_parameters": {"learning_rate": 3e-4}},
+               paths["dmsct"])
+    torch.save({"state_dict": dc, "hyper_parameters": {"extraction_layers": 18,
+                                                        "transfer_layers": 6, "channels": 64}},
+               paths["dcmcs3di"])
+    matcher = {k.removeprefix("matcher."): v for k, v in {**dm, **unused}.items()
+               if k.startswith("matcher.")}
+    torch.save({"model": matcher, "step": 0}, paths["unimatch"])
+    return paths, {"dmsct": dm, "dcmcs3di": dc}
+
+
+def _readers(root):
+    """Phase 11, the readers: each fabricated file read strictly and
+    bit-equal to its source; the restored DMSCT's 1080p output bit-equal to
+    the source weights'. Returns the checkpoint paths."""
+    from color_transfer_tpu_torch.data.native_loader import read_image
+    from color_transfer_tpu_torch.run.datamodule import to_float
+    from color_transfer_tpu_torch.tools import convert_checkpoints as cc
+    from color_transfer_tpu_torch.tools.convert_gmflow import load_matcher
+
+    t0 = time.perf_counter()
+    paths, sources = _fabricate_ckpts(root)
+    for kind in ("dmsct", "dcmcs3di"):
+        ckpt = cc.load_reference_ckpt(paths[kind])
+        same = set(ckpt.state_dict) == set(sources[kind]) and all(
+            torch.equal(v, sources[kind][k]) for k, v in ckpt.state_dict.items())
+        _log(f"assets: {paths[kind].name} read strictly as {ckpt.kind}: "
+             f"{len(ckpt.state_dict)} tensors, hyper-parameters {ckpt.hparams}, dropped "
+             f"{len(ckpt.dropped)} keys the port does not build, bit-equal to the source: {same}")
+        if ckpt.kind != kind or not same:
+            raise AssertionError(f"the reader changed the {kind} checkpoint")
+    matcher = load_matcher(paths["unimatch"])
+    want = {k.removeprefix("matcher."): v for k, v in sources["dmsct"].items()
+            if k.startswith("matcher.")}
+    same = set(matcher) == set(want) and all(torch.equal(v, want[k]) for k, v in matcher.items())
+    _log(f"assets: {paths['unimatch'].name} (unimatch layout, with its upsampler) read as "
+         f"{len(matcher)} matcher tensors, bit-equal to the source: {same}")
+    if not same:
+        raise AssertionError("the unimatch reader changed the matcher")
+    ckpt = cc.load_reference_ckpt(paths["dmsct"])
+    module = cc.module_for("dmsct", ckpt.hparams)
+    test = root / "eval_1080" / "Test"
+    pair = {k: torch.from_numpy(v[None]).cuda() for k, v in to_float(
+        {"target": read_image(test / "0000_L.png"),
+         "reference": read_image(test / "0000_R.png")}).items()}
+    restored = module.eval_forward({k: v.cuda() for k, v in ckpt.state_dict.items()}, pair)
+    source = module.eval_forward({k: v.cuda() for k, v in sources["dmsct"].items()}, pair)
+    equal = torch.equal(restored, source)
+    _log(f"assets: the restored DMSCT's 1080p output bit-equal to the source weights': {equal} "
+         f"({time.perf_counter() - t0:.1f} s)")
+    if not equal or tuple(restored.shape) != (1, *EVAL_1080, 3):
+        raise AssertionError("the restored DMSCT's output differs from its source's")
+    return paths
+
+
+def _sweep(root, paths):
+    """Phase 11, the sweep: the four classical methods and DMSCT on the
+    1080p set, DCMCS3DI bucketed on the 544x960 set, SWEEP_BATCHES items a
+    loader, the table printed, B1 / B3 / B4 launches exact."""
+    from color_transfer_tpu_torch.tools import parity_sweep as ps
+
+    t0 = time.perf_counter()
+    items = SWEEP_BATCHES + min(SWEEP_BATCHES, 2)  # the 1080p set's two loaders
+    _reset_launches()
+    results = ps.run_sweep(root / "eval_1080", dmsct_ckpt=paths["dmsct"],
+                           max_batches=SWEEP_BATCHES, log_dir=root / "sweep_log")
+    counts = _launches()
+    want = {name: 0 for name in counts}
+    want.update(local_correlation_with_flow=6 * items, transport_apply=N_ITER * items,
+                regrain_sweeps=LEVELS * items)
+    _reset_launches()
+    results.update(ps.run_sweep(root / "eval_544", dcmcs3di_ckpt=paths["dcmcs3di"],
+                                classical=False, eval_buckets=EVAL_BUCKETS,
+                                max_batches=SWEEP_BATCHES, log_dir=root / "sweep_log"))
+    dc_counts = _launches()
+    _log(f"assets: parity sweep ({time.perf_counter() - t0:.1f} s; {SWEEP_BATCHES} items a "
+         f"loader; DCMCS3DI on the 544x960 set with --eval_buckets {EVAL_BUCKETS}):\n"
+         + ps.format_table(results, ps.PUBLISHED_ARTIFICIAL))
+    _log(f"assets: sweep launches on the 1080p set {counts} (expected {want}: DMSCT 6 B1 an "
+         f"item, grading {N_ITER} B3 and {LEVELS} B4 an item, {items} items); DCMCS3DI "
+         f"{dc_counts}")
+    bad = [k for r in results.values() for k, v in r.items() if not math.isfinite(v)]
+    if counts != want or any(dc_counts.values()) or bad or len(results) != 6:
+        raise AssertionError(f"the parity sweep: launches {counts}, DCMCS3DI {dc_counts}, "
+                             f"non-finite {bad}")
+
+
+def _panels_and_profile(root, paths):
+    """Phase 11, panels and profile: one DMSCT and one DCMCS3DI panel set
+    from the fabricated checkpoints through the Trainer's panel logger (PNGs
+    written, no image_log_error.txt); a torch.profiler trace of two DMSCT
+    serve steps at 1080p that names B1's kernel."""
+    from types import SimpleNamespace
+
+    from color_transfer_tpu_torch.run.trainer import Trainer
+    from color_transfer_tpu_torch.tools import convert_checkpoints as cc
+    from color_transfer_tpu_torch.utils import profiling
+
+    g = torch.Generator().manual_seed(12)
+    for kind, (b, h, w) in PANEL_CROPS.items():
+        ckpt = cc.load_reference_ckpt(paths[kind])
+        module = cc.module_for(kind, ckpt.hparams)
+        state = SimpleNamespace(variables={k: v.cuda() for k, v in ckpt.state_dict.items()})
+        t = torch.rand(b, h, w, 3, generator=g).cuda()
+        batch = {"gt": t, "reference": t.roll(8, dims=2)}
+        log_dir = root / f"panels_{kind}"
+        _reset_launches()
+        t0 = time.perf_counter()
+        Trainer(log_dir=log_dir)._log_panels(module, state, batch, torch.Generator().manual_seed(0),
+                                             "Training Images", step=1)
+        torch.cuda.synchronize()
+        pngs = sorted(p.name for p in (log_dir / "images").glob("*.png"))
+        error = (log_dir / "image_log_error.txt").exists()
+        _log(f"assets: {kind} panels at {b} x {h}x{w} ({(time.perf_counter() - t0):.1f} s): "
+             f"{pngs}; image_log_error.txt {'written' if error else 'absent'}; launches "
+             f"{ {k: v for k, v in _launches().items() if v} }")
+        if len(pngs) != 6 or error:
+            raise AssertionError(f"{kind} panels: {pngs}, error file {error}")
+        if kind == "dmsct":
+            served = module, state
+    module, state = served
+    pair = {"target": torch.rand(1, *EVAL_1080, 3, generator=g).cuda()}
+    pair["reference"] = pair["target"].roll(16, dims=2)
+    module.eval_forward(state.variables, pair)  # warm
+    _reset_launches()
+    with profiling.trace(root / "prof"):
+        for _ in range(2):
+            with profiling.annotate("dmsct serve step"):
+                module.eval_forward(state.variables, pair)
+        torch.cuda.synchronize()
+    traces = list((root / "prof").glob("*.pt.trace.json"))
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text()).get("traceEvents", [])}
+    b1 = sorted(n for n in names if "local_corr_kernel" in n)
+    _log(f"assets: profiling.trace of two DMSCT 1080p serve steps: {traces[0].name}, "
+         f"{traces[0].stat().st_size / 2**20:.1f} MiB, {len(names)} event names, B1 kernels "
+         f"{b1}, the annotation {'dmsct serve step' in names}; launches {_launches()['local_correlation_with_flow']} "
+         f"B1")
+    if len(traces) != 1 or not b1 or "dmsct serve step" not in names:
+        raise AssertionError("the profile does not name B1's kernel or the annotation")
+
+
+def assets(root):
+    """Phase 11: the asset path on phase 9's sets: the decoder, the
+    checkpoint readers, the parity sweep, image panels and a profile."""
+    t0 = time.perf_counter()
+    _decoder(root)
+    paths = _readers(root)
+    torch.cuda.empty_cache()
+    _sweep(root, paths)
+    torch.cuda.empty_cache()
+    _panels_and_profile(root, paths)
+    _log(f"assets: phase {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     probe()
     build()
@@ -2634,6 +2945,7 @@ def main():
     rows.append(check_warp_adjoint(torch.Generator().manual_seed(2)))
     train(rows)
     check_train_small()
+    check_conv_grads("dmsct")
     rows += check_win_kernels(torch.Generator().manual_seed(3))
     serve_fused(rows, unfused)
     del unfused
@@ -2643,6 +2955,7 @@ def main():
         # Phase 10 before phase 9: the evaluation reads its checkpoint.
         dc_ckpt = train_dcmcs3di(Path(tmp))
         evaluate(Path(tmp), dc_ckpt)
+        assets(Path(tmp))
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

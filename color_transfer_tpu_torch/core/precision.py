@@ -37,3 +37,13 @@ def full_f32_inference():
     ``@full_f32_inference()``."""
     with torch.no_grad(), full_f32():
         yield
+
+
+def conv_route(cudnn):
+    """The convolutions' backend for the block: cuDNN (True) or, with cuDNN
+    off, ATen's (im2col + cuBLAS GEMMs, the depthwise kernels); TF32 off
+    either way. The flags are process-wide, so a backward run inside the
+    block takes the route on autograd's device threads too."""
+    flags = torch.backends.cudnn
+    return flags.flags(enabled=cudnn, benchmark=flags.benchmark,
+                       deterministic=flags.deterministic, allow_tf32=False)

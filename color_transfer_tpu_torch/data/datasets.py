@@ -11,9 +11,12 @@ color_transfer_tpu/data/datasets.py.
     grid (the distortion is applied at evaluation, data/distortions.py).
   * RealWorldTestDataset — ``*/*_L.* *_LD.* *_R.*`` triplets.
 
-Images decode with PIL (the JAX package prefers its C++ decoder, with PIL
-as its fallback); batches leave the loader as uint8 and the distorted target
-is synthesised on the device in the train step.
+Images decode through data/native_loader.py (the C++ decoder, GIL-free;
+PIL when it cannot be built), as in the JAX package: the crop geometry from
+the image header, the training crops by the cropped decode (PNG rows past
+the crop are not inflated), the test sets whole. Batches leave the loader
+as uint8 and the distorted target is synthesised on the device in the train
+step.
 """
 
 import queue
@@ -24,20 +27,8 @@ from pathlib import Path
 
 import numpy as np
 
-
-def read_image(path):
-    """(H, W, 3) uint8 RGB."""
-    from PIL import Image
-
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
-
-
-def _image_hw(path):
-    from PIL import Image
-
-    with Image.open(path) as img:
-        return img.height, img.width
+from color_transfer_tpu_torch.data import native_loader
+from color_transfer_tpu_torch.data.native_loader import read_image
 
 
 class ArtificialTrainValDataset:
@@ -73,7 +64,7 @@ class ArtificialTrainValDataset:
         ref_path = self.references[index // self.image_repeats]
         ch, cw = self.crop_size
         if gt_path not in self._info_cache:
-            self._info_cache[gt_path] = _image_hw(gt_path)
+            self._info_cache[gt_path] = native_loader.image_info(gt_path)
         h, w = self._info_cache[gt_path]
         if h < ch or w < cw:
             raise ValueError(f"image {gt_path} is {h}x{w}, smaller than crop {ch}x{cw}")
@@ -81,8 +72,9 @@ class ArtificialTrainValDataset:
         # crop's size works and the last position is reachable.
         top = int(rng.integers(0, h - ch + 1))
         left = int(rng.integers(0, w - cw + 1))
-        gt = read_image(gt_path)[top : top + ch, left : left + cw]
-        reference = read_image(ref_path)[top : top + ch, left : left + cw]
+        # The cropped decode: PNG inflation stops at row top + ch.
+        gt = native_loader.read_image_crop(gt_path, top, left, ch, cw)
+        reference = native_loader.read_image_crop(ref_path, top, left, ch, cw)
         if rng.random() > 0.5:
             # A horizontal flip turns a left view into a right view: swap.
             gt, reference = reference[:, ::-1], gt[:, ::-1]

@@ -32,7 +32,7 @@ import torch
 
 from color_transfer_tpu_torch import methods
 from color_transfer_tpu_torch import metrics as M
-from color_transfer_tpu_torch.core.precision import full_f32, full_f32_inference
+from color_transfer_tpu_torch.core.precision import conv_route, full_f32, full_f32_inference
 from color_transfer_tpu_torch.data.distortions import distort_batch
 from color_transfer_tpu_torch.methods.iterative import random_rotations
 from color_transfer_tpu_torch.methods.video import resolve_device
@@ -107,6 +107,11 @@ class DMSCTModule:
     with ``set_to_zero``)."""
 
     name = "dmsct"
+    # The train step's backward convolutions through cuDNN (True) or ATen.
+    # At the recipe's shape every gradient of cuDNN's meets the float64 rule
+    # with room (at most 0.2 of its line; tools/conv_grads.py, chip_smoke.py
+    # phase 7), and ATen would cost 16-20% of a step.
+    backward_cudnn = True
 
     def __init__(self, encoder_name="efficientnet-b2", encoder_depth=4,
                  encoder_weights=None, decoder_channels=(256, 128, 64, 32),
@@ -146,19 +151,26 @@ class DMSCTModule:
 
     def init_state(self, seed, sample_batch, num_train_steps=None):
         """Seeded random variables (``random_state_dict``) on the sample
-        batch's device, the matcher's from ``matcher_checkpoint`` when set
-        (a port state_dict saved with torch.save, with or without the
-        ``matcher.`` prefix), and AdamW over every trainable parameter
-        (biases and BatchNorm scales included, as optax.adamw)."""
+        batch's device, the matcher's from ``matcher_checkpoint`` when set,
+        and AdamW over every trainable parameter (biases and BatchNorm
+        scales included, as optax.adamw). ``matcher_checkpoint`` is a port
+        state_dict saved with torch.save (with or without the ``matcher.``
+        prefix), unimatch's GMFlow ``.pth`` or the JAX converter's pickle
+        (tools/convert_gmflow.py::load_matcher); an unknown key raises."""
+        from color_transfer_tpu_torch.tools.convert_gmflow import load_matcher
+
         device = sample_batch["gt"].device
         variables = {k: v.to(device) for k, v in
                      random_state_dict(self.model, seed).items()}
         if self.matcher_checkpoint is not None:
-            sd = torch.load(self.matcher_checkpoint, map_location=device)
-            for key, value in sd.items():
-                name = key if key.startswith("matcher.") else f"matcher.{key}"
+            for key, value in load_matcher(self.matcher_checkpoint).items():
+                name = f"matcher.{key}"
                 if name not in variables:
                     raise KeyError(f"{self.matcher_checkpoint}: unknown matcher key {key!r}")
+                if variables[name].shape != value.shape:
+                    raise ValueError(f"{self.matcher_checkpoint}: {key} is "
+                                     f"{tuple(value.shape)}, the matcher has "
+                                     f"{tuple(variables[name].shape)}")
                 variables[name].copy_(value)
         params = {name for name, _ in self.model.named_parameters()}
         trainable = []
@@ -209,13 +221,9 @@ class DMSCTModule:
             batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
             drop = torch.Generator(device=device).manual_seed(seed)
             result, total, parts = self.forward_loss(state, batch, drop)
-            # The backward runs through cuDNN, the decoder's included: only
-            # the decoder's forward leaves cuDNN (models/dmsct.py), whose
-            # backward at this shape is the faster route (chip_smoke.py
-            # phase 7 times both).
-            cudnn = torch.backends.cudnn
-            with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                             deterministic=cudnn.deterministic, allow_tf32=False):
+            # The backward's convolutions take ``backward_cudnn``'s route;
+            # only the decoder's forward leaves cuDNN (models/dmsct.py).
+            with conv_route(self.backward_cudnn):
                 total.backward()
             self.apply_gradients(state)
             logs = {f"Training {k}": v.detach() for k, v in parts.items()}
@@ -265,6 +273,35 @@ class DMSCTModule:
     def eval_metrics(self, out, gt):
         return quality_metrics(out, gt, "", True)
 
+    def image_panels(self, state, batch):
+        """Qualitative panels of the batch's last item (reference
+        methods/dmsct.py:148-184): the chess mix of gt and result, the error
+        maps, the bidirectional matcher's forward flow, the reference warped
+        by it and the forward occlusion. (H, W, 3) tensors in [0, 1]."""
+        from color_transfer_tpu_torch.core.sampling import flow_warp
+        from color_transfer_tpu_torch.utils import visualizations as viz
+        from color_transfer_tpu_torch.utils.flow_viz import flow_batch_to_images
+
+        one = {k: v[-1:] for k, v in batch.items()}
+        result = self.eval_forward(state.variables, one)
+        matcher = {k[len("matcher."):]: v for k, v in state.variables.items()
+                   if k.startswith("matcher.")}
+        with full_f32_inference():
+            out = torch.func.functional_call(
+                self.model.matcher, matcher, (one["target"] * 255.0, one["reference"] * 255.0),
+                strict=True)
+            flow = out["flow"]
+            flow_img = torch.from_numpy(flow_batch_to_images(flow)).to(flow.device).float()
+            warped = flow_warp(one["reference"], flow)
+            return {
+                "Left Ground Truth/Corrected": viz.chess_mix(one["gt"], result)[0],
+                "RGB MSE Error": viz.rgbmse(one["gt"], result)[0],
+                "RGB SSIM Error": viz.rgbssim(one["gt"], result)[0],
+                "Optical Flow": flow_img[0] / 255.0,
+                "Warped Right": warped[0],
+                "Occlusions": out["fwd_occ"][0].expand(-1, -1, 3),
+            }
+
 
 def _dtype(name):
     """None, a torch dtype or its name ("bfloat16", "float32") -> dtype."""
@@ -289,6 +326,12 @@ class DCMCS3DIModule:
     backward."""
 
     name = "dcmcs3di"
+    # The train step's backward convolutions through ATen (cuDNN off): at
+    # the recipe's shape cuDNN's weight gradient of the matcher head's
+    # channels-last 3x3 conv lies at 0.83 of the float64 rule's line,
+    # ATen's every gradient under 0.05 of it, for 27-38% of a step
+    # (tools/conv_grads.py; chip_smoke.py phase 10; PERF.md).
+    backward_cudnn = False
     # Bucketed evaluation may pass the true width (run/bucketing.py).
     supports_valid_w = True
 
@@ -353,8 +396,8 @@ class DCMCS3DIModule:
     def train_step(self, state, batch, seed, metrics=True):
         """One Adam update on ``batch`` ({'gt', 'reference'} (B, H, W, 3) on
         the state's device): distort the gt into the target (a CPU generator
-        seeded with ``seed``), forward (convs through ATen), losses,
-        backward, step; TF32 off. Returns (state, logs) under the JAX
+        seeded with ``seed``), forward and backward with the convs through
+        ATen (``backward_cudnn``), losses, step; TF32 off. Returns (state, logs) under the JAX
         package's names; the quality metrics only when ``metrics``."""
         if self.model.compute_dtype is not None:
             raise NotImplementedError(
@@ -368,11 +411,10 @@ class DCMCS3DIModule:
             # f32 forward algorithms the step's gradients lie up to 1.5e-4 of
             # their scale from a float64 run, with ATen's 1.4e-6; ATen costs
             # 3-10% of a recipe step (chip_smoke.py phase 10, PERF.md).
-            cudnn = torch.backends.cudnn
-            with cudnn.flags(enabled=False, benchmark=cudnn.benchmark,
-                             deterministic=cudnn.deterministic, allow_tf32=False):
+            with conv_route(False):
                 corrected, total, parts = self.forward_loss(state, batch)
-            total.backward()
+            with conv_route(self.backward_cudnn):
+                total.backward()
             self.apply_gradients(state)
             logs = {f"Training {k}": v.detach() for k, v in parts.items()}
             if metrics:
@@ -429,6 +471,33 @@ class DCMCS3DIModule:
 
     def eval_metrics(self, out, gt):
         return quality_metrics(out, gt, "", True)
+
+    def image_panels(self, state, batch):
+        """Qualitative panels of the batch's last item (reference
+        methods/dcmcs3di.py:116-144): the chess mix of gt and result, the
+        error maps, the regressed disparity (min-max scaled), the reference
+        warped by the parallax attention and the occlusion mask, from the
+        materialised forward. (H, W, 3) tensors in [0, 1]."""
+        from color_transfer_tpu_torch.models import pasm
+        from color_transfer_tpu_torch.utils import visualizations as viz
+
+        one = {k: v[-1:] for k, v in batch.items()}
+        with full_f32_inference():
+            result, (att, _, valid_mask, warped_right) = torch.func.functional_call(
+                self.model, state.variables, (one["target"], one["reference"]), strict=True)
+            result = result.clamp(0, 1)
+            valid = valid_mask[0].float()
+            disparity = pasm.regress_disp(att[0], valid)
+            disparity = (disparity - disparity.min()) / (disparity.max() - disparity.min()
+                                                         + 1e-9)
+            return {
+                "Left Ground Truth/Corrected": viz.chess_mix(one["gt"], result)[0],
+                "RGB MSE Error": viz.rgbmse(one["gt"], result)[0],
+                "RGB SSIM Error": viz.rgbssim(one["gt"], result)[0],
+                "Disparity": disparity[0].expand(-1, -1, 3),
+                "Warped Right": warped_right[0],
+                "Occlusions": (1.0 - valid[0]).expand(-1, -1, 3),
+            }
 
 
 class ClassicalModule:

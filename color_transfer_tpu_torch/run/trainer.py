@@ -5,9 +5,15 @@
 epoch after the saved one, runs ``module.train_step`` over the train loader
 (metrics logged every ``log_every`` steps, under the JAX package's names),
 validates every ``val_every`` epochs and saves ``last`` and, gated on the
-monitored metric, ``best``. Each step's randomness is an integer drawn from
-``(seed, step)`` (the JAX package folds the step into its key); validation
-targets from ``(seed + 1, batch index)``. ``test`` is the paper's
+monitored metric, ``best``. A module with ``image_panels`` gets the
+reference's best-PSNR-gated panels: after an epoch whose last step's
+training PSNR beats the best so far, and per validation split whose PSNR
+does (PNGs under ``log_dir/images``; a failing panel writes
+``image_log_error.txt`` and does not stop the run). ``profile_dir`` traces
+steps ``profile_steps`` of the fit (utils/profiling.py). Each step's
+randomness is an integer drawn from ``(seed, step)`` (the JAX package
+folds the step into its key); validation targets from ``(seed + 1, batch
+index)``, panel targets from ``(seed, 2**31)`` and ``(seed + 2, split)``. ``test`` is the paper's
 evaluation: every item of the test loaders through the module's
 ``eval_forward`` and the four quality metrics, the artificial set's items
 distorted by their grid distortion.
@@ -15,6 +21,7 @@ distorted by their grid distortion.
 
 import contextlib
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -31,6 +38,7 @@ from color_transfer_tpu_torch.run.checkpoint import (
 )
 from color_transfer_tpu_torch.run.datamodule import to_float
 from color_transfer_tpu_torch.run.logging import MeanAccumulator, MetricLogger
+from color_transfer_tpu_torch.utils import profiling
 
 
 def derive_seed(*entropy):
@@ -73,7 +81,7 @@ class Spans:
 class Trainer:
     def __init__(self, max_epochs=100, log_dir="runs/default", log_every=50, seed=42,
                  monitor="Validation PSNR/dataloader_idx_0", use_wandb=False,
-                 val_every=1, device=None):
+                 val_every=1, device=None, profile_dir=None, profile_steps=(10, 15)):
         self.max_epochs = max_epochs
         self.log_dir = Path(log_dir)
         self.log_every = log_every
@@ -83,6 +91,8 @@ class Trainer:
         self.logger = MetricLogger(self.log_dir, use_wandb=use_wandb)
         self.ckpt = CheckpointManager(self.log_dir / "checkpoints", monitor=monitor)
         self.test_spans = {}  # the last test's spans per item (Spans.ms)
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
 
     def device_batch(self, batch):
         """A loader batch as float32 tensors in [0, 1] on the device."""
@@ -109,19 +119,40 @@ class Trainer:
             train_loader.set_epoch(start_epoch)
 
         step = state.step
+        max_scores = {}
+        panels = hasattr(module, "image_panels")
+        profiler = None
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.time()
-            for batch in train_loader:
+            batch, logs = None, {}
+            for i, loader_batch in enumerate(train_loader):
+                if self.profile_dir is not None and step == self.profile_steps[0]:
+                    profiler = profiling.trace(self.profile_dir)
+                    profiler.__enter__()
                 log_now = step % self.log_every == 0
-                state, logs = module.train_step(state, self.device_batch(batch),
-                                                derive_seed(self.seed, step), metrics=log_now)
+                # The epoch's last step also computes the training PSNR
+                # that gates the panels.
+                batch = self.device_batch(loader_batch)
+                state, logs = module.train_step(
+                    state, batch, derive_seed(self.seed, step),
+                    metrics=log_now or (panels and i == steps_per_epoch - 1))
+                if profiler is not None and step == self.profile_steps[1]:
+                    profiler = self._stop_profile(profiler)
                 if log_now:
                     self.logger.log({k: float(v) for k, v in logs.items()}, step=step)
                 step += 1
+            train_psnr = float(logs.get("Training PSNR", 0.0))
+            if panels and batch is not None and train_psnr > max_scores.get("Training", 0.0):
+                max_scores["Training"] = train_psnr
+                gen = torch.Generator().manual_seed(derive_seed(self.seed, 2**31))
+                self._log_panels(module, state, batch, gen, "Training Images", step)
             self.logger.log({"epoch": epoch, "epoch_time": time.time() - t0}, step=step)
 
             if (epoch + 1) % self.val_every == 0:
                 val_metrics = self.validate(module, datamodule, state, step)
+                if panels:
+                    self._log_val_panels(module, datamodule, state, val_metrics,
+                                         max_scores, step)
                 payload = train_state_payload(state)
                 self.ckpt.save_last(payload, hparams=module.hparams, step=step, epoch=epoch)
                 self.logger.log_checkpoint(self.ckpt.ckpt_dir / "last", "last", step=step)
@@ -132,7 +163,42 @@ class Trainer:
                         self.ckpt.ckpt_dir / "best", "best", step=step,
                         score=float(val_metrics[self.ckpt.monitor]),
                     )
+        if profiler is not None:  # the fit ended inside the profiled steps
+            self._stop_profile(profiler)
         return state
+
+    def _stop_profile(self, profiler):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.__exit__(None, None, None)
+
+    def _log_panels(self, module, state, batch, generator, key, step):
+        """``module.image_panels`` of a device batch (its target synthesised
+        from ``generator`` when it has none) logged as images under
+        ``key``; an error is written to image_log_error.txt instead."""
+        try:
+            if "target" not in batch:
+                batch = module.synthesize_targets(batch, generator)
+            panels = module.image_panels(state, batch)
+            self.logger.log_image(key, [v.detach().float().cpu().numpy()
+                                        for v in panels.values()],
+                                  caption=list(panels), step=step)
+        except Exception:  # noqa: BLE001 — a panel must not stop a run
+            (self.log_dir / "image_log_error.txt").write_text(traceback.format_exc())
+            self.logger.log({"image_log_error": 1.0}, step=step)
+
+    def _log_val_panels(self, module, datamodule, state, val_metrics, max_scores, step):
+        """Panels of each validation split's first batch whose PSNR beats the
+        split's best so far (the reference keeps one best per prefix)."""
+        for idx, loader in enumerate(datamodule.val_loaders()):
+            split = f"Validation/dataloader_idx_{idx}"
+            psnr = val_metrics.get(f"Validation PSNR/dataloader_idx_{idx}")
+            if psnr is None or psnr <= max_scores.get(split, 0.0):
+                continue
+            max_scores[split] = psnr
+            gen = torch.Generator().manual_seed(derive_seed(self.seed + 2, idx))
+            self._log_panels(module, state, self.device_batch(loader.first_batch()), gen,
+                             f"Validation Images/dataloader_idx_{idx}", step)
 
     def validate(self, module, datamodule, state, step, max_batches=None):
         """Mean losses and metrics of each validation loader, logged as

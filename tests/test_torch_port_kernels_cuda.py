@@ -15,7 +15,11 @@ B4 is also held bit-equal (torch.equal) at the six 1080p levels and on
 each of its two routes. B1's routes are forced by the flow (staged,
 per-pixel, both in one call) and its two runs are bit-equal.
 B7's float atomics add in an order that changes from run to run: within
-1e-5 * max(1, max|ref|). B2a, B2b and B2c on the f32 line: every product
+1e-5 * max(1, max|ref|). The training recipes' f32 convs (not kernels of
+the port, but the float64 rule's subject): every distinct conv of one step
+at each recipe's shape, its input, weight and bias gradients through the
+module's route within 4x the CPU float32 error + 1e-5 of a float64 run
+(tools/conv_grads.py). B2a, B2b and B2c on the f32 line: every product
 is 3xTF32 MMAs (f32's error scale), against cuBLAS's f32 products; sums in
 another order.
 """
@@ -701,3 +705,20 @@ def test_no_fallback_on_bad_input(gen):
         wn.ffn_fused(*(torch.zeros(4, 8, 128, device="cuda", dtype=torch.bfloat16),) * 2,
                      torch.zeros(256, 64, device="cuda"), torch.zeros(64, 128, device="cuda"),
                      torch.ones(128, device="cuda"), torch.zeros(128, device="cuda"))
+
+
+@pytest.mark.parametrize("recipe", ["dcmcs3di", "dmsct"])
+def test_training_conv_gradients_float64_rule(gen, recipe):
+    """One full-width train step of each recipe at its config's batch and
+    crop: every distinct f32 conv's gradients, recomputed through the
+    module's backward route from the step's own tensors, against float64 on
+    the CPU."""
+    from color_transfer_tpu_torch.tools import conv_grads as cg
+
+    module, state, batch = cg.recipe_step(recipe)
+    cases = cg.capture(module, state, batch)
+    del state, batch
+    rows = cg.check(cases, {"own": module.backward_cudnn})
+    worst = max(rows, key=lambda r: r["excess own"])
+    assert worst["excess own"] <= 1.0, (worst["case"].describe(), worst["grad"],
+                                        worst["own"], worst["cpu"])

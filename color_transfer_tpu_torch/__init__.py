@@ -18,10 +18,13 @@ Layout (same paths as the JAX package):
     methods/   the classical methods; video / batched serving entry point
     run/       modules, trainer, checkpoints, config, logging, data module,
                batch prediction, CLI (fit, validate, test, predict)
+    parallel/  data parallelism: torchrun's process group and each rank's
+               rows, the train step's collectives, device lists for serving
     tools/     weight bridge from the JAX parameter tree; readers of the
                reference's Lightning checkpoints and unimatch's GMFlow;
                the parity sweep; the drift gate; the training convs'
-               float64 check; kernel A/B timing
+               float64 check; kernel A/B timing; the offline dataset tool
+               (postprocess)
     utils/     image panels, flow colouring, profiling (torch.profiler)
 
 Public functions keep the JAX package's channel-last (NHWC) layout; the
@@ -31,8 +34,9 @@ Slices ported so far: DMSCT f32 inference (``predict --method dmsct``);
 DCMCS3DI inference in f32 and bf16 (``predict --method dcmcs3di``, and the
 kernel route of ``models/dcmcs3di.py`` for 1080p); the classical methods;
 DMSCT and DCMCS3DI training (``fit`` / ``validate``) with image panels and
-profiling; the evaluation (``test``) and the parity sweep on the reference's
-checkpoints. Entry points run on the card unless given ``device="cpu"``
+profiling, data parallel under torchrun; the evaluation (``test``) and the
+parity sweep on the reference's checkpoints; serving split over a device
+list; the offline dataset tool. Entry points run on the card unless given ``device="cpu"``
 (``--device cpu``).
 """
 

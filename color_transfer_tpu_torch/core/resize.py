@@ -8,6 +8,7 @@ coordinate arithmetic so the two packages agree to rounding.
 """
 
 import torch
+import torch.nn.functional as F
 
 from color_transfer_tpu_torch.core.blur import gaussian_blur
 
@@ -117,3 +118,21 @@ def derive_matcher_size(h, w, max_area=500 * 900, padding_factor=32):
     if size[0] * size[1] > cap[0] * cap[1]:
         return cap
     return size
+
+
+def pad_to_multiple(x, multiple, mode="edge"):
+    """Pad the spatial dims of (..., H, W, C) ``x`` up to the next multiple
+    of ``multiple`` at the bottom and right, replicating the edge (the JAX
+    package's ``jnp.pad(mode="edge")``, torch's 'replicate'; another mode
+    name is numpy's: "constant", "reflect"). Returns (padded, (H, W))."""
+    h, w = x.shape[-3], x.shape[-2]
+    ph, pw = -h % multiple, -w % multiple
+    if ph == 0 and pw == 0:
+        return x, (h, w)
+    if mode == "constant":
+        return F.pad(x, (0, 0, 0, pw, 0, ph)), (h, w)
+    torch_mode = {"edge": "replicate", "reflect": "reflect"}[mode]
+    lead = x.shape[:-3]
+    planes = torch.movedim(x.reshape((-1,) + tuple(x.shape[-3:])), -1, 1)
+    padded = F.pad(planes, (0, pw, 0, ph), mode=torch_mode)
+    return torch.movedim(padded, 1, -1).reshape(lead + padded.shape[2:] + (x.shape[-1],)), (h, w)

@@ -5,7 +5,8 @@ The warp is written as an explicit 4-corner gather in pixel coordinates with
 the JAX package's clamp geometry, not as ``F.grid_sample``: normalising to
 [-1, 1] and back can move samples near the image edges. Zeros padding:
 positions are clamped into [-1.5, S + 0.5] and read from a 2-pixel zero
-band, which is value-identical to torch grid_sample's zeros padding.
+band, which is value-identical to torch grid_sample's zeros padding. Border
+padding clamps each corner's index into the image.
 
 Layout is channel-last: images (B, H, W, C); flows (B, H, W, 2) holding
 (dx, dy). The warp's forward has no TPU kernel (the JAX forward is an XLA
@@ -54,27 +55,54 @@ def _corners(img, starts):
     return [flat[bidx, start + o].reshape(lead + (c,)) for o in (0, 1, wp, wp + 1)]
 
 
-def grid_sample(img, coords):
-    """Bilinear zeros-padding sample of ``img`` (B, H, W, C) at pixel
-    coordinates ``coords`` (B, ..., 2) holding (x, y) -> (B, ..., C)."""
-    _, _, starts, wx, wy = _geometry(coords, img.shape[1], img.shape[2])
+def _border_corners(img, x, y):
+    """The four corners of each sample, each index clamped into the image
+    (the JAX package's border gather), and the bilinear fractions."""
+    b, h, w, c = img.shape
+    x0, y0 = torch.floor(x), torch.floor(y)
+    x0i, y0i = x0.long(), y0.long()
+    flat = img.reshape(b, -1, c)
+    bidx = torch.arange(b, device=img.device)[:, None]
+    lead = x.shape
+
+    def gather(yi, xi):
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        return flat[bidx, idx.reshape(b, -1)].reshape(lead + (c,))
+
+    corners = [gather(y0i, x0i), gather(y0i, x0i + 1), gather(y0i + 1, x0i),
+               gather(y0i + 1, x0i + 1)]
+    return corners, x - x0, y - y0
+
+
+def grid_sample(img, coords, padding_mode="zeros"):
+    """Bilinear sample of ``img`` (B, H, W, C) at pixel coordinates
+    ``coords`` (B, ..., 2) holding (x, y) -> (B, ..., C). ``padding_mode``
+    'zeros' (out-of-bounds reads contribute 0) or 'border' (each corner's
+    index clamped into the image, as the JAX package's gather does)."""
+    if padding_mode == "border":
+        (c00, c01, c10, c11), wx, wy = _border_corners(img, coords[..., 0], coords[..., 1])
+    elif padding_mode == "zeros":
+        _, _, starts, wx, wy = _geometry(coords, img.shape[1], img.shape[2])
+        c00, c01, c10, c11 = _corners(img, starts)
+    else:
+        raise ValueError(f"padding_mode must be 'zeros' or 'border', got {padding_mode!r}")
     wx = wx.unsqueeze(-1).to(img.dtype)
     wy = wy.unsqueeze(-1).to(img.dtype)
-    c00, c01, c10, c11 = _corners(img, starts)
     top = c00 * (1 - wx) + c01 * wx
     bot = c10 * (1 - wx) + c11 * wx
     return top * (1 - wy) + bot * wy
 
 
-def flow_warp(feature, flow):
-    """Backward-warp: out(p) = feature(p + flow(p)), zeros padding.
+def flow_warp(feature, flow, padding_mode="zeros"):
+    """Backward-warp: out(p) = feature(p + flow(p)), zeros (or border)
+    padding.
 
     feature (B, H, W, C), flow (B, H, W, 2). The forward of both
     ``flow_warp`` (vmapped over the batch) and ``flow_warp_batched`` in the
     JAX package: the two share one geometry (``_warp_geometry``)."""
     h, w = feature.shape[1], feature.shape[2]
     coords = coords_grid(h, w, flow.dtype, flow.device)[None] + flow
-    return grid_sample(feature, coords)
+    return grid_sample(feature, coords, padding_mode)
 
 
 def _warp_geometry(flow, h, w):

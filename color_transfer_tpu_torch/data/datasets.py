@@ -29,6 +29,7 @@ import numpy as np
 
 from color_transfer_tpu_torch.data import native_loader
 from color_transfer_tpu_torch.data.native_loader import read_image
+from color_transfer_tpu_torch.parallel.multihost import host_batch_slice
 
 
 class ArtificialTrainValDataset:
@@ -136,10 +137,16 @@ def _collate(items):
 
 
 class Loader:
-    """Threaded prefetching batch loader (the host half of the pipeline)."""
+    """Threaded prefetching batch loader (the host half of the pipeline).
+
+    ``process_id`` of ``num_processes`` (a data-parallel rank) loads only
+    its rows of each global batch (parallel/multihost.py::host_batch_slice):
+    the batches' indices are the world-1 run's, and each item's crop comes
+    from (seed, epoch, index), so the rows are those a single process would
+    load, and each process decodes 1/N of the images."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_threads=8,
-                 seed=0, drop_last=False, prefetch=4):
+                 seed=0, drop_last=False, prefetch=4, process_id=0, num_processes=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -147,7 +154,16 @@ class Loader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.process_id = process_id
+        self.num_processes = num_processes
         self._epoch = 0
+
+    def _rows(self, idxs):
+        """This process's rows of one global batch's indices."""
+        if self.num_processes == 1:
+            return idxs
+        start, stop = host_batch_slice(len(idxs), self.process_id, self.num_processes)
+        return idxs[start:stop]
 
     def __len__(self):
         n = len(self.dataset)
@@ -167,7 +183,7 @@ class Loader:
                 "cannot probe an empty dataset (no items matched the data "
                 "glob — check data_dir)"
             )
-        idxs = range(min(self.batch_size, len(self.dataset)))
+        idxs = self._rows(range(min(self.batch_size, len(self.dataset))))
         return _collate([self.dataset[i] for i in idxs])
 
     def __iter__(self):
@@ -182,6 +198,7 @@ class Loader:
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        batches = [self._rows(b) for b in batches]
 
         q = queue.Queue(maxsize=self.prefetch)
         sentinel = object()

@@ -93,10 +93,16 @@ def apply_uniform_distortions(img, generator=None, perm=None, factors=None,
     return img
 
 
-def distort_batch(gt, generator):
+def distort_batch(gt, generator, start=0, total=None):
     """``apply_uniform_distortions`` of each image of a (B, H, W, 3) batch,
-    the draws in order from ``generator`` (a CPU one)."""
-    return torch.stack([apply_uniform_distortions(img, generator) for img in gt])
+    the draws in order from ``generator`` (a CPU one). ``gt`` may be rows
+    [start, start + B) of a batch of ``total`` rows (a data-parallel rank's):
+    the draws are made for all ``total`` rows and image j takes row
+    start + j's, so the rows get what the whole batch would give them."""
+    total = gt.shape[0] if total is None else total
+    draws = [uniform_distortion_draw(generator) for _ in range(total)]
+    return torch.stack([apply_uniform_distortions(img, perm=perm, factors=factors)
+                        for img, (perm, factors) in zip(gt, draws[start:])])
 
 
 def setup_grid_distortions(max_magnitude=0.5, num=6):

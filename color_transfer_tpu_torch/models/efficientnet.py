@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from color_transfer_tpu_torch.parallel.data_parallel import batch_moments, current_shard
+
 # (kernel, stride, expand, base_out_filters, base_repeats) for b0 stages.
 _B0_STAGES = [
     (3, 1, 1, 16, 1),
@@ -71,7 +73,12 @@ class _BN(nn.BatchNorm2d):
     move by 0.01 towards the batch mean and the *biased* variance, as flax
     moves them (flax takes E[x^2] - E[x]^2, the same up to rounding);
     ``nn.BatchNorm2d`` would move them towards the unbiased variance.
-    ``num_batches_tracked`` stays 0, as flax keeps no such count."""
+    ``num_batches_tracked`` stays 0, as flax keeps no such count.
+
+    In a data-parallel train step of more than one rank
+    (parallel/data_parallel.py) the batch is the global one: its mean and
+    biased variance combine every rank's (``batch_moments``), as the JAX
+    package's sharded step computes them over the global array."""
 
     def __init__(self, channels):
         super().__init__(channels, eps=1e-3, momentum=0.01)
@@ -80,9 +87,17 @@ class _BN(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        shard = current_shard()
+        if shard is not None and shard.world > 1:
+            mean, var = batch_moments(x, (0, 2, 3))
+            scale = self.weight * torch.rsqrt(var + self.eps)
+            out = (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+            mean, var = mean.detach(), var.detach()
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
@@ -92,9 +107,14 @@ class _BN(nn.BatchNorm2d):
 def drop_connect(x, rate, generator=None):
     """Stochastic depth: keep each sample's residual branch with probability
     1 - rate and scale the kept ones by 1 / (1 - rate); one draw per sample
-    from ``generator`` (on x's device)."""
+    from ``generator`` (on x's device). In a data-parallel train step the
+    draws cover the global batch and this rank keeps its rows', so every
+    world size draws the same masks."""
     keep = 1.0 - rate
-    draw = torch.rand(x.shape[0], 1, 1, 1, generator=generator, device=x.device)
+    shard = current_shard()
+    start, total = (shard.start, shard.total) if shard is not None else (0, x.shape[0])
+    draw = torch.rand(total, 1, 1, 1, generator=generator, device=x.device)
+    draw = draw[start:start + x.shape[0]]
     return x * (draw < keep).to(x.dtype) / keep
 
 

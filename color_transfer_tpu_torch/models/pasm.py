@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from color_transfer_tpu_torch.models.layers import Conv, ResB
+from color_transfer_tpu_torch.parallel.data_parallel import rank_mean
 
 
 class PAB(nn.Module):
@@ -134,8 +135,11 @@ def regress_disp(att, valid_mask):
 
 
 def masked_l1(x, y, mask):
+    """Mean |x - y| over the mask; in a data-parallel train step divided by
+    the ranks' mean mask count (parallel/data_parallel.py::rank_mean), so
+    the ranks' mean is the global batch's masked mean."""
     mask = mask.to(x.dtype)
-    return (torch.abs(x - y) * mask).sum() / mask.sum()
+    return (torch.abs(x - y) * mask).sum() / rank_mean(mask.sum())
 
 
 def loss_pam_photometric(img_left, img_right, att, valid_mask):

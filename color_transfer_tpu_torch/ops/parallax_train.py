@@ -18,6 +18,8 @@ chunk border, which takes the previous chunk's last attention row.
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from color_transfer_tpu_torch.parallel.data_parallel import rank_mean
+
 
 def _pick_chunk(h, wanted):
     """The largest divisor of ``h`` not above ``wanted``."""
@@ -104,6 +106,8 @@ def chunked_parallax_train(q_l, k_l, q_r, k_r, v_r, img_l, img_r, scale, chunk=8
         masks_r.append(mask_r)
         total = sums if total is None else total + sums
     pm_l, pm_r, den_l, den_r, cyc_l, cyc_r, sm_h, sm_w = total
+    # The masked means' counts over the ranks of a data-parallel step.
+    den_l, den_r = rank_mean(den_l), rank_mean(den_r)
     losses = {
         "photometric": pm_l / den_l + pm_r / den_r,
         "cycle": cyc_l / den_l + cyc_r / den_r,

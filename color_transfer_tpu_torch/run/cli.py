@@ -15,7 +15,17 @@
         --target T.png --reference R.png --output OUT.png
 
 Everything runs on the card unless ``--device cpu`` is given; without a
-card the subcommands raise. ``fit``, ``test`` and ``validate`` take a
+card the subcommands raise. ``fit`` runs data parallel under torchrun, one
+process per card (``--device cuda:0`` puts every rank on card 0, ``--device
+cpu`` on the CPU with gloo; ``--distributed.backend gloo`` picks the
+backend; parallel/multihost.py):
+
+    torchrun --nproc_per_node 8 -m color_transfer_tpu_torch.cli fit \
+        --config configs/dmsct.yaml --data.data_dir "Artificial Dataset"
+
+``test`` and ``validate`` under torchrun run on rank 0 alone. ``predict``
+splits each chunk of frames over every visible card unless ``--device``
+names one. ``fit``, ``test`` and ``validate`` take a
 config and dotted overrides (``--trainer.max_epochs 2``,
 ``--model.learning_rate 1e-4``; see run/config.py); ``test`` and
 ``validate`` print their results as JSON, from the checkpoint's variables
@@ -100,8 +110,8 @@ def _parse(argv):
     parser.add_argument("--input_dir", default=None)
     parser.add_argument("--output_dir", default=None)
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="frames per chunk (default 8 for the classical "
-                             "methods, 1 for the deep ones)")
+                        help="frames per chunk (default 8 a device for the classical "
+                             "methods, 1 a device for the deep ones)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; cpu to run on the CPU)")
     parser.add_argument("--allow_ungated", action="store_true",
@@ -152,6 +162,11 @@ def main(argv=None):
     if args.subcommand == "fit":
         trainer.fit(module, datamodule, resume=args.ckpt_path)
         return 0
+    if not trainer.is_main:  # test and validate run on rank 0 alone
+        from color_transfer_tpu_torch.parallel.data_parallel import barrier
+
+        barrier()
+        return 0
 
     from color_transfer_tpu_torch.run.checkpoint import restore_eval_variables
 
@@ -175,6 +190,10 @@ def main(argv=None):
                                max_batches=args.max_batches,
                                eval_buckets=args.eval_buckets)
     print(json.dumps(results, indent=2))
+    if trainer.world > 1:
+        from color_transfer_tpu_torch.parallel.data_parallel import barrier
+
+        barrier()
     return 0
 
 

@@ -6,6 +6,8 @@ color_transfer_tpu/run/config.py:
     data:  {init_args: {data_dir: ..., ...}}
     trainer: {max_epochs: ..., logger: ..., callbacks: [...]}
 
+    distributed: {backend: gloo, timeout: 600}   # optional (torchrun sets the rest)
+
 plus dotted overrides (``--model.init_args.learning_rate 1e-4``). The
 shorthand ``--section.X`` means ``--section.init_args.X`` whenever the
 section has a ``class_path`` or an ``init_args`` (the JAX package applies it
@@ -18,6 +20,7 @@ import inspect
 
 import yaml
 
+from color_transfer_tpu_torch.parallel.multihost import initialize_distributed
 from color_transfer_tpu_torch.run.datamodule import DataModule
 from color_transfer_tpu_torch.run.trainer import Trainer
 
@@ -101,8 +104,16 @@ def build_module(class_path, init_args=None, seed=None):
 
 def build_from_config(cfg, log_dir=None, device=None):
     """(module, datamodule, trainer) from a config dict; the trainer runs on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card; under torchrun ``cuda:{LOCAL_RANK}``).
+
+    The process group starts first, before any device is touched: from the
+    config's ``distributed:`` key (``coordinator_address``,
+    ``num_processes``, ``process_id``, ``backend``, ``timeout``; the JAX
+    package's names) and torchrun's environment
+    (parallel/multihost.py::initialize_distributed; a single process
+    without a launcher starts none)."""
     cfg = copy.deepcopy(cfg)
+    initialize_distributed(**(cfg.get("distributed") or {}), device=device)
     model_cfg = cfg.get("model", {})
     module = build_module(model_cfg.get("class_path", "classical"),
                           model_cfg.get("init_args", {}),

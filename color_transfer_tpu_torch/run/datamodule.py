@@ -38,13 +38,17 @@ class DataModule:
         self.num_workers = num_workers
         self.seed = seed
 
-    def train_loader(self):
+    def train_loader(self, process_id=0, num_processes=1):
+        """The shuffled training batches of ``batch_size`` (the global
+        batch); a data-parallel rank (``process_id`` of ``num_processes``)
+        loads its rows of each."""
         ds = datasets.ArtificialTrainValDataset(
             self.data_dir / "Train", self.crop_size, self.image_repeats, seed=self.seed,
         )
         return datasets.Loader(ds, batch_size=self.batch_size, shuffle=True,
                                num_threads=self.num_workers, seed=self.seed,
-                               drop_last=True)
+                               drop_last=True, process_id=process_id,
+                               num_processes=num_processes)
 
     def val_loaders(self):
         loaders = []

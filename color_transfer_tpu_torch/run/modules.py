@@ -22,6 +22,10 @@ parameters, the encoder's BatchNorm moves its running statistics.
 Randomness (the distorted targets, drop-connect) comes from generators
 seeded with the integer the trainer passes per step; the JAX package draws
 from ``jax.random`` keys, which torch cannot reproduce.
+
+Under a process group (parallel/) a train step takes the rank's rows of
+the global batch, draws for the whole batch, and averages the gradients
+and the logs over the ranks: every world size takes the same step.
 """
 
 import dataclasses
@@ -39,6 +43,12 @@ from color_transfer_tpu_torch.methods.video import resolve_device
 from color_transfer_tpu_torch.models import dcmcs3di as dc
 from color_transfer_tpu_torch.models.dmsct import DMSCT, compute_losses
 from color_transfer_tpu_torch.models.layers import init_uniform_
+from color_transfer_tpu_torch.parallel.data_parallel import (
+    average_gradients,
+    average_logs,
+    current_shard,
+    step_shard,
+)
 from color_transfer_tpu_torch.run.trainer import derive_seed
 
 
@@ -96,6 +106,26 @@ def random_state_dict(model, seed=0):
             fan_in = ref[0].numel()
             out[name] = torch.randn(ref.shape, generator=g) / fan_in**0.5
     return out
+
+
+def _finish_step(module, state, shard, result, batch, total, parts, metrics):
+    """The end of a train step after the backward: the gradients averaged
+    over the ranks of a data-parallel step (``shard``), the update, and the
+    logs (the losses, the quality metrics when ``metrics``), averaged over
+    the ranks too: each is a batch mean over equal row counts, or a masked
+    mean made one (parallel/data_parallel.py), so the average is the global
+    batch's value."""
+    if shard is not None:
+        average_gradients([p for group in state.optimizer.param_groups
+                           for p in group["params"]])
+    module.apply_gradients(state)
+    logs = {f"Training {k}": v.detach() for k, v in parts.items()}
+    if metrics:
+        with torch.no_grad():
+            logs.update(quality_metrics(result.detach(), batch["gt"], "Training ",
+                                        module.heavy_metrics))
+    logs["Training Total Loss"] = total.detach()
+    return logs if shard is None else average_logs(logs)
 
 
 class DMSCTModule:
@@ -186,8 +216,11 @@ class DMSCTModule:
 
     def synthesize_targets(self, batch, generator):
         """Per-sample random distortion of the gt view; the permutations and
-        factors come from ``generator`` (a CPU one)."""
-        return {**batch, "target": distort_batch(batch["gt"], generator)}
+        factors come from ``generator`` (a CPU one), drawn for the global
+        batch in a data-parallel step (this rank's rows keep theirs)."""
+        shard = current_shard()
+        rows = (shard.start, shard.total) if shard is not None else (0, None)
+        return {**batch, "target": distort_batch(batch["gt"], generator, *rows)}
 
     def forward_loss(self, state, batch, generator=None):
         """The train-mode forward and the losses -> (result, total, parts)."""
@@ -215,9 +248,11 @@ class DMSCTModule:
         seeded with ``seed``), forward with drop-connect (a generator on the
         device, the same seed), backward, AdamW; TF32 off throughout.
         Returns (state, logs) with the JAX package's metric names; the
-        quality metrics only when ``metrics`` (the trainer's log steps)."""
+        quality metrics only when ``metrics`` (the trainer's log steps).
+        Under a process group ``batch`` is this rank's rows of the global
+        batch, and the step is the global batch's (``_finish_step``)."""
         device = batch["gt"].device
-        with full_f32():
+        with full_f32(), step_shard(batch["gt"].shape[0]) as shard:
             batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
             drop = torch.Generator(device=device).manual_seed(seed)
             result, total, parts = self.forward_loss(state, batch, drop)
@@ -225,13 +260,7 @@ class DMSCTModule:
             # only the decoder's forward leaves cuDNN (models/dmsct.py).
             with conv_route(self.backward_cudnn):
                 total.backward()
-            self.apply_gradients(state)
-            logs = {f"Training {k}": v.detach() for k, v in parts.items()}
-            if metrics:
-                with torch.no_grad():
-                    logs.update(quality_metrics(result.detach(), batch["gt"], "Training ",
-                                                self.heavy_metrics))
-            logs["Training Total Loss"] = total.detach()
+            logs = _finish_step(self, state, shard, result, batch, total, parts, metrics)
         return state, logs
 
     def val_step(self, state, batch):
@@ -398,14 +427,15 @@ class DCMCS3DIModule:
         the state's device): distort the gt into the target (a CPU generator
         seeded with ``seed``), forward and backward with the convs through
         ATen (``backward_cudnn``), losses, step; TF32 off. Returns (state, logs) under the JAX
-        package's names; the quality metrics only when ``metrics``."""
+        package's names; the quality metrics only when ``metrics``. Under a
+        process group ``batch`` is this rank's rows of the global batch."""
         if self.model.compute_dtype is not None:
             raise NotImplementedError(
                 f"DCMCS3DI training in {self.model.compute_dtype}: only float32 "
                 "trains; a bf16 training recipe needs its own gate on the card "
                 "first (ROADMAP.md, section A)"
             )
-        with full_f32():
+        with full_f32(), step_shard(batch["gt"].shape[0]) as shard:
             batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
             # The forward's convs run through ATen, not cuDNN: with cuDNN's
             # f32 forward algorithms the step's gradients lie up to 1.5e-4 of
@@ -415,13 +445,7 @@ class DCMCS3DIModule:
                 corrected, total, parts = self.forward_loss(state, batch)
             with conv_route(self.backward_cudnn):
                 total.backward()
-            self.apply_gradients(state)
-            logs = {f"Training {k}": v.detach() for k, v in parts.items()}
-            if metrics:
-                with torch.no_grad():
-                    logs.update(quality_metrics(corrected.detach(), batch["gt"], "Training ",
-                                                self.heavy_metrics))
-            logs["Training Total Loss"] = total.detach()
+            logs = _finish_step(self, state, shard, corrected, batch, total, parts, metrics)
         return state, logs
 
     def val_step(self, state, batch):

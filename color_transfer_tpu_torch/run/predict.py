@@ -55,12 +55,14 @@ def collect_pairs(input_dir):
 
 def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None,
                   module_kwargs=None, batch_size=None, device=None,
-                  allow_ungated=False):
+                  allow_ungated=False, devices=None):
     """Correct (target_path, reference_path, out_rel) triples into
     output_dir. Pairs are grouped by image shape and each group runs as one
-    clip, in chunks of ``batch_size`` frames (None: 8 for the classical
-    methods, 1 for the deep ones); a deep method's module and variables are
-    built once. ``device`` None means the card (raises without one).
+    clip, in chunks of ``batch_size`` frames (None: 8 a device for the
+    classical methods, 1 a device for the deep ones), each chunk split over
+    ``devices`` (the JAX package's ``mesh``; None: ``device`` alone when
+    given, else every visible card; raises without one); a deep method's
+    module and variables are built once.
     ``allow_ungated`` acknowledges a recipe whose recorded gate verdict is
     FAIL (methods/gates.py); otherwise serving it warns. Returns the
     written paths."""
@@ -68,19 +70,19 @@ def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None
         DEEP_METHODS,
         build_deep,
         color_transfer_between_videos,
-        resolve_device,
     )
+    from color_transfer_tpu_torch.parallel.mesh import create_mesh
 
     if not pairs:
         return []
-    device = resolve_device(device)
+    devices = create_mesh([device] if devices is None and device is not None else devices)
     module = variables = None
     if method in DEEP_METHODS:
         from color_transfer_tpu_torch.methods.gates import check_recipe
 
         check_recipe(method, module_kwargs, allow_ungated=allow_ungated)
         module, variables = build_deep(method, None, None, module_kwargs, ckpt_path,
-                                       device)
+                                       devices[0])
     groups = {}
     for target, ref, rel in pairs:
         t = _read_float(target)
@@ -97,7 +99,7 @@ def predict_pairs(pairs, output_dir, method="monge_kantorovitch", ckpt_path=None
         out = color_transfer_between_videos(
             np.stack([t for t, _, _ in items]),
             np.stack([r for _, r, _ in items]),
-            method=method, batch_size=batch_size, device=device, module=module,
+            method=method, batch_size=batch_size, devices=devices, module=module,
             variables=variables, module_kwargs=module_kwargs,
             allow_ungated=allow_ungated,
         )

@@ -17,6 +17,14 @@ index)``, panel targets from ``(seed, 2**31)`` and ``(seed + 2, split)``. ``test
 evaluation: every item of the test loaders through the module's
 ``eval_forward`` and the four quality metrics, the artificial set's items
 distorted by their grid distortion.
+
+Data parallelism (parallel/): under a process group (torchrun) each rank
+runs on its card (``cuda:{LOCAL_RANK}``, or the ``device`` given), loads
+its rows of every global batch, and takes the global batch's step (the
+modules average over the ranks). Rank 0 alone writes the metrics, the
+checkpoints, the panels and the profile, and validates unsharded, as the
+JAX package validates (``sharded=False``); the other ranks wait at a
+barrier. Every rank resumes from the checkpoint.
 """
 
 import contextlib
@@ -29,7 +37,8 @@ import numpy as np
 import torch
 
 from color_transfer_tpu_torch.data.distortions import distort_batch, setup_grid_distortions
-from color_transfer_tpu_torch.methods.video import resolve_device
+from color_transfer_tpu_torch.parallel.data_parallel import barrier, broadcast_variables
+from color_transfer_tpu_torch.parallel.multihost import local_device, rank_world
 from color_transfer_tpu_torch.run.checkpoint import (
     CheckpointManager,
     load_checkpoint,
@@ -78,6 +87,15 @@ class Spans:
         return out
 
 
+class _SilentLogger:
+    """The logger of a rank other than 0: writes nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    log_image = log_checkpoint = log
+
+
 class Trainer:
     def __init__(self, max_epochs=100, log_dir="runs/default", log_every=50, seed=42,
                  monitor="Validation PSNR/dataloader_idx_0", use_wandb=False,
@@ -87,9 +105,14 @@ class Trainer:
         self.log_every = log_every
         self.seed = seed
         self.val_every = val_every
-        self.device = resolve_device(device)
-        self.logger = MetricLogger(self.log_dir, use_wandb=use_wandb)
-        self.ckpt = CheckpointManager(self.log_dir / "checkpoints", monitor=monitor)
+        self.device = local_device(device)
+        self.rank, self.world = rank_world()
+        self.is_main = self.rank == 0
+        if self.is_main:
+            self.logger = MetricLogger(self.log_dir, use_wandb=use_wandb)
+            self.ckpt = CheckpointManager(self.log_dir / "checkpoints", monitor=monitor)
+        else:
+            self.logger, self.ckpt = _SilentLogger(), None
         self.test_spans = {}  # the last test's spans per item (Spans.ms)
         self.profile_dir = profile_dir
         self.profile_steps = tuple(profile_steps)
@@ -100,7 +123,7 @@ class Trainer:
                 for k, v in to_float(batch).items() if k != "distortion_idx"}
 
     def fit(self, module, datamodule, resume=None):
-        train_loader = datamodule.train_loader()
+        train_loader = datamodule.train_loader(self.rank, self.world)
         steps_per_epoch = len(train_loader)
         sample = self.device_batch(train_loader.first_batch())
         state = module.init_state(self.seed, sample, steps_per_epoch * self.max_epochs)
@@ -117,6 +140,8 @@ class Trainer:
             else:
                 start_epoch = state.step // max(steps_per_epoch, 1)
             train_loader.set_epoch(start_epoch)
+        if self.world > 1:
+            broadcast_variables(state.variables)  # every rank starts from rank 0's
 
         step = state.step
         max_scores = {}
@@ -126,7 +151,8 @@ class Trainer:
             t0 = time.time()
             batch, logs = None, {}
             for i, loader_batch in enumerate(train_loader):
-                if self.profile_dir is not None and step == self.profile_steps[0]:
+                if (self.is_main and self.profile_dir is not None
+                        and step == self.profile_steps[0]):
                     profiler = profiling.trace(self.profile_dir)
                     profiler.__enter__()
                 log_now = step % self.log_every == 0
@@ -142,30 +168,38 @@ class Trainer:
                     self.logger.log({k: float(v) for k, v in logs.items()}, step=step)
                 step += 1
             train_psnr = float(logs.get("Training PSNR", 0.0))
-            if panels and batch is not None and train_psnr > max_scores.get("Training", 0.0):
+            if (self.is_main and panels and batch is not None
+                    and train_psnr > max_scores.get("Training", 0.0)):
                 max_scores["Training"] = train_psnr
                 gen = torch.Generator().manual_seed(derive_seed(self.seed, 2**31))
                 self._log_panels(module, state, batch, gen, "Training Images", step)
             self.logger.log({"epoch": epoch, "epoch_time": time.time() - t0}, step=step)
 
             if (epoch + 1) % self.val_every == 0:
-                val_metrics = self.validate(module, datamodule, state, step)
-                if panels:
-                    self._log_val_panels(module, datamodule, state, val_metrics,
-                                         max_scores, step)
-                payload = train_state_payload(state)
-                self.ckpt.save_last(payload, hparams=module.hparams, step=step, epoch=epoch)
-                self.logger.log_checkpoint(self.ckpt.ckpt_dir / "last", "last", step=step)
-                if self.ckpt.monitor in val_metrics and self.ckpt.save_best(
-                    payload, val_metrics, hparams=module.hparams, step=step, epoch=epoch,
-                ):
-                    self.logger.log_checkpoint(
-                        self.ckpt.ckpt_dir / "best", "best", step=step,
-                        score=float(val_metrics[self.ckpt.monitor]),
-                    )
+                self._end_epoch(module, datamodule, state, epoch, step, max_scores)
         if profiler is not None:  # the fit ended inside the profiled steps
             self._stop_profile(profiler)
         return state
+
+    def _end_epoch(self, module, datamodule, state, epoch, step, max_scores):
+        """Rank 0 validates, logs the validation panels and saves ``last``
+        and, gated, ``best``; every rank then meets at a barrier."""
+        if self.is_main:
+            val_metrics = self.validate(module, datamodule, state, step)
+            if hasattr(module, "image_panels"):
+                self._log_val_panels(module, datamodule, state, val_metrics, max_scores,
+                                     step)
+            payload = train_state_payload(state)
+            self.ckpt.save_last(payload, hparams=module.hparams, step=step, epoch=epoch)
+            self.logger.log_checkpoint(self.ckpt.ckpt_dir / "last", "last", step=step)
+            if self.ckpt.monitor in val_metrics and self.ckpt.save_best(
+                payload, val_metrics, hparams=module.hparams, step=step, epoch=epoch,
+            ):
+                self.logger.log_checkpoint(
+                    self.ckpt.ckpt_dir / "best", "best", step=step,
+                    score=float(val_metrics[self.ckpt.monitor]),
+                )
+        barrier()
 
     def _stop_profile(self, profiler):
         if self.device.type == "cuda":

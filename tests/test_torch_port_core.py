@@ -121,3 +121,35 @@ def test_forward_backward_consistency(rng):
         assert g.shape == (2, 12, 16)
         np.testing.assert_array_equal(_np(g), np.asarray(w))
         assert 0 < float(g.mean()) < 1  # both classes present
+
+
+# The two functions no path runs yet: held to JAX within 1e-6.
+
+
+@pytest.mark.parametrize("mode", ["edge", "constant", "reflect"])
+@pytest.mark.parametrize("shape", [(2, 13, 17, 3), (13, 17, 5), (1, 2, 16, 24, 3)])
+def test_pad_to_multiple_matches_jax(rng, shape, mode):
+    x = rng.normal(size=shape).astype(np.float32)
+    want, want_hw = jresize.pad_to_multiple(jnp.asarray(x), 8, mode)
+    got, got_hw = resize.pad_to_multiple(torch.from_numpy(x), 8, mode)
+    assert got_hw == want_hw == shape[-3:-1]
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_grid_sample_and_flow_warp_padding_modes(rng, padding_mode):
+    img = rng.normal(size=(12, 20, 4)).astype(np.float32)
+    coords = rng.uniform(-6, 26, (7, 9, 2)).astype(np.float32)  # many out of bounds
+    want = jsampling.grid_sample(jnp.asarray(img), jnp.asarray(coords), padding_mode)
+    got = sampling.grid_sample(torch.from_numpy(img)[None], torch.from_numpy(coords)[None],
+                               padding_mode)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    flow = (rng.normal(size=(12, 20, 2)) * 6).astype(np.float32)
+    want = jsampling.flow_warp(jnp.asarray(img), jnp.asarray(flow), padding_mode)
+    got = sampling.flow_warp(torch.from_numpy(img)[None], torch.from_numpy(flow)[None],
+                             padding_mode)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="padding_mode"):
+        sampling.grid_sample(torch.from_numpy(img)[None], torch.from_numpy(coords)[None],
+                             "reflection")

@@ -21,7 +21,10 @@ at each recipe's shape, its input, weight and bias gradients through the
 module's route within 4x the CPU float32 error + 1e-5 of a float64 run
 (tools/conv_grads.py). B2a, B2b and B2c on the f32 line: every product
 is 3xTF32 MMAs (f32's error scale), against cuBLAS's f32 products; sums in
-another order.
+another order. Data parallelism on the card: serving split over
+["cuda:0", "cuda:0"] bit-equal to the one-device call; two gloo ranks'
+collectives on CUDA tensors (the zero-buffer gather, its gradient, the
+global BatchNorm moments), exactly.
 """
 
 import math
@@ -722,3 +725,77 @@ def test_training_conv_gradients_float64_rule(gen, recipe):
     worst = max(rows, key=lambda r: r["excess own"])
     assert worst["excess own"] <= 1.0, (worst["case"].describe(), worst["grad"],
                                         worst["own"], worst["cpu"])
+
+
+# -- data parallelism on the card ---------------------------------------------
+
+
+@pytest.mark.parametrize("method", ["dmsct", "automated_color_grading"])
+def test_split_serving_bit_equal_on_card(gen, method):
+    """A chunk split over ["cuda:0", "cuda:0"] (the one card named twice)
+    is bit-equal to the one-device call, a ragged chunk included."""
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+
+    t = torch.rand(3, 64, 96, 3, generator=gen)
+    r = (t.roll(4, dims=2) * 0.9 + 0.05).clamp(0, 1)
+    kw = {}
+    if method == "dmsct":
+        from color_transfer_tpu_torch.run.modules import DMSCTModule
+
+        module = DMSCTModule(matcher_num_layers=1, matcher_num_reg_refine=1)
+        kw = {"module": module, "variables": module.init_eval_variables(0, device="cuda:0")}
+    one = color_transfer_between_videos(t, r, method=method, device="cuda:0", **kw)
+    if "variables" in kw:
+        kw["devices"] = ["cuda:0", "cuda:0"]
+        split = color_transfer_between_videos(t, r, method=method, **kw)
+    else:
+        split = color_transfer_between_videos(t, r, method=method, batch_size=2,
+                                              devices=["cuda:0", "cuda:0"])
+        # "cuda" without an index: the current card, as before device lists
+        one = color_transfer_between_videos(t, r, method=method, device="cuda", batch_size=1)
+    assert one.device == split.device == torch.device("cuda:0") and torch.equal(one, split)
+
+
+_GLOO_CUDA = """
+import sys, torch
+from color_transfer_tpu_torch.parallel import data_parallel as dp, multihost
+rank = int(sys.argv[1])
+multihost.initialize_distributed(sys.argv[2], 2, rank, backend="gloo", device="cuda:0",
+                                 timeout=60)
+x = torch.full((3,), float(rank + 1), device="cuda:0", requires_grad=True)
+both = dp.gather_rows(x)
+assert torch.equal(both.detach().cpu(), torch.tensor([[1.0] * 3, [2.0] * 3])), both
+(both.sum() * (rank + 1)).backward()
+assert torch.equal(x.grad.cpu(), torch.full((3,), 3.0)), x.grad
+mean, var = dp.batch_moments(torch.arange(8.0, device="cuda:0").reshape(2, 4)[rank:rank + 1] * 1.0, (0, 1))
+want_var, want_mean = torch.var_mean(torch.arange(8.0), correction=0)
+assert torch.allclose(mean.cpu(), want_mean) and torch.allclose(var.cpu(), want_var)
+print(f"OK rank {rank}")
+"""
+
+
+def test_gloo_collectives_on_cuda_tensors(gen, tmp_path):
+    """Two gloo ranks on the one card: the zero-buffer gather and its
+    gradient, and the global moments (the collectives phase 12 runs)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "gloo_cuda.py"
+    script.write_text(_GLOO_CUDA)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), f"127.0.0.1:{port}"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"OK rank {r}" in out, out[-3000:]

@@ -248,7 +248,9 @@ def test_port_imports_no_jax():
     for name in ("run.cli", "run.trainer", "run.checkpoint", "run.config",
                  "run.datamodule", "run.logging", "ops.warp_adjoint", "metrics.fsim",
                  "metrics.icid", "data.datasets", "data.distortions", "run.bucketing",
-                 "run.modules", "ops.parallax_train", "models.pasm", "models.dcmcs3di"):
+                 "run.modules", "ops.parallax_train", "models.pasm", "models.dcmcs3di",
+                 "parallel", "parallel.mesh", "parallel.multihost", "parallel.data_parallel",
+                 "tools.postprocess"):
         assert f"color_transfer_tpu_torch.{name}" in modules, name
 
 

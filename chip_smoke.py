@@ -158,6 +158,26 @@ fallback):
                 synthetic 1080p raw sample (three mp4v videos), the card's
                 PNGs within 1 LSB of the CPU's. One card with two ranks
                 checks correctness; it is no scaling figure.
+ 13. bf16      — runs last: DMSCT's bf16 recipes (tools/deep_gate.py's JAX
+                names). Full-width DMSCT serves phase 4's two 1080p pairs on
+                its weights in bf16, bf16-nofuse, bf16m, bf16c and
+                bf16+refine32: exact launch counts (B1 6 a frame, bf16 where
+                the recipe's correlation is; B2b 12 and B2c 6 a frame, bf16,
+                on the fused recipes), the output finite in [0, 1], warm
+                ms/frame, device busy ms and share, device ms by stage, peak
+                memory, the pair PSNR against phase 4's f32 output, the bf16
+                recipe's convolutions timed, and the small pair stage by
+                stage against the port's CPU run of the recipe (bf16 lines in
+                ulps); the bf16 kernels against their plain versions in bf16
+                ulps (B1 at the served and the training shapes on the smooth,
+                mixed and served flows; B2a with the shift mask, B2b self
+                and cross, B2c at the 1080p and the training shapes), each
+                timed beside its plain version, its bound and (B2a) SDPA in
+                bf16; the drift gate for all six recipes (one f32 run shared;
+                a near-miss again at seeds 1 and 2); three train steps at
+                configs/dmsct.yaml's full width in bf16c and bf16 (finite
+                losses, the matcher bit-unchanged, the corrector and its BN
+                statistics moved). Prints its time.
 Phases 7 and 10 also hold every distinct f32 conv of their recipe's train
 step, at the recipe's shape, to float64 (tools/conv_grads.py) and time the
 step with the backward through cuDNN and through ATen.
@@ -329,6 +349,8 @@ def build():
                                   r"row_attention_f32|conv3x3_bf16|conv3x3_f32|"
                                   r"window_attention_kernel|sublayer_kernel|"
                                   r"kv_projection_kernel|ffn_kernel|pack_weights_kernel|"
+                                  r"window_attention_bf16_kernel|sublayer_bf16_kernel|"
+                                  r"projection_bf16_kernel|ffn_bf16_kernel|"
                                   r"warp_adjoint_kernel)((?:I(?:L[ib]\d+E)+)?)", line)
                 if entry:  # e.g. row_attention_bf16 ILi64ELb1ELb0E: <C = 64, out, no colsum>
                     _log(f"  {entry.group(1)} {entry.group(2)}")
@@ -743,6 +765,12 @@ def _reset_launches():
         fn.launches = 0
         if hasattr(fn, "vector_launches"):  # B7's launches on its vector path
             fn.vector_launches = 0
+        if hasattr(fn, "bf16_launches"):  # the launches of a bf16 instantiation
+            fn.bf16_launches = 0
+
+
+def _bf16_launches():
+    return {fn.__name__: fn.bf16_launches for fn in _wrappers() if hasattr(fn, "bf16_launches")}
 
 
 def _launches():
@@ -780,10 +808,10 @@ def serve(rows):
     served = []  # the first B1 call's arguments: the flow the GRU loop gives it
     call = gmflow.local_correlation_with_flow
 
-    def keep(f0, f1, flow, local_radius):
+    def keep(f0, f1, flow, local_radius, **kw):
         if not served:
             served.extend([t.clone() for t in (f0, f1, flow)] + [local_radius])
-        return call(f0, f1, flow, local_radius)
+        return call(f0, f1, flow, local_radius, **kw)
 
     _reset_launches()
     gmflow.local_correlation_with_flow = keep
@@ -850,7 +878,8 @@ def serve(rows):
     _with_bound(rows[0], *_b1_bound(f0, flow, r), None)
     del served, f0, f1, flow
     numbers = {"out": out.cpu(), "ms_frame": ms_frame, "peak": peak,
-               "transformer": stages["matcher.transformer"] / FRAMES}
+               "transformer": stages["matcher.transformer"] / FRAMES, "stages": stages,
+               "busy": busy_ms}
     return module, variables, target, reference, numbers
 
 
@@ -967,12 +996,13 @@ def _device_kernels(run, calls=3):
 
 
 def _check_stages(label, model, variables, small_t, small_r, stages,
-                  forward=lambda m, t, r: m(t, r), functions=()):
+                  forward=lambda m, t, r: m(t, r), functions=(), lines=None):
     """``model`` on the card against the plain-torch CPU run on a small
     pair, stage by stage: each stage of the card model (a submodule, or a
     function (name, import name, attr) its modules call) runs on the inputs
     the CPU run gave that stage; every stage must agree within STAGE_RTOL of
-    max(1, max|ref|). Returns the end-to-end image max|d|, card vs CPU."""
+    max(1, max|ref|), or within ``lines[stage]`` (the same measure) where
+    given. Returns the end-to-end image max|d|, card vs CPU."""
     import copy
     import importlib
 
@@ -1038,7 +1068,8 @@ def _check_stages(label, model, variables, small_t, small_r, stages,
          "(relative): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     e2e = float((card_out - cpu_out).abs().max())
     _log(f"{label}: small pair end to end, card vs CPU: image max|d|={e2e:.3e}")
-    if set(worst) != names or max(worst.values()) > STAGE_RTOL:
+    lines = lines or {}
+    if set(worst) != names or any(v > lines.get(k, STAGE_RTOL) for k, v in worst.items()):
         raise AssertionError(f"{label}: a stage on the card disagrees with the CPU")
     return e2e
 
@@ -3384,6 +3415,435 @@ def scaling():
     _log(f"scaling: {smi}, {n} cards")
 
 
+# Phase 13: DMSCT's bf16 recipes (the JAX gate's names). Served at 1080p:
+# every recipe but bf16+fused (the same computation as bf16: "auto" fuses in
+# bf16); gated: all six.
+BF16_SERVED = ("bf16", "bf16-nofuse", "bf16m", "bf16c", "bf16+refine32")
+BF16_GATED = ("bf16", "bf16+fused", "bf16-nofuse", "bf16m", "bf16c", "bf16+refine32")
+# The bf16 kernels against their plain versions, in bf16 ulps of the
+# output's magnitude (2^(floor(log2 max|ref|) - 7)). B2a, B2b, B2c: both
+# round at the TPU kernel's points and sum exact products in f32 in other
+# orders, so a value within an f32 rounding of a bf16 boundary rounds the
+# other way, and in B2b's and B2c's chains a flip feeds the next rounding
+# (the CPU tests hold the plain versions to JAX's interpret kernels at 1 and
+# 2 ulps; JAX's own bf16 line, kernel against interpret, is 2e-2 absolute).
+# B1's output is f32 from exact products: f32 rounding only.
+B2_BF16_ULPS, B1_BF16_ULPS = 2, 1 / 64
+# Each model stage on the card against the port's CPU run of the same
+# recipe (cuDNN's and cuBLAS's bf16 sums against the CPU's, in other
+# orders: flips of an ulp, compounding through a stage's convs), relative
+# to max(1, max|ref|) in bf16 ulps of it (2^-7): the stage's line. Measured
+# on the first card run: backbone 1.6, transformer 2.8, propagation (f32
+# flow from bf16 projections) 0.12, encoder 0.03, decoder 0.5, head 0.13.
+BF16_STAGE_ULPS = {"matcher.backbone": 4, "matcher.transformer": 6,
+                   "matcher.feature_flow_attn": 0.25, "encoder": 1, "decoder": 2, "head": 1}
+# B2 at the bf16 path's shapes: 1080p scale 1 (the served shape) and the
+# training shape's two scales.
+B2_BF16_SHAPES = (((256, 448, 128), (8, 16, 28)), ((3072, 120, 128), (8, 8, 15)),
+                  ((96, 480, 128), (2, 16, 30)))
+# A gate failure "by a margin under 2x the line": every worst delta within
+# twice its line.
+NEAR_MISS = 2.0
+
+
+def _bf16_ulps(got, want):
+    """max|got - want| in bf16 ulps of max|want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / _bf16_ulp(float(want.abs().max()))
+
+
+def _recipe_lines(module):
+    """_check_stages' lines for ``module``'s recipe: a bf16 stage's in ulps,
+    the f32 stages' (the update block's f32 on identical inputs among them)
+    STAGE_RTOL."""
+    m = module.model
+    bf16 = {"matcher.backbone": m.matcher.compute_dtype is not None,
+            "matcher.transformer": m.matcher.compute_dtype is not None,
+            "matcher.feature_flow_attn": m.matcher.feature_flow_attn.dtype is not None
+            and m.matcher.feature_flow_attn.dtype != torch.float32,
+            "encoder": m.encoder.dtype is not None, "decoder": m.encoder.dtype is not None,
+            "head": m.encoder.dtype is not None}
+    return {k: max(STAGE_RTOL, BF16_STAGE_ULPS[k] * 2.0**-7) for k, v in bf16.items() if v}
+
+
+def _conv_times(run):
+    """Each distinct convolution ``run()`` calls (input shape, weight shape,
+    stride, padding, groups, dtype), timed once through the backend the call
+    took (cuDNN unless the caller turned it off), with its count. Printed,
+    not checked."""
+    import torch.nn.functional as F
+
+    seen = {}
+    conv2d = F.conv2d
+
+    def recording(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+        key = (tuple(x.shape), tuple(w.shape), str(stride), str(padding), groups, str(x.dtype),
+               torch.backends.cudnn.enabled)
+        if key not in seen:
+            seen[key] = [0, (x.detach(), w.detach(), None if b is None else b.detach(), stride,
+                             padding, dilation, groups)]
+        seen[key][0] += 1
+        return conv2d(x, w, b, stride, padding, dilation, groups)
+
+    F.conv2d = recording
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        F.conv2d = conv2d
+    out = []
+    for key, (count, args) in seen.items():
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=key[-1], allow_tf32=False):
+            ms = _time_ms(lambda: conv2d(*args), iters=5)
+        out.append((ms * count, ms, count, key))
+    return sorted(out, reverse=True)
+
+
+def serve_bf16(f32):
+    """Full-width DMSCT in each served recipe on phase 4's two 1080p pairs
+    and weights (seed 0), through color_transfer_between_videos: exact
+    launch counts (B1 6 a frame, in bf16 where the recipe's correlation is;
+    B2b 12 and B2c 6 a frame, all bf16, on the fused recipes), the output
+    finite in [0, 1], warm ms/frame, device busy ms and share, device ms by
+    stage, peak memory, the pair PSNR against phase 4's f32 output, and the
+    small pair stage by stage against the port's CPU run of the recipe.
+    Returns the bf16 recipe's launch counts and its first B1 call's
+    arguments (the served flow)."""
+    from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
+    from color_transfer_tpu_torch.models import gmflow
+    from color_transfer_tpu_torch.tools import deep_gate
+
+    target, reference = _dmsct_pairs()
+    kept = {}
+    table = []
+    for recipe in BF16_SERVED:
+        module = deep_gate.build("dmsct", recipe)
+        variables = module.init_eval_variables(seed=0, device="cuda")
+        m = module.model.matcher
+
+        def clip():
+            return color_transfer_between_videos(
+                target, reference, method="dmsct", module=module, variables=variables,
+                device="cuda")
+
+        served = []
+        call = gmflow.local_correlation_with_flow
+
+        def keep(f0, f1, flow, local_radius, **kw):
+            if not served:
+                served.extend([f0.clone(), f1.clone(), flow.clone(), local_radius])
+            return call(f0, f1, flow, local_radius, **kw)
+
+        _reset_launches()
+        gmflow.local_correlation_with_flow = keep
+        try:
+            out = clip()
+        finally:
+            gmflow.local_correlation_with_flow = call
+        torch.cuda.synchronize()
+        counts, bf16 = _launches(), _bf16_launches()
+        fused = (m.compute_dtype is not None
+                 and m.transformer.layers[0].self_attn.fused_attention is not False)
+        b1_bf16 = m.corr_dtype == torch.bfloat16 and m.refine_dtype is None
+        want = dict.fromkeys(counts, 0)
+        want["local_correlation_with_flow"] = m.num_reg_refine * FRAMES
+        want_bf16 = dict.fromkeys(bf16, 0)
+        want_bf16["local_correlation_with_flow"] = want["local_correlation_with_flow"] * b1_bf16
+        if fused:
+            for name, n in (("window_sublayer_fused", B2B_PER_FRAME), ("ffn_fused", B2C_PER_FRAME)):
+                want[name] = want_bf16[name] = n * FRAMES
+        _log(f"bf16 serve {recipe}: output {tuple(out.shape)}, launches {counts}, of them bf16 {bf16}")
+        if counts != want or bf16 != want_bf16:
+            raise AssertionError(f"bf16 serve {recipe}: launches {counts} / {bf16}, expected "
+                                 f"{want} / {want_bf16}")
+        if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"bf16 serve {recipe}: output shape or values")
+        if float(out.min()) < 0.0 or float(out.max()) > 1.0:
+            raise AssertionError(f"bf16 serve {recipe}: output outside [0, 1]")
+        if recipe == "bf16":
+            kept = {"counts": bf16, "served": served}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip()
+        torch.cuda.synchronize()
+        ms_frame = (time.perf_counter() - t0) * 1e3 / FRAMES
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stages = _stage_ms(module.model, clip)
+        busy = _device_busy_ms(clip, top=8 if recipe == "bf16" else 0) / FRAMES
+        d = out.cpu() - f32["out"]
+        psnr = 10 * math.log10(1.0 / max(float((d * d).mean()), 1e-30))
+        split = {k: v / FRAMES for k, v in stages.items()}
+        _log(f"bf16 serve {recipe}: warm pass {ms_frame:.1f} ms/frame (f32, phase 4: "
+             f"{f32['ms_frame']:.1f}), device busy {busy:.1f} ms/frame, busy share "
+             f"{busy / ms_frame:.3f}, peak memory {peak:.2f} GiB (f32 {f32['peak']:.2f}); pair "
+             f"PSNR against f32 on the same weights {psnr:.2f} dB, max|d| "
+             f"{float(d.abs().max()):.3e}")
+        _log(f"bf16 serve {recipe}: device ms/frame by stage: " + ", ".join(
+            f"{k} {v:.2f} (f32 {f32['stages'][k] / FRAMES:.2f})" for k, v in split.items()))
+        table.append({"recipe": recipe, "ms_frame": ms_frame, "busy_ms": busy,
+                      "busy_share": busy / ms_frame, "peak_gib": peak, "pair_psnr_db": psnr,
+                      "stages_ms": split, "launches": counts, "bf16_launches": bf16})
+        if recipe == "bf16":
+            convs = _conv_times(clip)
+            _log(f"bf16 serve {recipe}: the convolutions of the served pass "
+                 f"({sum(c[2] for c in convs)} calls, {len(convs)} distinct), device ms "
+                 "(total, per call, calls; input, weight, stride, padding, groups, dtype, "
+                 "cuDNN):")
+            for total, ms, count, key in convs[:16]:
+                _log(f"  {total:8.2f} {ms:7.3f} x{count:<3d} {key}")
+        _check_stages(f"dmsct {recipe}", module.model, variables,
+                      target[:1, ::8, ::8].contiguous(), reference[:1, ::8, ::8].contiguous(),
+                      ("matcher.backbone", "matcher.transformer", "matcher.feature_flow_attn",
+                       "matcher.refine", "encoder", "decoder", "head"),
+                      lines=_recipe_lines(module))
+        del module, variables, out
+        torch.cuda.empty_cache()
+    _log("bf16 serve table: " + json.dumps(table))
+    return kept
+
+
+def check_bf16_kernels(g, kept):
+    """The bf16 kernels against their plain versions at the bf16 path's
+    shapes, in bf16 ulps: B1 at the served (2, 128, 224, 128) shape on the
+    smooth, the mixed and the served flow (the bf16 recipe's first B1 call)
+    and at the training shape (24, 64, 120, 128); B2a with the shift mask,
+    B2b cross and self (the shift and the residual) and B2c at
+    B2_BF16_SHAPES. Each timed at the served shape beside its plain
+    version, its bound (bf16 bytes at 3.35 TB/s or bf16 products at 989
+    TFLOP/s) and, for B2a, SDPA in bf16 with the tiled mask. Returns the
+    four rows, their launches from the bf16 recipe's serving."""
+    import torch.nn.functional as F
+
+    from color_transfer_tpu_torch.ops import local_corr as lc
+    from color_transfer_tpu_torch.ops import win_attention as wn
+
+    bf = torch.bfloat16
+    rows = []
+    f0s, f1s, flow_s, r = kept["served"]
+    b1_row = None
+    for shape, kinds in (((2, 128, 224, 128), ("smooth", "mixed", "served")),
+                         ((24, 64, 120, 128), ("smooth", "mixed"))):
+        b, h, w, c = shape
+        f0 = torch.randn(b, h, w, c, generator=g).cuda().to(bf)
+        f1 = torch.randn(b, h, w, c, generator=g).cuda().to(bf)
+        for kind in kinds:
+            args = {"smooth": lambda: (f0, f1, _smooth_flow(b, h, w, "cuda")),
+                    "mixed": lambda: (f0, f1, _mixed_flow(g, b, h, w, "cuda")),
+                    "served": lambda: (f0s, f1s, flow_s)}[kind]()
+            if args[0].dtype != bf or tuple(args[0].shape) != shape:
+                raise AssertionError(f"B1 bf16 {kind}: served features {args[0].dtype} "
+                                     f"{tuple(args[0].shape)}")
+            with torch.no_grad():
+                got, routes = lc._launch(*args, 4, routes=True)
+                again = lc._launch(*args, 4)
+                want = lc.local_correlation_with_flow_plain(*args, 4)
+            err = _bf16_ulps(got, want)
+            if not torch.equal(got, again) or not torch.equal(
+                    routes.bool(), lc.tile_boxes(args[2], 4, lc.launch_plan(c, 4, 2))["staged"]):
+                raise AssertionError(f"B1 bf16 {kind}: two runs differ or a route is not tile_boxes'")
+            timed = shape[0] == 2
+            if timed:
+                with torch.no_grad():
+                    ms = _time_ms(lambda: lc.local_correlation_with_flow(*args, 4, corr_dtype=bf))
+                    plain_ms = _time_ms(lambda: lc.local_correlation_with_flow_plain(*args, 4),
+                                        iters=3)
+                    ms32 = _time_ms(lambda: lc.local_correlation_with_flow(
+                        args[0].float(), args[1].float(), args[2], 4))
+            _log(f"B1 bf16 {shape} {kind} flow: max|d| {err:.2e} ulps (line {B1_BF16_ULPS}), "
+                 f"staged tiles {float(routes.float().mean()):.4f}, two runs bit-equal"
+                 + (f", kernel {ms:.4f} ms (f32 kernel {ms32:.4f}), plain {plain_ms:.4f} ms"
+                    if timed else ""))
+            if not np.isfinite(err) or err > B1_BF16_ULPS:
+                raise AssertionError(f"B1 bf16 kernel disagrees ({kind}, {shape}): {err}")
+            if timed and kind == "served":
+                px = b * h * w
+                live = int(lc.window_starts(args[2], 4)[4].sum())
+                b1_row = {"name": "local_correlation_with_flow bf16", "route": "cuda",
+                          "source": "color_transfer_tpu_torch/csrc/local_corr.cu",
+                          "replaces": "color_transfer_tpu/ops/local_corr.py:217",
+                          "max_abs_err": float((got - want).abs().max()), "ms": ms,
+                          "plain_ms": plain_ms}
+                _with_bound(b1_row, 2 * 2 * px * c + 4 * 2 * px + 4 * px * 81,
+                            {"bf16": live * 100 * 2 * c}, None)
+        del f0, f1
+    b1_row["launches"] = kept["counts"]["local_correlation_with_flow"]
+    rows.append(b1_row)
+
+    c = 128
+    weights = [(torch.randn(*s, generator=g) / s[0] ** 0.5).cuda().to(bf)
+               for s in ((c, c), (c, 2 * c), (c, c))]
+    norm = [(1 + 0.1 * torch.randn(c, generator=g)).cuda(), (0.1 * torch.randn(c, generator=g)).cuda()]
+    w0 = (torch.randn(2 * c, B2_FFN, generator=g) / (2 * c) ** 0.5).cuda().to(bf)
+    w2 = (torch.randn(B2_FFN, c, generator=g) / B2_FFN**0.5).cuda().to(bf)
+    timed = {}
+    for shape, geom in B2_BF16_SHAPES:
+        x, y, v = (torch.randn(*shape, generator=g).cuda().to(bf) for _ in range(3))
+        cases = {
+            "B2a shift": (wn.window_attention_fused, wn.window_attention_plain, (x, y, v),
+                          {"shift_windows": geom}),
+            "B2b self": (wn.window_sublayer_fused, wn.window_sublayer_plain,
+                         (x, x, *weights, *norm), {"shift_windows": geom, "add_residual": True}),
+            "B2b cross": (wn.window_sublayer_fused, wn.window_sublayer_plain,
+                          (x, y, *weights, *norm), {}),
+            "B2c": (wn.ffn_fused, wn.ffn_plain, (x, y, w0, w2, *norm), {"add_residual": True}),
+        }
+        report = []
+        for label, (fn, plain, args, kw) in cases.items():
+            with torch.no_grad():
+                got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+            err = _bf16_ulps(got, want)
+            report.append(f"{label} {err:.2f}")
+            if got.dtype != bf or not torch.equal(got, again):
+                raise AssertionError(f"{label} bf16 at {shape}: dtype or two runs differ")
+            if not np.isfinite(err) or err > B2_BF16_ULPS:
+                raise AssertionError(f"{label} bf16 kernel disagrees at {shape}: {err} ulps")
+            if shape == B2_BF16_SHAPES[0][0]:
+                with torch.no_grad():
+                    a32 = tuple(t.float() if t.dtype == bf else t for t in args)
+                    timed[label] = (float((got.float() - want.float()).abs().max()),
+                                    _time_ms(lambda: fn(*args, **kw), iters=10),
+                                    _time_ms(lambda: plain(*args, **kw), iters=3),
+                                    _time_ms(lambda: fn(*a32, **kw), iters=5))
+            del got, again, want
+        _log(f"B2 bf16 {shape} geometry {geom}: max|d| in bf16 ulps (line {B2_BF16_ULPS}): "
+             + ", ".join(report))
+        if shape == B2_BF16_SHAPES[0][0]:
+            mask = wn.geometry_mask(*geom, device="cuda").to(bf)
+            attn_mask = mask.repeat(shape[0] // mask.shape[0], 1, 1)[:, None]
+            with torch.no_grad():
+                sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    x[:, None], y[:, None], v[:, None], attn_mask=attn_mask), iters=10)
+            _log(f"B2 bf16 {shape}, ms (kernel / plain / the f32 kernel): " + ", ".join(
+                f"{k} {ms:.4f} / {pm:.4f} / {m32:.4f}" for k, (_, ms, pm, m32) in timed.items())
+                + f"; SDPA in bf16 with the tiled mask {sdpa_ms:.4f}")
+            del mask, attn_mask
+        del x, y, v
+    torch.cuda.empty_cache()
+    (bp, length, c), _ = B2_BF16_SHAPES[0]
+    n = bp * length * c
+    attn = 4 * bp * length * length * c
+    proj = 8 * bp * length * c * c
+    ffn = bp * length * 2 * 3 * c * B2_FFN
+    for name, source, line, label, io, ops, lib in (
+            ("window_attention_fused bf16", "win_attention.cu", 175, "B2a shift",
+             2 * 4 * n, attn, sdpa_ms),
+            ("window_sublayer_fused bf16", "win_sublayer.cu", 321, "B2b cross",
+             2 * (3 * n + 4 * c * c) + 4 * 2 * c, proj + attn, None),
+            ("ffn_fused bf16", "win_ffn.cu", 524, "B2c", 2 * (3 * n + 3 * c * B2_FFN) + 4 * 2 * c,
+             ffn, None)):
+        err, ms, plain_ms, _ = timed[label]
+        row = {"name": name, "route": "cuda", "source": f"color_transfer_tpu_torch/csrc/{source}",
+               "replaces": f"color_transfer_tpu/ops/win_attention.py:{line}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "launches": kept["counts"][name.split()[0]]}
+        rows.append(_with_bound(row, io, {"bf16": ops}, lib))
+    return rows
+
+
+def gates_bf16():
+    """The drift gate (tools/deep_gate.py) at 544x960 over the 31
+    distortions for every DMSCT bf16 recipe at the weights of seed 0 (one
+    f32 run shared by the recipes); a recipe that fails by a margin under
+    NEAR_MISS times the line runs again at seeds 1 and 2. Verdicts are
+    reported (methods/gates.py records them), every row must be finite."""
+    from color_transfer_tpu_torch.tools import deep_gate
+
+    lines = {"worst_d_psnr_db": deep_gate.GATE_DB, "worst_d_ssim": deep_gate.GATE_SSIM,
+             "worst_d_icid": deep_gate.GATE_ICID}
+    baseline = {}
+    for recipe in BF16_GATED:
+        t0 = time.perf_counter()
+        summary, rows = deep_gate.run_gate("dmsct", recipe, height=GATE_HEIGHT, width=GATE_WIDTH,
+                                           device="cuda", baseline=baseline)
+        _log(f"gate dmsct {recipe}: {len(rows)} distortions in {time.perf_counter() - t0:.1f} s; "
+             "rows (i, pair PSNR, dPSNR, dSSIM, diCID): " + json.dumps(
+                 [[r["i"], round(r["pair_psnr"], 2), round(r["d_psnr"], 5), round(r["d_ssim"], 7),
+                   round(r["d_icid"], 7)] for r in rows]))
+        _log("gate summary: " + json.dumps(summary))
+        if len(rows) != 31 or not deep_gate.rows_finite(rows):
+            raise AssertionError(f"gate dmsct {recipe}: a row is missing or not finite")
+        margin = max(abs(summary[k]) / line for k, line in lines.items())
+        _log(f"gate dmsct {recipe}: verdict {'pass' if summary['pass'] else 'fail'}, the worst "
+             f"delta at {margin:.2f} of its line")
+        if not summary["pass"] and margin < NEAR_MISS:
+            for seed in (1, 2):
+                other, rows = deep_gate.run_gate("dmsct", recipe, height=GATE_HEIGHT,
+                                                 width=GATE_WIDTH, seed=seed, device="cuda",
+                                                 baseline=baseline)
+                _log(f"gate summary, weights of seed {seed}: " + json.dumps(other))
+                if not deep_gate.rows_finite(rows):
+                    raise AssertionError(f"gate dmsct {recipe} seed {seed}: a row is not finite")
+    del baseline
+    torch.cuda.empty_cache()
+
+
+def fit_bf16():
+    """configs/dmsct.yaml's train step at full width (batch 12, 256x480
+    crops; drop-connect on) in the bf16c and the bf16 recipe: three steps
+    on one seeded batch (the first warms up), each loss finite, the matcher
+    bit-unchanged, the corrector and every BatchNorm statistic moved; warm
+    ms/step and peak memory. (The float64 rule of phases 7 and 10 holds f32
+    convs; these are bf16 and it is not claimed for them.)"""
+    from color_transfer_tpu_torch.run.modules import DMSCTModule
+    from color_transfer_tpu_torch.tools import deep_gate
+
+    g = torch.Generator().manual_seed(7)
+    gt = torch.rand(TRAIN_BATCH, *TRAIN_CROP, 3, generator=g).cuda()
+    batch = {"gt": gt, "reference": torch.roll(gt, 8, dims=2) * 0.9 + 0.05}
+    for recipe in ("bf16c", "bf16"):
+        module = DMSCTModule(**deep_gate.recipe_kwargs("dmsct", recipe))
+        state = module.init_state(0, batch, num_train_steps=10)
+        start = {k: v.detach().clone() for k, v in state.variables.items()}
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for step in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, logs = module.train_step(state, batch, step, metrics=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(logs["Training Total Loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params = {name for name, _ in module.model.named_parameters()}
+        moved = {"corrector": 0, "bn": 0}
+        for name, value in state.variables.items():
+            same = torch.equal(value.detach(), start[name])
+            if name.startswith("matcher."):
+                if not same:
+                    raise AssertionError(f"fit {recipe}: the frozen matcher moved: {name}")
+            elif name.endswith(("running_mean", "running_var")):
+                moved["bn"] += not same
+            elif name in params:
+                moved["corrector"] += not same
+        n_bn = sum(k.endswith(("running_mean", "running_var")) for k in start)
+        n_corr = sum(k in params and not k.startswith("matcher.") for k in start)
+        _log(f"fit {recipe} ({TRAIN_BATCH} x {TRAIN_CROP[0]}x{TRAIN_CROP[1]}): step ms "
+             f"{', '.join(f'{t:.1f}' for t in ms)} (warm {sum(ms[1:]) / 2:.1f} ms/step), peak "
+             f"{peak:.2f} GiB, losses {', '.join(f'{v:.5f}' for v in losses)}; matcher "
+             f"bit-unchanged, corrector parameters moved {moved['corrector']}/{n_corr}, BN "
+             f"statistics {moved['bn']}/{n_bn}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"fit {recipe}: a non-finite loss")
+        if moved["corrector"] < 0.9 * n_corr or moved["bn"] != n_bn:
+            raise AssertionError(f"fit {recipe}: the corrector or its BN statistics did not move")
+        del module, state, start
+        torch.cuda.empty_cache()
+
+
+def bf16_recipes(rows, f32):
+    """Phase 13: DMSCT's bf16 recipes on the card (serve, kernels, gates,
+    fit); the bf16 kernels' rows join ``rows``."""
+    t0 = time.perf_counter()
+    kept = serve_bf16(f32)
+    rows += check_bf16_kernels(torch.Generator().manual_seed(13), kept)
+    del kept
+    torch.cuda.empty_cache()
+    gates_bf16()
+    fit_bf16()
+    _log(f"phase 13 (bf16 recipes): {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     smi = probe()
     build()
@@ -3404,6 +3864,7 @@ def main():
     check_conv_grads("dmsct")
     rows += check_win_kernels(torch.Generator().manual_seed(3))
     serve_fused(rows, unfused)
+    f32 = {k: unfused[k] for k in ("out", "ms_frame", "peak", "stages", "busy")}
     del unfused
     matcher_train_shape()
     gates()
@@ -3414,6 +3875,7 @@ def main():
         assets(Path(tmp))
     torch.cuda.empty_cache()
     data_parallel(smi)
+    bf16_recipes(rows, f32)
     _log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

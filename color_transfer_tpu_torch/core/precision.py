@@ -15,12 +15,15 @@ import torch
 
 @contextlib.contextmanager
 def full_f32():
-    """TF32 off for cuDNN and cuBLAS; autograd as the caller has it (the
-    training context). Also a decorator: ``@full_f32()``."""
+    """TF32 off for cuDNN and cuBLAS, and cuBLAS's bf16 products summed in
+    f32 (no reduced-precision split-K reduction: the bf16 recipes' sums are
+    f32, as the JAX package's); autograd as the caller has it (the training
+    context). Also a decorator: ``@full_f32()``."""
     matmul = torch.backends.cuda.matmul
     cudnn = torch.backends.cudnn
-    before = matmul.allow_tf32
+    before = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         with cudnn.flags(
             enabled=cudnn.enabled, benchmark=cudnn.benchmark,
@@ -28,7 +31,7 @@ def full_f32():
         ):
             yield
     finally:
-        matmul.allow_tf32 = before
+        matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = before
 
 
 @contextlib.contextmanager

@@ -1,4 +1,5 @@
-// Flow-displaced local correlation (GMFlow's GRU-loop correlation), f32.
+// Flow-displaced local correlation (GMFlow's GRU-loop correlation): f32
+// features, or bf16 features with f32 products and sums (the bf16 recipe).
 //
 // Replaces the TPU kernels in color_transfer_tpu/ops/local_corr.py
 // (_extract_kernel, the VPU schedule, and _mxu_group_kernel, the MXU
@@ -50,6 +51,16 @@
 // The route is chosen per tile from the data. No atomics: two runs are
 // bit-equal.
 //
+// bf16 features (matcher_corr_dtype="bfloat16", the TPU kernel's MXU
+// variant, which rounds both features to bf16 and forms bf16 x bf16 -> f32
+// products, exact, summed in f32): the same kernel, templated on the
+// feature type. Every 16-byte vector the kernel moves holds 8 bf16
+// channels instead of 4 floats, converted to f32 as it is read and
+// multiplied with f32 FMAs; a staged slice is still 128 bytes a position,
+// now 64 channels, so a stage holds the same box for twice the channels
+// and the f32 route's budget and layout carry over unchanged. The epilogue
+// and the output are f32.
+//
 // Measured (an H100 80GB HBM3 at 700 W, at (2, 128, 224, 128), r = 4): a
 // smooth flow stages every tile, 0.17 ms, about twice what its shared-memory
 // loads need; the served frame's flow at random init is rough (a tile's
@@ -58,18 +69,60 @@
 // ~6.3 TB/s: 0.22 ms.
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxTilePx = 64;
-constexpr int kSlice = 32;          // channels a stage holds
-constexpr int kVec = kSlice / 4;    // float4 of a position in a slice
-constexpr int kRegVec = 8;          // per-pixel route: a lane's float4 of f0 in registers
+constexpr int kSliceBytes = 128;          // bytes of a position a stage holds
+constexpr int kVec = kSliceBytes / 16;    // 16-byte vectors of a position in a slice
+constexpr int kPosFloats = kSliceBytes / 4;  // floats of a staged position (the dots' room)
+constexpr int kRegVec = 8;          // per-pixel route: a lane's vectors of f0 in registers
 
+// A 16-byte vector of features as floats: 4 f32 or 8 bf16 channels.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void load(const uint4& v, float (&f)[kN]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void load(const uint4& v, float (&f)[kN]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the low half is the lower channel
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// acc += <a, t> over one vector's channels, in channel order.
+template <typename T>
+__device__ __forceinline__ float dot_vec(const float (&a)[Vec<T>::kN], const uint4& t,
+                                         float acc) {
+  float b[Vec<T>::kN];
+  Vec<T>::load(t, b);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::kN; ++i) acc = fmaf(a[i], b[i], acc);
+  return acc;
+}
+
+template <typename T>
 struct Args {
-  const float* f0;
-  const float* f1;
+  const T* f0;
+  const T* f1;
   const float* flow;
   float* out;
   unsigned char* routes;  // per tile 1 staged, 0 per pixel; may be null
@@ -108,10 +161,12 @@ __device__ __forceinline__ float bilinear(const float* d, int k, int i, int j, f
          d11 * wy * wx;
 }
 
-// R: the radius. A block has tile_h * tile_w * (R + 1) threads: pixel
-// tid % npx, window rows tid / npx and tid / npx + R + 1.
-template <int R>
-__global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Args a) {
+// R: the radius; T: the feature type. A block has tile_h * tile_w * (R + 1)
+// threads: pixel tid % npx, window rows tid / npx and tid / npx + R + 1.
+template <int R, typename T>
+__global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Args<T> a) {
+  constexpr int kCh = Vec<T>::kN;       // channels a vector
+  constexpr int kSlice = kVec * kCh;    // channels a stage holds
   constexpr int K = 2 * R + 2;  // taps a side the epilogue reads
   constexpr int M = 2 * R + 1;  // outputs a side
   constexpr int RP = R + 1;     // a thread's second row is RP below its first
@@ -198,8 +253,8 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
       const int ch0 = sl * kSlice;
       for (int i = tid; i < n_box + npx * kVec; i += nthreads) {
         const int c4 = i & (kVec - 1);
-        const int ch = ch0 + 4 * c4;
-        const float* src = a.f1;
+        const int ch = ch0 + kCh * c4;
+        const T* src = a.f1;
         bool in;
         float4* dst;
         if (i < n_box) {
@@ -246,23 +301,16 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
           const int c4 = (k + lane) & (kVec - 1);
-          const float4 av = fa[c4];
+          float av[kCh];
+          Vec<T>::load(reinterpret_cast<const uint4*>(fa)[c4], av);
 #pragma unroll
-          for (int j = 0; j < K; ++j) {
-            const float4 t = box[(base0 + j) * kVec + c4];
-            acc0[j] = fmaf(av.x, t.x, acc0[j]);
-            acc0[j] = fmaf(av.y, t.y, acc0[j]);
-            acc0[j] = fmaf(av.z, t.z, acc0[j]);
-            acc0[j] = fmaf(av.w, t.w, acc0[j]);
-          }
+          for (int j = 0; j < K; ++j)
+            acc0[j] = dot_vec<T>(av, reinterpret_cast<const uint4*>(box)[(base0 + j) * kVec + c4],
+                                 acc0[j]);
 #pragma unroll
-          for (int j = 0; j < K; ++j) {
-            const float4 t = box[(base1 + j) * kVec + c4];
-            acc1[j] = fmaf(av.x, t.x, acc1[j]);
-            acc1[j] = fmaf(av.y, t.y, acc1[j]);
-            acc1[j] = fmaf(av.z, t.z, acc1[j]);
-            acc1[j] = fmaf(av.w, t.w, acc1[j]);
-          }
+          for (int j = 0; j < K; ++j)
+            acc1[j] = dot_vec<T>(av, reinterpret_cast<const uint4*>(box)[(base1 + j) * kVec + c4],
+                                 acc1[j]);
         }
       }
     }
@@ -294,12 +342,12 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
   }
 
   // Per-pixel route: one warp a pixel, eight taps at a time: lane (tq, g)
-  // takes tap tq of the group over the channel quarter g (float4 g, g + 4,
+  // takes tap tq of the group over the channel quarter g (vector g, g + 4,
   // ...), so a lane has its eight 16-byte loads of a tap in flight at once
   // and two shuffle steps sum a tap.
   float* dots = reinterpret_cast<float*>(smem4) + warp * K * K;
   const int nwarps = nthreads >> 5;
-  const int nvec = a.c >> 2;
+  const int nvec = a.c / kCh;
   const int tq = lane >> 2;
   const int g = lane & 3;
   for (int px = warp; px < npx; px += nwarps) {
@@ -313,12 +361,12 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
       for (int t = lane; t < M * M; t += 32) o[t] = 0.f;
       continue;
     }
-    const float4* f0v = reinterpret_cast<const float4*>(a.f0 + p * a.c);
-    float4 av[kRegVec];
+    const uint4* f0v = reinterpret_cast<const uint4*>(a.f0 + p * a.c);
+    uint4 av[kRegVec];
 #pragma unroll
     for (int m = 0; m < kRegVec; ++m) {
       const int idx = g + 4 * m;
-      av[m] = idx < nvec ? f0v[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+      av[m] = idx < nvec ? f0v[idx] : make_uint4(0u, 0u, 0u, 0u);
     }
     const int sx = s_sx[px], sy = s_sy[px];
     for (int t0 = 0; t0 < K * K; t0 += 8) {
@@ -328,26 +376,21 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
       const int yy = sy + i;
       float s = 0.f;
       if (tap < K * K && yy >= 0 && yy < a.h && xx >= 0 && xx < a.w) {
-        const float4* q = reinterpret_cast<const float4*>(
+        const uint4* q = reinterpret_cast<const uint4*>(
             a.f1 + (frame + static_cast<size_t>(yy) * a.w + xx) * a.c);
 #pragma unroll
         for (int m = 0; m < kRegVec; ++m) {
           const int idx = g + 4 * m;
           if (idx < nvec) {
-            const float4 t = q[idx];
-            s = fmaf(av[m].x, t.x, s);
-            s = fmaf(av[m].y, t.y, s);
-            s = fmaf(av[m].z, t.z, s);
-            s = fmaf(av[m].w, t.w, s);
+            float f[kCh];
+            Vec<T>::load(av[m], f);
+            s = dot_vec<T>(f, q[idx], s);
           }
         }
-        for (int idx = g + 4 * kRegVec; idx < nvec; idx += 4) {  // C > 128
-          const float4 f = f0v[idx];
-          const float4 t = q[idx];
-          s = fmaf(f.x, t.x, s);
-          s = fmaf(f.y, t.y, s);
-          s = fmaf(f.z, t.z, s);
-          s = fmaf(f.w, t.w, s);
+        for (int idx = g + 4 * kRegVec; idx < nvec; idx += 4) {  // past 8 vectors a lane
+          float f[kCh];
+          Vec<T>::load(f0v[idx], f);
+          s = dot_vec<T>(f, q[idx], s);
         }
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -363,17 +406,43 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
   }
 }
 
-template <int R>
-int launch(const Args& a, int batch, int smem, cudaStream_t stream) {
+template <int R, typename T>
+int launch(const Args<T>& a, int batch, int smem, cudaStream_t stream) {
   const int npx = a.tile_h * a.tile_w;
-  cudaError_t err = cudaFuncSetAttribute(local_corr_kernel<R>,
+  cudaError_t err = cudaFuncSetAttribute(local_corr_kernel<R, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((a.w + a.tile_w - 1) / a.tile_w),
                   static_cast<unsigned>((a.h + a.tile_h - 1) / a.tile_h),
                   static_cast<unsigned>(batch));
-  local_corr_kernel<R><<<grid, npx * (R + 1), smem, stream>>>(a);
+  local_corr_kernel<R, T><<<grid, npx * (R + 1), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int forward(const T* f0, const T* f1, const float* flow, float* out, unsigned char* routes,
+            int B, int H, int W, int C, int r, int tile_h, int tile_w, int slice, int stages,
+            int budget, int smem, float sqrt_c, void* stream) {
+  if (static_cast<long long>(B) * H * W == 0) return 0;
+  const int npx = tile_h * tile_w;
+  const int k = 2 * r + 2;
+  if (slice * static_cast<int>(sizeof(T)) != kSliceBytes || C % Vec<T>::kN != 0 || npx < 32 ||
+      npx > kMaxTilePx || npx % 32 != 0 || stages < 1 || stages > 3 || budget < 1 ||
+      static_cast<long long>(stages) * (budget + kMaxTilePx) * kSliceBytes > smem ||
+      static_cast<long long>(budget + kMaxTilePx) * kPosFloats <
+          static_cast<long long>(npx) * k * k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args<T> a{f0, f1, flow, out, routes, H, W, C, tile_h, tile_w, stages, budget, sqrt_c};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 0: return launch<0, T>(a, B, smem, st);
+    case 1: return launch<1, T>(a, B, smem, st);
+    case 2: return launch<2, T>(a, B, smem, st);
+    case 3: return launch<3, T>(a, B, smem, st);
+    case 4: return launch<4, T>(a, B, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -389,23 +458,17 @@ extern "C" int local_corr_forward(const float* f0, const float* f1, const float*
                                   int C, int r, int tile_h, int tile_w, int slice,
                                   int stages, int budget, int smem, float sqrt_c,
                                   void* stream) {
-  if (static_cast<long long>(B) * H * W == 0) return 0;
-  const int npx = tile_h * tile_w;
-  const int k = 2 * r + 2;
-  if (slice != kSlice || npx < 32 || npx > kMaxTilePx || npx % 32 != 0 || stages < 1 ||
-      stages > 3 || budget < 1 ||
-      static_cast<long long>(stages) * (budget + kMaxTilePx) * kSlice * 4 > smem ||
-      static_cast<long long>(budget + kMaxTilePx) * kSlice < static_cast<long long>(npx) * k * k) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Args a{f0, f1, flow, out, routes, H, W, C, tile_h, tile_w, stages, budget, sqrt_c};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 0: return launch<0>(a, B, smem, st);
-    case 1: return launch<1>(a, B, smem, st);
-    case 2: return launch<2>(a, B, smem, st);
-    case 3: return launch<3>(a, B, smem, st);
-    case 4: return launch<4>(a, B, smem, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return forward<float>(f0, f1, flow, out, routes, B, H, W, C, r, tile_h, tile_w, slice,
+                        stages, budget, smem, sqrt_c, stream);
+}
+
+// The same with bf16 features (C a multiple of 8, `slice` 64 channels);
+// the flow and `out` stay f32.
+extern "C" int local_corr_forward_bf16(const __nv_bfloat16* f0, const __nv_bfloat16* f1,
+                                       const float* flow, float* out, unsigned char* routes,
+                                       int B, int H, int W, int C, int r, int tile_h,
+                                       int tile_w, int slice, int stages, int budget, int smem,
+                                       float sqrt_c, void* stream) {
+  return forward<__nv_bfloat16>(f0, f1, flow, out, routes, B, H, W, C, r, tile_h, tile_w,
+                                slice, stages, budget, smem, sqrt_c, stream);
 }

@@ -25,6 +25,14 @@
 // win_common.cuh::attend (3xTF32 mma.sync, scores in registers, an online
 // softmax per key share, cp.async K/V tiles; its header says more) leaves
 // the result in shared memory; the block then writes it out row by row.
+//
+// bf16 (window_attention_forward_bf16; the TPU kernels' bf16 route): bf16
+// q, k, v and out, the scores and the softmax in f32, p rounded to bf16
+// before P.V, which sums in f32 and is rounded to bf16 at the end. One
+// block per (window, 64 query rows), 4 warps; win_common.cuh::attend_bf16
+// (one bf16 mma.sync a product, two passes over the keys so that p is
+// normalised before it is rounded) leaves each warp's 16 rows in registers,
+// which the block rounds and writes out.
 
 #include "win_common.cuh"
 
@@ -52,6 +60,35 @@ window_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
+__global__ void __launch_bounds__(kThreadsB, 2)
+window_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, bf16* __restrict__ out, int L,
+                             float scale, Mask mask) {
+  extern __shared__ float4 smem4[];
+  const AttnSmemB sm(reinterpret_cast<bf16*>(smem4));
+  const int w = blockIdx.y;
+  const int q0 = blockIdx.x * kRowsB;
+  const int nq = min(kRowsB, L - q0);
+  const long long base = static_cast<long long>(w) * L * kC;
+
+  stage_bf16(sm.q, kBS, q + base + static_cast<long long>(q0) * kC, kC, kRowsB, kC, nq,
+             kThreadsB);
+  cp_async_commit();
+  float o[16][4];
+  attend_bf16(sm, k + base, v + base, kC, L, w, q0, nq, scale, mask, o);
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= nq) continue;
+    bf16* row = out + base + static_cast<long long>(q0 + r) * kC + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+  }
+}
+
 }  // namespace
 
 // q, k, v, out: (n_windows, L, 128) f32, contiguous, on one device. mode 0:
@@ -74,6 +111,26 @@ extern "C" int window_attention_forward(const float* q, const float* k, const fl
   const Mask m{mode, mask, n_mask, kw, hs, ws};
   const dim3 grid((L + kRows - 1) / kRows, n_windows);
   window_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, L, scale, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for bf16 q, k, v and out (the mask operand stays f32).
+extern "C" int window_attention_forward_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                             const float* mask, bf16* out, int n_windows,
+                                             int L, int mode, int n_mask, int kw, int hs,
+                                             int ws, float scale, void* stream) {
+  if (n_windows == 0 || L == 0) return 0;
+  const size_t smem = sizeof(bf16) * AttnSmemB::kElems;
+  if (smem > static_cast<size_t>(kMaxSmem) || n_windows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Mask m{mode, mask, n_mask, kw, hs, ws};
+  const dim3 grid((L + kRowsB - 1) / kRowsB, n_windows);
+  window_attention_bf16_kernel<<<grid, kThreadsB, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, out, L, scale, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 // Pieces shared by the matcher transformer's kernels: win_attention.cu (B2a),
-// win_sublayer.cu (B2b) and win_ffn.cu (B2c). f32 operands, tokens 128
-// floats wide (GMFlow's d_model). Every product runs on the tensor cores in
+// win_sublayer.cu (B2b) and win_ffn.cu (B2c). Tokens 128 channels wide
+// (GMFlow's d_model). The f32 kernels' pieces come first; the bf16 ones
+// (the bfloat16 recipe, one bf16 mma.sync a product) are in the last
+// section of this file. f32 operands: Every product runs on the tensor cores in
 // 3xTF32 (mma.sync.m16n8k8), f32's accuracy: the attention core (attend)
 // and the weight products (the GEMM core at the end of this file: B2b's q,
 // k/v and merge projections, B2c's two FFN products). Blocks run kThreads =
@@ -10,6 +12,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -747,6 +750,353 @@ __device__ __forceinline__ void store_acc(float* dst, long long ld, const float 
                  : make_float2(acc[m][i][2 * e], acc[m][i][2 * e + 1]);
       }
     }
+}
+
+
+// ---- bf16: the bfloat16 recipe's pieces, mma.sync.m16n8k16 ---------------
+//
+// The TPU kernels take bf16 tokens and weights on their bf16 route and
+// round where the JAX package's kernel bodies round
+// (color_transfer_tpu/ops/win_attention.py): a product's operands are bf16,
+// its products exact and its sums f32 (bf16 x bf16 -> f32 on the MXU), and
+// its result is rounded to bf16 where the TPU kernel casts it. Here each
+// product is one mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (3xTF32's three
+// products become one). Fragments (PTX ISA, m16n8k16, lane = 4 g + t4):
+//   A (16 x 16, row): a0 (row g, k 2t4, 2t4 + 1), a1 (row g + 8, same k),
+//     a2 (row g, k 2t4 + 8, + 9), a3 (row g + 8, k 2t4 + 8, + 9);
+//   B (16 x 8, col): b0 (k 2t4, 2t4 + 1; column g), b1 (k 2t4 + 8, + 9);
+//   C (16 x 8, f32): c0, c1 (row g, columns 2t4, 2t4 + 1), c2, c3 (row g + 8).
+// Two n-tiles of an accumulator (16 columns) rounded to bf16 and packed in
+// pairs are the A fragment of a k-step whose k runs over those columns (P
+// before P.V, the message before the merge, gelu(h) before h W2): no
+// permutation, no shared memory. Operands in shared memory are read with
+// ldmatrix: A tiles and K (keys x channels, whose rows are B's columns)
+// without .trans, V and the weights (input-major, K x N row-major) with
+// .trans. Tiles of 128 bf16 channels use a row stride of 136 (kBS, 272
+// bytes): the eight 16-byte rows an 8 x 8 matrix reads fall in distinct
+// bank groups.
+//
+// The attention (attend_bf16) keeps JAX's rounding: the softmax is
+// normalised in f32 before p is rounded to bf16, as the TPU kernel rounds
+// softmax(s) (an online softmax would round exp(s - running max) and
+// normalise after). So it runs two passes over the keys: the first takes
+// each query row's max and sum, the second recomputes the scores (one bf16
+// MMA a product: cheap beside 3xTF32), forms p = exp(s - max) / sum in f32,
+// rounds it to bf16 and accumulates P.V in f32. A block holds kRowsB = 64
+// query rows, a warp 16 of them with the query's A fragments (all 128
+// channels) in registers.
+
+constexpr int kBS = kC + 8;        // bf16 row stride of a 128-wide tile in shared memory
+constexpr int kRowsB = 64;         // query rows (tokens) of a bf16 block: 16 a warp
+constexpr int kThreadsB = 128;     // 4 warps
+constexpr int kTileB = 64;         // keys (or values) staged at a time
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l & 7 of matrix l >> 3; r[m] is this lane's part of matrix m (row g,
+// columns 2t4, 2t4 + 1; with .trans, rows 2t4, 2t4 + 1 of column g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// Two floats rounded to bf16 (to nearest, ties to even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src, bool pred) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+// Rows of `cols` bf16 (a multiple of 8; src + r * ld, 16-byte aligned rows)
+// into dst (row stride ds), zeros from row `valid` on; cp.async by the
+// block's `nthreads` threads, no commit.
+__device__ __forceinline__ void stage_bf16(bf16* dst, int ds, const bf16* src, long long ld,
+                                           int rows, int cols, int valid, int nthreads) {
+  const int per_row = cols / 8;
+  for (int i = threadIdx.x; i < rows * per_row; i += nthreads) {
+    const int r = i / per_row, c = (i - r * per_row) * 8;
+    cp_async16b(dst + r * ds + c, src + (r < valid ? r : 0) * ld + c, r < valid);
+  }
+}
+
+// acc (16 rows x 2 NP n-tiles: columns n0 .. n0 + 16 NP - 1) += A . W over
+// 16 KS channels: A's rows at `a` (this warp's first row, row stride lda),
+// W (K x N, input-major) at `w` (its row k0, column n0; row stride ldw),
+// both in shared memory.
+template <int KS, int NP>
+__device__ __forceinline__ void warp_gemm_bf16(float (&acc)[2 * NP][4], const bf16* a, int lda,
+                                               const bf16* w, int ldw) {
+  const int lane = threadIdx.x & 31;
+  const bf16* ap = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const bf16* wp = w + (lane & 15) * ldw + (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t af[4];
+    ldsm_x4(af, ap + 16 * ks);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, wp + 16 * ks * ldw + 16 * np);
+      mma_bf16(acc[2 * np], af, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 rows x 2 NP n-tiles) += P . W for one k-step whose A fragment pa
+// is in registers: W's 16 rows at `w` (row stride ldw, column n0).
+template <int NP>
+__device__ __forceinline__ void warp_step_bf16(float (&acc)[2 * NP][4], const uint32_t (&pa)[4],
+                                               const bf16* w, int ldw) {
+  const int lane = threadIdx.x & 31;
+  const bf16* wp = w + (lane & 15) * ldw + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < NP; ++np) {
+    uint32_t b[4];
+    ldsm_x4_t(b, wp + 16 * np);
+    mma_bf16(acc[2 * np], pa, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], pa, b[2], b[3]);
+  }
+}
+
+// The A fragment of k-step ks from accumulator n-tiles 2 ks and 2 ks + 1,
+// rounded to bf16.
+template <int NT>
+__device__ __forceinline__ void acc_to_a(uint32_t (&pa)[4], const float (&acc)[NT][4], int ks) {
+  pa[0] = pack_bf16(acc[2 * ks][0], acc[2 * ks][1]);
+  pa[1] = pack_bf16(acc[2 * ks][2], acc[2 * ks][3]);
+  pa[2] = pack_bf16(acc[2 * ks + 1][0], acc[2 * ks + 1][1]);
+  pa[3] = pack_bf16(acc[2 * ks + 1][2], acc[2 * ks + 1][3]);
+}
+
+// The bf16 attention kernels' shared memory: the query tile (kRowsB x kBS),
+// the K and the V tile (kTileB x kBS each).
+struct AttnSmemB {
+  bf16 *q, *k, *v;
+  __device__ explicit AttnSmemB(bf16* base)
+      : q(base), k(base + kRowsB * kBS), v(base + (kRowsB + kTileB) * kBS) {}
+  static constexpr size_t kElems = static_cast<size_t>(kRowsB + 2 * kTileB) * kBS;
+};
+
+// Query rows q0 + 16 warp + (g, g + 8) of window w (the query tile staged
+// in sm.q by the caller, its cp.async group committed) attend to the
+// window's L keys (key n at kbase + n * ld, value n at vbase + n * ld,
+// device memory, 16-byte aligned rows). o: this warp's 16 x 128 result in
+// f32 (not yet rounded), n-tile j holding channels 8 j + 2 t4, + 1 of rows
+// g (o[j][0..1]) and g + 8 (o[j][2..3]). Starts by waiting for the caller's
+// copies and a barrier; leaves sm.k and sm.v in use (barrier before reuse).
+__device__ __forceinline__ void attend_bf16(const AttnSmemB& sm, const bf16* kbase,
+                                            const bf16* vbase, long long ld, int L, int w,
+                                            int q0, int nq, float scale, const Mask& mask,
+                                            float (&o)[16][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's local rows r0 and r0 + 8
+
+  bool last_row = false, last_col = false;
+  int qlab[2] = {0, 0};
+  if (mask.mode == 1) {
+    const int gw = w % (mask.kw * mask.kw);
+    last_row = gw / mask.kw == mask.kw - 1;
+    last_col = gw % mask.kw == mask.kw - 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qlab[h] = region_label(q0 + r0 + 8 * h, last_row, last_col, mask.hs, mask.ws);
+  }
+  const bool banded = mask.mode == 1 && (last_row || last_col);
+  // A key's label without integer division, as attend's.
+  const int row_split = (mask.hs - mask.hs / 2) * mask.ws, col_split = mask.ws - mask.ws / 2;
+  const float inv_ws = banded ? 1.f / static_cast<float>(mask.ws) : 0.f;
+  auto key_label = [&](int n) {
+    const int c = n - mask.ws * static_cast<int>((static_cast<float>(n) + 0.5f) * inv_ws);
+    return 3 * (last_row ? (n < row_split ? 1 : 2) : 0) +
+           (last_col ? (c < col_split ? 1 : 2) : 0);
+  };
+  const float* mw = mask.mode == 2
+                        ? mask.m + static_cast<long long>(w % mask.n_mask) * L * L
+                        : nullptr;
+
+  cp_async_wait_all();
+  __syncthreads();  // the query tile is in
+  uint32_t qa[8][4];  // the query's A fragments, 8 k-steps of 16 channels
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    ldsm_x4(qa[ks], sm.q + (16 * warp + (lane & 15)) * kBS + 16 * ks + (lane >> 4) * 8);
+
+  // S (16 x 64 keys: 8 n-tiles) of the staged K tile, scaled and masked,
+  // -inf past L.
+  auto scores = [&](float (&s)[8][4], int n0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const bf16* kp = sm.k + ((lane >> 4) * 8 + (lane & 7)) * kBS + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, kp + 16 * np * kBS + 16 * ks);
+        mma_bf16(s[2 * np], qa[ks], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa[ks], b[2], b[3]);
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = n0 + 8 * j + 2 * t4 + c;
+        const int lab = banded ? key_label(n) : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = s[j][2 * h + c] * scale;
+          if (n >= L) {
+            v = -INFINITY;
+          } else if (banded) {
+            if (qlab[h] != lab) v -= 100.f;
+          } else if (mw != nullptr && r0 + 8 * h < nq) {
+            v += mw[static_cast<long long>(q0 + r0 + 8 * h) * L + n];
+          }
+          s[j][2 * h + c] = v;
+        }
+      }
+  };
+
+  // Pass 1: each row's max and sum of exp(s - max) (this thread's columns,
+  // rescaled as the max moves; the quad's four parts added at the end).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int n0 = 0; n0 < L; n0 += kTileB) {
+    __syncthreads();  // every warp is done with the previous K tile
+    stage_bf16(sm.k, kBS, kbase + static_cast<long long>(n0) * ld, ld, kTileB, kC,
+               min(kTileB, L - n0), kThreadsB);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    float s[8][4];
+    scores(s, n0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[h], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * h] - mn) + expf(s[j][2 * h + 1] - mn);
+      l[h] = (m[h] == -INFINITY ? 0.f : l[h] * expf(m[h] - mn)) + sum;
+      m[h] = mn;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+  // Pass 2: p = exp(s - max) / sum in f32, rounded to bf16, times V.
+#pragma unroll
+  for (int j = 0; j < 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  const bf16* vp = sm.v + (lane & 15) * kBS + (lane >> 4) * 8;
+  for (int n0 = 0; n0 < L; n0 += kTileB) {
+    __syncthreads();  // every warp is done with the previous K and V tiles
+    const int nv = min(kTileB, L - n0);
+    stage_bf16(sm.k, kBS, kbase + static_cast<long long>(n0) * ld, ld, kTileB, kC, nv,
+               kThreadsB);
+    stage_bf16(sm.v, kBS, vbase + static_cast<long long>(n0) * ld, ld, kTileB, kC, nv,
+               kThreadsB);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    float s[8][4];
+    scores(s, n0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {  // keys 16 ks .. of the tile
+      uint32_t pa[4];
+      acc_to_a<8>(pa, s, ks);
+#pragma unroll
+      for (int cp = 0; cp < 8; ++cp) {  // channels 16 cp ..
+        uint32_t b[4];
+        ldsm_x4_t(b, vp + 16 * ks * kBS + 16 * cp);
+        mma_bf16(o[2 * cp], pa, b[0], b[1]);
+        mma_bf16(o[2 * cp + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Per row of this warp (g, g + 8), LayerNorm of y (16 n-tiles of f32 values,
+// each already bf16-valued) by the JAX formula, rounded to bf16, plus the
+// residual row (bf16, added in f32 and rounded) when res is not null;
+// stored as bf16 pairs at out (row stride 128). Rows from `valid` on (local
+// index r0 + 8 h) are not written.
+__device__ __forceinline__ void layer_norm_store_bf16(float (&y)[16][4], const float* scale,
+                                                      const float* bias, const bf16* res,
+                                                      bf16* out, int r0, int valid) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float a = y[j][2 * h], b = y[j][2 * h + 1];
+      sum += a + b;
+      sq += a * a + b * b;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    const float mean = sum / kC;
+    const float var = fmaxf(0.f, sq / kC - mean * mean);
+    const float inv = 1.f / sqrtf(var + 1e-6f);
+    const int r = r0 + 8 * h;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * t4;
+      float a = round_bf16((y[j][2 * h] - mean) * (inv * scale[c]) + bias[c]);
+      float b = round_bf16((y[j][2 * h + 1] - mean) * (inv * scale[c + 1]) + bias[c + 1]);
+      if (res != nullptr) {
+        const float2 x = unpack_bf16(*reinterpret_cast<const uint32_t*>(res + r * kC + c));
+        a += x.x;
+        b += x.y;
+      }
+      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(r) * kC + c) = pack_bf16(a, b);
+    }
+  }
 }
 
 }  // namespace win

@@ -13,6 +13,12 @@ does (``_BN``). Train mode also applies drop-connect (stochastic depth) on
 the skip blocks, rate ``drop_connect_rate * block / total_blocks`` as in
 the JAX package, one Bernoulli draw per sample from the generator passed
 in. Padding is symmetric (k // 2), as in the JAX package.
+
+``dtype`` (the corrector's compute dtype, None for float32) computes the
+convs as flax's ``dtype=`` does (models/layers.py::conv_in); BatchNorm's
+statistics and normalisation are f32 and its output is in the dtype, the
+squeeze-excite mean is taken in f32 and then cast, and the drop-connect
+mask is cast to the activations' dtype, as in the JAX package.
 """
 
 import math
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from color_transfer_tpu_torch.models.layers import REDUCED, conv_in, reduced_dtype, widen
 from color_transfer_tpu_torch.parallel.data_parallel import batch_moments, current_shard
 
 # (kernel, stride, expand, base_out_filters, base_repeats) for b0 stages.
@@ -118,13 +125,32 @@ def drop_connect(x, rate, generator=None):
     return x * (draw < keep).to(x.dtype) / keep
 
 
+def _sigmoid(x):
+    """The logistic; in a reduced dtype op by op, 1 / (1 + exp(-x)) rounded
+    after each op, as jax.nn.sigmoid lowers on a bf16 array."""
+    return 1 / (1 + torch.exp(-x)) if x.dtype in REDUCED else torch.sigmoid(x)
+
+
+def _silu(x):
+    """SiLU; in a reduced dtype x * sigmoid(x), the sigmoid rounded first
+    (jax.nn.silu on a bf16 array)."""
+    return x * _sigmoid(x) if x.dtype in REDUCED else F.silu(x)
+
+
+def _bn(bn, x, train):
+    """BatchNorm in f32 (statistics, running statistics, normalisation),
+    the output in x's dtype (flax's BatchNorm with ``dtype=``)."""
+    return bn(x.float(), train).to(x.dtype) if x.dtype in REDUCED else bn(x, train)
+
+
 class MBConv(nn.Module):
     """Inverted bottleneck: expand 1x1, depthwise kxk, squeeze-excite on the
     block's input filter count, project 1x1, identity skip. NCHW."""
 
     def __init__(self, in_filters, out_filters, kernel, stride, expand,
-                 se_ratio=0.25):
+                 se_ratio=0.25, dtype=None):
         super().__init__()
+        self.dtype = reduced_dtype(dtype)
         filters = in_filters * expand
         self.skip = stride == 1 and in_filters == out_filters
         if expand != 1:
@@ -142,13 +168,14 @@ class MBConv(nn.Module):
         self._bn2 = _BN(out_filters)
 
     def forward(self, x, train=False, drop_rate=0.0, generator=None):
+        dt = self.dtype
         inp = x
         if hasattr(self, "_expand_conv"):
-            x = F.silu(self._bn0(self._expand_conv(x), train))
-        x = F.silu(self._bn1(self._depthwise_conv(x), train))
-        se = x.mean(dim=(2, 3), keepdim=True)
-        se = torch.sigmoid(self._se_expand(F.silu(self._se_reduce(se))))
-        x = self._bn2(self._project_conv(x * se), train)
+            x = _silu(_bn(self._bn0, conv_in(self._expand_conv, x, dt), train))
+        x = _silu(_bn(self._bn1, conv_in(self._depthwise_conv, x, dt), train))
+        se = widen(x).mean(dim=(2, 3), keepdim=True).to(x.dtype)  # the mean in f32
+        se = _sigmoid(conv_in(self._se_expand, _silu(conv_in(self._se_reduce, se, dt)), dt))
+        x = _bn(self._bn2, conv_in(self._project_conv, x * se, dt), train)
         if self.skip:
             if train and drop_rate > 0:
                 x = drop_connect(x, drop_rate, generator)
@@ -160,8 +187,10 @@ class EfficientNetEncoder(nn.Module):
     """NHWC image -> list of NHWC features [input, f2, f4, ...] (depth + 1
     entries). Only the blocks that feed the deepest requested tap exist."""
 
-    def __init__(self, name_variant="efficientnet-b2", depth=4, drop_connect_rate=0.2):
+    def __init__(self, name_variant="efficientnet-b2", depth=4, drop_connect_rate=0.2,
+                 dtype=None):
         super().__init__()
+        self.dtype = reduced_dtype(dtype)
         width, depth_c = _COEFFS[name_variant]
         self.depth = depth
         self.drop_connect_rate = drop_connect_rate
@@ -179,7 +208,7 @@ class EfficientNetEncoder(nn.Module):
             out_filters = round_filters(base_out, width)
             for r in range(round_repeats(base_r, depth_c)):
                 blocks.append(MBConv(in_filters, out_filters, k,
-                                     s if r == 0 else 1, e))
+                                     s if r == 0 else 1, e, dtype=dtype))
                 in_filters = out_filters
             if stage_idx in _TAPS and _TAPS[stage_idx] <= depth:
                 self.tap_after[len(blocks) - 1] = _TAPS[stage_idx]
@@ -190,7 +219,8 @@ class EfficientNetEncoder(nn.Module):
         """``train``: batch statistics (updating the running ones) and
         drop-connect, whose masks come from ``generator``."""
         features = [x]
-        y = F.silu(self._bn0(self._conv_stem(x.permute(0, 3, 1, 2)), train))
+        y = _silu(_bn(self._bn0, conv_in(self._conv_stem, x.permute(0, 3, 1, 2), self.dtype),
+                      train))
         if self.depth >= 1:
             features.append(y.permute(0, 2, 3, 1))
         for i, block in enumerate(self._blocks):

@@ -1,4 +1,4 @@
-"""GMFlow / UniMatch optical-flow matcher (flow task, f32) in PyTorch.
+"""GMFlow / UniMatch optical-flow matcher (flow task) in PyTorch.
 
 Port of color_transfer_tpu/models/gmflow.py: 2 scales, 128 channels,
 upsample x4, 6 transformer layers, 6 GRU refinements. Parameter names follow
@@ -18,6 +18,22 @@ The GRU loop's correlation is ops/local_corr.py (the CUDA kernel on a
 CUDA tensor). With ``fused_attention=True`` the transformer's eligible
 layers run the fused ops of ops/win_attention.py (kernels B2b and B2c on a
 CUDA tensor).
+
+Mixed precision (the JAX package's knobs; None is float32 throughout):
+  * ``compute_dtype``: the backbone's convs and the transformer compute in
+    this dtype as flax's ``dtype=`` does (inputs and weights cast, the
+    output in the dtype, a bias cast and added in it, the parameters f32);
+    InstanceNorm statistics, the attention's scores and softmax and the
+    LayerNorm statistics stay f32. "auto" fuses the transformer exactly in
+    bfloat16;
+  * ``refine_dtype``: SelfAttnPropagation's dtype (else compute_dtype), and
+    when set, the transformer's output features and the GRU loop's
+    features are cast to it (the "refine32" recipe pins the flow arithmetic
+    to f32);
+  * ``corr_dtype``: the GRU loop's correlation (kernel B1) in this dtype,
+    unless refine_dtype overrides it.
+The correlation softmaxes take the features in whatever dtype they arrive
+in, with f32 products and sums; refine_proj and the update block stay f32.
 """
 
 import math
@@ -34,12 +50,21 @@ from color_transfer_tpu_torch.core.sampling import (
     flow_warp,
     forward_backward_consistency,
 )
+from color_transfer_tpu_torch.models.layers import (
+    REDUCED,
+    conv_in,
+    dense_in,
+    reduced_dtype,
+    widen,
+)
 from color_transfer_tpu_torch.ops.local_corr import local_correlation_with_flow
 from color_transfer_tpu_torch.ops.win_attention import (
     eligible,
     ffn_eligible,
     ffn_fused,
+    layer_norm,
     window_attention_fused,
+    window_attention_plain,
     window_sublayer_fused,
 )
 
@@ -52,14 +77,31 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _gelu(x):
+    """Exact GELU; in a reduced dtype op by op, 0.5 x erfc(-x sqrt(1/2))
+    rounded after each op as jax.nn.gelu(approximate=False) computes on a
+    bf16 array."""
+    if x.dtype not in REDUCED:
+        return F.gelu(x)
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+def _instance_norm(norm, x):
+    """InstanceNorm with f32 statistics, the output in x's dtype (the JAX
+    package's _InstanceNorm)."""
+    return norm(x.float()).to(x.dtype) if x.dtype in REDUCED else norm(x)
+
+
 # ---------------------------------------------------------------------------
 # CNN encoder
 # ---------------------------------------------------------------------------
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, in_planes, planes, stride=1):
+    def __init__(self, in_planes, planes, stride=1, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.norm1 = nn.InstanceNorm2d(planes, eps=1e-5)
@@ -72,10 +114,11 @@ class ResidualBlock(nn.Module):
             )
 
     def forward(self, x):  # NCHW
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+        dt = self.dtype
+        y = F.relu(_instance_norm(self.norm1, conv_in(self.conv1, x, dt)))
+        y = F.relu(_instance_norm(self.norm2, conv_in(self.conv2, y, dt)))
         if self.downsample is not None:
-            x = self.downsample(x)
+            x = _instance_norm(self.downsample[1], conv_in(self.downsample[0], x, dt))
         return F.relu(x + y)
 
 
@@ -87,28 +130,37 @@ class _TridentConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(channels, channels, 3, 3))
 
     def forward(self, x):
-        return [F.conv2d(x, self.weight, stride=s, padding=1) for s in (1, 2)]
+        w = self.weight.to(x.dtype)
+        return [F.conv2d(x, w, stride=s, padding=1) for s in (1, 2)]
 
 
 class CNNEncoder(nn.Module):
     """RAFT-style encoder emitting the 1/4 and 1/8 scales through the
     shared-weight trident conv. NHWC in, list of NHWC out (high to low
-    resolution)."""
+    resolution). ``dtype``: the convs' compute dtype (the input is cast to
+    it first); None is float32."""
 
-    def __init__(self, output_dim=128):
+    def __init__(self, output_dim=128, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.norm1 = nn.InstanceNorm2d(64, eps=1e-5)
-        self.layer1 = nn.Sequential(ResidualBlock(64, 64), ResidualBlock(64, 64))
-        self.layer2 = nn.Sequential(ResidualBlock(64, 96, 2), ResidualBlock(96, 96))
-        self.layer3 = nn.Sequential(ResidualBlock(96, 128), ResidualBlock(128, 128))
+        self.layer1 = nn.Sequential(ResidualBlock(64, 64, dtype=dtype),
+                                    ResidualBlock(64, 64, dtype=dtype))
+        self.layer2 = nn.Sequential(ResidualBlock(64, 96, 2, dtype),
+                                    ResidualBlock(96, 96, dtype=dtype))
+        self.layer3 = nn.Sequential(ResidualBlock(96, 128, dtype=dtype),
+                                    ResidualBlock(128, 128, dtype=dtype))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
         self.trident_conv = _TridentConv(output_dim)
 
     def forward(self, x):
-        x = F.relu(self.norm1(self.conv1(_nchw(x))))
+        dt = self.dtype
+        if reduced_dtype(dt) is not None:
+            x = x.to(dt)
+        x = F.relu(_instance_norm(self.norm1, conv_in(self.conv1, _nchw(x), dt)))
         x = self.layer3(self.layer2(self.layer1(x)))
-        x = self.conv2(x)
+        x = conv_in(self.conv2, x, dt)
         return [_nhwc(y) for y in self.trident_conv(x)]
 
 
@@ -139,11 +191,11 @@ def _sine_position(h, w, num_pos_feats=64, temperature=10000, scale=2 * math.pi)
 
 
 def feature_add_position(feature0, feature1, attn_splits, channels):
-    """Add the sine embedding per split window."""
+    """Add the sine embedding per split window, in the features' dtype."""
     b, h, w, c = feature0.shape
     s = max(attn_splits, 1)
     pos = torch.from_numpy(_sine_position(h // s, w // s, channels // 2))
-    pos = pos.to(feature0.device).repeat(s, s, 1)  # tiled on the device
+    pos = pos.to(feature0.device).repeat(s, s, 1).to(feature0.dtype)  # tiled on the device
     return feature0 + pos, feature1 + pos
 
 
@@ -178,20 +230,6 @@ def shift_window_mask(h, w, k, device=None):
     return torch.where(win[:, None, :] != win[:, :, None], -100.0, 0.0)
 
 
-def window_attention(q, k, v, mask=None):
-    """softmax(q k^T / sqrt(C) + mask) v over (N, L, C) window batches; the
-    (k*k, L, L) mask repeats over the window batch (window w gets
-    mask[w % k*k])."""
-    c = q.shape[-1]
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(c)
-    if mask is not None:
-        n = mask.shape[0]
-        scores = (scores.reshape(-1, n, *scores.shape[1:]) + mask).reshape(
-            scores.shape
-        )
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
-
-
 # ---------------------------------------------------------------------------
 # Feature transformer
 # ---------------------------------------------------------------------------
@@ -210,11 +248,16 @@ class TransformerLayer(nn.Module):
     layer) and the FFN one ``ffn_fused`` call (B2c). When only c_in !=
     d_model refuses the sublayer, the attention alone goes through
     ``window_attention_fused`` (B2a). False: unfused. The parameters are
-    the same on every route."""
+    the same on every route. ``dtype``: the compute dtype (flax's
+    ``dtype=``; None is float32): the products' operands cast to it and
+    their outputs in it, LayerNorm's statistics f32 and its output in it.
+    On the fused route the weights are cast to it and the LayerNorm
+    parameters stay f32, as the JAX package passes them."""
 
     def __init__(self, d_model=128, no_ffn=False, ffn_dim_expansion=4,
-                 fused_attention="auto"):
+                 fused_attention="auto", dtype=None):
         super().__init__()
+        self.dtype = reduced_dtype(dtype)
         if fused_attention not in ("auto", True, False):
             raise ValueError(
                 f"fused_attention must be 'auto', True or False, got "
@@ -242,6 +285,9 @@ class TransformerLayer(nn.Module):
         """``mask``: the (k*k, L, L) shift mask or None; ``shift_windows``:
         the same mask as its geometry (k, hs, ws), which the fused ops read;
         ``windowed``: the tokens are split into more than one window."""
+        dt = self.dtype
+        if dt is not None:
+            source, target = source.to(dt), target.to(dt)
         fused = self.fused_attention
         if fused == "auto":
             fused = source.dtype == torch.bfloat16
@@ -249,44 +295,56 @@ class TransformerLayer(nn.Module):
         d = self.merge.weight.shape[0]
         tokens = (*source.shape[:-1], d)
         same_width = source.shape[-1] == d
+
+        def weight(*ws):  # input-major, in the compute dtype
+            w = torch.cat(ws).t()
+            return w if dt is None else w.to(dt)
+
+        def norm(ln, x):  # LayerNorm: f32 statistics, the output in dt
+            return ln(x) if dt is None else layer_norm(x, ln.weight, ln.bias)
+
         if fused and same_width and eligible(tokens, source.dtype):
             # The weights in JAX's input-major layout, [W_k | W_v] joined.
             message = window_sublayer_fused(
-                source, target, self.q_proj.weight.t(),
-                torch.cat([self.k_proj.weight, self.v_proj.weight]).t(),
-                self.merge.weight.t(), self.norm1.weight, self.norm1.bias,
+                source, target, weight(self.q_proj.weight),
+                weight(self.k_proj.weight, self.v_proj.weight),
+                weight(self.merge.weight), self.norm1.weight, self.norm1.bias,
                 shift_windows=shift_windows, add_residual=self.no_ffn,
             )
             if self.no_ffn:
                 return message  # source + LN1(sublayer), the whole layer
         else:
-            q = self.q_proj(source)
-            k = self.k_proj(target)
-            v = self.v_proj(target)
+            q = dense_in(self.q_proj, source, dt)
+            k = dense_in(self.k_proj, target, dt)
+            v = dense_in(self.v_proj, target, dt)
             if fused and eligible(q.shape, q.dtype):
                 message = window_attention_fused(q, k, v, shift_windows=shift_windows)
             else:
-                message = window_attention(q, k, v, mask)
-            message = self.norm1(self.merge(message))
+                # The (k*k, L, L) mask repeats over the window batch; the
+                # JAX package's _attention (f32 scores and softmax).
+                message = window_attention_plain(q, k, v, mask)
+            message = norm(self.norm1, dense_in(self.merge, message, dt))
         if not self.no_ffn:
             w0, w2 = self.mlp[0].weight, self.mlp[2].weight
             if fused and same_width and ffn_eligible(tokens, source.dtype, w0.shape[0]):
-                return ffn_fused(source, message, w0.t(), w2.t(), self.norm2.weight,
+                return ffn_fused(source, message, weight(w0), weight(w2), self.norm2.weight,
                                  self.norm2.bias, add_residual=True)
-            message = self.mlp(torch.cat([source, message], dim=-1))
-            message = self.norm2(message)
+            message = dense_in(self.mlp[0], torch.cat([source, message], dim=-1), dt)
+            message = dense_in(self.mlp[2], _gelu(message), dt)
+            message = norm(self.norm2, message)
         return source + message
 
 
 class TransformerBlock(nn.Module):
     """self-attn (no FFN) + cross-attn + FFN."""
 
-    def __init__(self, d_model=128, ffn_dim_expansion=4, fused_attention="auto"):
+    def __init__(self, d_model=128, ffn_dim_expansion=4, fused_attention="auto",
+                 dtype=None):
         super().__init__()
         self.self_attn = TransformerLayer(d_model, True, ffn_dim_expansion,
-                                          fused_attention)
+                                          fused_attention, dtype)
         self.cross_attn_ffn = TransformerLayer(d_model, False, ffn_dim_expansion,
-                                               fused_attention)
+                                               fused_attention, dtype)
 
     def forward(self, source, target, mask=None, *, shift_windows=None,
                 windowed=False):
@@ -304,18 +362,22 @@ class FeatureTransformer(nn.Module):
     """TransformerBlocks over the [f0|f1] / [f1|f0] siamese batch, swin
     windows, run window-major: tokens stay in (2B*k*k, hs*ws, C) windows;
     odd (shifted) layers roll the image by half a window before and after.
-    The cross-attention target is a batch-half swap of the source."""
+    The cross-attention target is a batch-half swap of the source.
+    ``dtype``: the features are cast to it and the layers compute in it."""
 
     def __init__(self, num_layers=6, d_model=128, ffn_dim_expansion=4,
-                 fused_attention="auto"):
+                 fused_attention="auto", dtype=None):
         super().__init__()
+        self.dtype = reduced_dtype(dtype)
         self.layers = nn.ModuleList(
-            TransformerBlock(d_model, ffn_dim_expansion, fused_attention)
+            TransformerBlock(d_model, ffn_dim_expansion, fused_attention, dtype)
             for _ in range(num_layers)
         )
 
     def forward(self, feature0, feature1, attn_num_splits):
         """(B, H, W, C) x2 -> (B, H, W, C) x2."""
+        if self.dtype is not None:
+            feature0, feature1 = feature0.to(self.dtype), feature1.to(self.dtype)
         b, h, w, c = feature0.shape
         k = attn_num_splits
         hs, ws = h // k, w // k
@@ -355,8 +417,8 @@ def global_correlation_softmax(feature0, feature1, pred_bidir_flow=False):
     Bidirectional output is block-concat [forward x B, backward x B].
     Returns (flow (B', H, W, 2), prob (B', HW, HW))."""
     b, h, w, c = feature0.shape
-    f0 = feature0.reshape(b, h * w, c)
-    f1 = feature1.reshape(b, h * w, c)
+    f0 = widen(feature0.reshape(b, h * w, c))  # bf16 products are exact in f32
+    f1 = widen(feature1.reshape(b, h * w, c))
     correlation = torch.matmul(f0, f1.transpose(1, 2)) / math.sqrt(c)
     grid = coords_grid(h, w, device=feature0.device).reshape(h * w, 2)
     if pred_bidir_flow:
@@ -382,6 +444,7 @@ def local_correlation_softmax(feature0, feature1, local_radius):
     r = local_radius
     coords = coords_grid(h, w, device=feature0.device)
     offsets = _window_offsets(r, feature0.device)
+    feature0, feature1 = widen(feature0), widen(feature1)  # f32 products and sums
     padded1 = F.pad(feature1, (0, 0, r, r, r, r))
     corr, valid = [], []
     for dy in range(-r, r + 1):
@@ -416,30 +479,35 @@ def _unfold_nhwc(x, kernel_size):
 
 
 class SelfAttnPropagation(nn.Module):
-    def __init__(self, in_channels=128):
+    """``dtype``: the projections' compute dtype (flax's Dense ``dtype=``);
+    the scores are f32 sums of their products, the softmax and the flow
+    f32."""
+
+    def __init__(self, in_channels=128, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.q_proj = nn.Linear(in_channels, in_channels)
         self.k_proj = nn.Linear(in_channels, in_channels)
 
     def forward(self, feature0, flow, local_window_attn=False,
                 local_window_radius=1):
         b, h, w, c = feature0.shape
-        query = self.q_proj(feature0)
+        query = dense_in(self.q_proj, feature0, self.dtype)
         if not local_window_attn:
             # Reference quirk kept for checkpoint parity: in the global path
             # the key is a projection of the already-projected query.
-            key = self.k_proj(query)
-            q = query.reshape(b, h * w, c)
-            k = key.reshape(b, h * w, c)
+            key = dense_in(self.k_proj, query, self.dtype)
+            q = widen(query.reshape(b, h * w, c))
+            k = widen(key.reshape(b, h * w, c))
             v = flow.reshape(b, h * w, flow.shape[-1])
             scores = torch.matmul(q, k.transpose(1, 2)) / math.sqrt(c)
             out = torch.matmul(torch.softmax(scores, dim=-1), v)
             return out.reshape(b, h, w, flow.shape[-1])
-        key = self.k_proj(feature0)
+        key = dense_in(self.k_proj, feature0, self.dtype)
         ksz = 2 * local_window_radius + 1
-        key_w = _unfold_nhwc(key, ksz)  # (B, H, W, K2, C)
+        key_w = widen(_unfold_nhwc(key, ksz))  # (B, H, W, K2, C)
         flow_w = _unfold_nhwc(flow, ksz)  # (B, H, W, K2, 2)
-        scores = torch.matmul(key_w, query.unsqueeze(-1))[..., 0] / math.sqrt(c)
+        scores = torch.matmul(key_w, widen(query).unsqueeze(-1))[..., 0] / math.sqrt(c)
         prob = torch.softmax(scores, dim=-1)
         return torch.matmul(prob.unsqueeze(-2), flow_w)[..., 0, :]
 
@@ -558,14 +626,22 @@ _UPSAMPLE = 4
 
 
 class UniMatchFlow(nn.Module):
-    """Flow-task UniMatch with the GMFlow pretrained config, bidirectional."""
+    """Flow-task UniMatch with the GMFlow pretrained config, bidirectional.
+    ``corr_dtype``, ``compute_dtype`` and ``refine_dtype``: the JAX
+    package's precision knobs (torch dtypes; the module docstring)."""
 
-    def __init__(self, num_transformer_layers=6, fused_attention="auto"):
+    def __init__(self, num_transformer_layers=6, fused_attention="auto",
+                 corr_dtype=torch.float32, compute_dtype=None, refine_dtype=None):
         super().__init__()
-        self.backbone = CNNEncoder(_CHANNELS)
+        self.corr_dtype = corr_dtype
+        self.compute_dtype = compute_dtype
+        self.refine_dtype = refine_dtype
+        self.backbone = CNNEncoder(_CHANNELS, dtype=compute_dtype)
         self.transformer = FeatureTransformer(num_transformer_layers, _CHANNELS,
-                                              fused_attention=fused_attention)
-        self.feature_flow_attn = SelfAttnPropagation(_CHANNELS)
+                                              fused_attention=fused_attention,
+                                              dtype=compute_dtype)
+        self.feature_flow_attn = SelfAttnPropagation(
+            _CHANNELS, dtype=refine_dtype if refine_dtype is not None else compute_dtype)
         self.refine_proj = nn.Conv2d(_CHANNELS, 256, 1)
         self.refine = BasicUpdateBlock(81, _UPSAMPLE, 2)
 
@@ -574,6 +650,54 @@ class UniMatchFlow(nn.Module):
         f0 = [f.chunk(2, dim=0)[0] for f in features]  # low to high res
         f1 = [f.chunk(2, dim=0)[1] for f in features]
         return f0, f1
+
+    def scale_step(self, scale_idx, feature0, feature1, flow):
+        """One scale of the matcher: the backbone's features of the scale
+        (B, h, w, C) each and the previous scale's flow (None at the first)
+        -> (flow, feature0, feature0_ori, feature1_ori): the scale's flow
+        after the propagation, the transformer's feature0 (both directions)
+        and the scale's backbone features (both directions), in the dtypes
+        the GRU loop takes them."""
+        attn_splits = _ATTN_SPLITS[scale_idx]
+        if scale_idx > 0:
+            feature0, feature1 = (torch.cat([feature0, feature1], dim=0),
+                                  torch.cat([feature1, feature0], dim=0))
+        feature0_ori, feature1_ori = feature0, feature1
+
+        if scale_idx > 0:
+            up = resize_bilinear(torch.movedim(flow, -1, 1),
+                                 feature0.shape[1:3], align_corners=True)
+            flow = torch.movedim(up, 1, -1) * 2.0
+            feature1 = flow_warp(feature1, flow)
+
+        feature0, feature1 = feature_add_position(
+            feature0, feature1, attn_splits, _CHANNELS
+        )
+        feature0, feature1 = self.transformer(feature0, feature1, attn_splits)
+        if self.refine_dtype is not None:
+            # The selective recipe: the flow arithmetic downstream of the
+            # transformer in refine_dtype.
+            feature0, feature1, feature0_ori, feature1_ori = (
+                t.to(self.refine_dtype)
+                for t in (feature0, feature1, feature0_ori, feature1_ori))
+
+        corr_radius = _CORR_RADIUS[scale_idx]
+        if corr_radius == -1:
+            flow_pred = global_correlation_softmax(feature0, feature1, True)[0]
+        else:
+            flow_pred = local_correlation_softmax(
+                feature0, feature1, corr_radius
+            )[0]
+        flow = flow + flow_pred if flow is not None else flow_pred
+
+        if scale_idx == 0:
+            feature0 = torch.cat([feature0, feature1], dim=0)
+        prop_radius = _PROP_RADIUS[scale_idx]
+        flow = self.feature_flow_attn(
+            feature0, flow, local_window_attn=prop_radius > 0,
+            local_window_radius=prop_radius,
+        )
+        return flow, feature0, feature0_ori, feature1_ori
 
     def forward(self, img0, img1, num_reg_refine=6):
         """img0/img1: (B, H, W, 3) in [0, 255]. Returns the final flow
@@ -587,48 +711,19 @@ class UniMatchFlow(nn.Module):
 
         feature0_list, feature1_list = self.extract_feature(img0, img1)
         flow = None
-        for scale_idx, attn_splits in enumerate(_ATTN_SPLITS):
-            feature0, feature1 = feature0_list[scale_idx], feature1_list[scale_idx]
-            if scale_idx > 0:
-                feature0, feature1 = (torch.cat([feature0, feature1], dim=0),
-                                      torch.cat([feature1, feature0], dim=0))
-            feature0_ori, feature1_ori = feature0, feature1
-
-            if scale_idx > 0:
-                up = resize_bilinear(torch.movedim(flow, -1, 1),
-                                     feature0.shape[1:3], align_corners=True)
-                flow = torch.movedim(up, 1, -1) * 2.0
-                feature1 = flow_warp(feature1, flow)
-
-            feature0, feature1 = feature_add_position(
-                feature0, feature1, attn_splits, _CHANNELS
-            )
-            feature0, feature1 = self.transformer(feature0, feature1, attn_splits)
-
-            corr_radius = _CORR_RADIUS[scale_idx]
-            if corr_radius == -1:
-                flow_pred = global_correlation_softmax(feature0, feature1, True)[0]
-            else:
-                flow_pred = local_correlation_softmax(
-                    feature0, feature1, corr_radius
-                )[0]
-            flow = flow + flow_pred if flow is not None else flow_pred
-
-            if scale_idx == 0:
-                feature0 = torch.cat([feature0, feature1], dim=0)
-            prop_radius = _PROP_RADIUS[scale_idx]
-            flow = self.feature_flow_attn(
-                feature0, flow, local_window_attn=prop_radius > 0,
-                local_window_radius=prop_radius,
-            )
+        for scale_idx in range(len(_ATTN_SPLITS)):
+            flow, feature0, feature0_ori, feature1_ori = self.scale_step(
+                scale_idx, feature0_list[scale_idx], feature1_list[scale_idx], flow)
 
         # The GRU state is re-initialised from the same projection at every
-        # iteration (reference quirk), so project once.
-        net0, inp = _nhwc(self.refine_proj(_nchw(feature0))).chunk(2, dim=-1)
+        # iteration (reference quirk), so project once; refine_proj and the
+        # update block are f32 whatever the features' dtype.
+        net0, inp = _nhwc(self.refine_proj(_nchw(widen(feature0)))).chunk(2, dim=-1)
         net0, inp = torch.tanh(net0), F.relu(inp)
+        corr_dtype = self.refine_dtype if self.refine_dtype is not None else self.corr_dtype
         for _ in range(num_reg_refine):
             correlation = local_correlation_with_flow(
-                feature0_ori, feature1_ori, flow, local_radius=4
+                feature0_ori, feature1_ori, flow, local_radius=4, corr_dtype=corr_dtype
             )
             _, up_mask, residual_flow = self.refine(net0, inp, correlation, flow)
             flow = flow + residual_flow
@@ -641,8 +736,10 @@ class GMFlow(UniMatchFlow):
     reference layout (no wrapper prefix)."""
 
     def __init__(self, num_transformer_layers=6, num_reg_refine=6,
-                 fused_attention="auto"):
-        super().__init__(num_transformer_layers, fused_attention)
+                 fused_attention="auto", corr_dtype=torch.float32, compute_dtype=None,
+                 refine_dtype=None):
+        super().__init__(num_transformer_layers, fused_attention, corr_dtype,
+                         compute_dtype, refine_dtype)
         self.num_reg_refine = num_reg_refine
 
     def forward(self, img0, img1, inference_size=None):

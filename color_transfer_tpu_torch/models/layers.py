@@ -1,4 +1,5 @@
-"""Shared building blocks of DCMCS3DI: Conv and ResB.
+"""Shared building blocks: DCMCS3DI's Conv and ResB, and flax's ``dtype=``
+semantics for any torch conv or linear layer (``conv_in``, ``dense_in``).
 
 Port of color_transfer_tpu/models/layers.py. Modules take and return NHWC
 tensors; the convolutions run on permuted (channels-last) views. Parameter
@@ -51,6 +52,44 @@ def conv(x, weight, bias, padding, compute_dtype=None):
     cd = compute_dtype
     y = F.conv2d(x.to(cd), weight.to(cd), None, padding=padding)
     return (y + bias.to(cd)[:, None, None]).permute(0, 2, 3, 1)
+
+
+REDUCED = (torch.bfloat16, torch.float16)
+
+
+def widen(x):
+    """x in f32 when its dtype is a reduced one (its values exact there),
+    else x itself (f32 and a float64 reference run keep their dtype)."""
+    return x.float() if x.dtype in REDUCED else x
+
+
+def reduced_dtype(dtype):
+    """The compute dtype of a knob: None for float32 (the modules' own
+    float32 path), else the dtype."""
+    return None if dtype is None or dtype == torch.float32 else dtype
+
+
+def conv_in(conv, x, dtype):
+    """``conv`` (an nn.Conv2d) on ``x`` in ``dtype``, as flax's
+    ``nn.Conv(dtype=...)``: input and weight cast to it, the product's output
+    in it, then the bias cast to it and added (rounded again); the
+    parameters stay f32. dtype None: the module's own call."""
+    dtype = reduced_dtype(dtype)
+    if dtype is None:
+        return conv(x)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding,
+                 conv.dilation, conv.groups)
+    return y if conv.bias is None else y + conv.bias.to(dtype)[:, None, None]
+
+
+def dense_in(lin, x, dtype):
+    """``lin`` (an nn.Linear) on ``x`` in ``dtype``, as flax's
+    ``nn.Dense(dtype=...)`` (the bias cast and added after the product)."""
+    dtype = reduced_dtype(dtype)
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 def leaky_relu(x):

@@ -17,9 +17,17 @@ Two implementations of one function:
     memory when it fits ``launch_plan``'s budget, else takes each pixel
     with one warp; ``tile_boxes`` states its per-tile choice.
 
+``corr_dtype`` is the JAX package's knob: both features are cast to it
+first. float32 (the default) is the bit-strict route; bfloat16 is the TPU
+kernel's MXU variant (``_mxu_group_kernel``): the features rounded to bf16,
+their products formed in f32 (exact for bf16 x bf16) and summed in f32, the
+bilinear epilogue and the output f32. The kernel has an instantiation for
+each.
+
 ``local_correlation_with_flow`` routes by device: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises. Its
-``launches`` attribute counts kernel launches.
+``launches`` attribute counts kernel launches, ``bf16_launches`` those of
+the bf16 instantiation.
 """
 
 import ctypes
@@ -33,9 +41,11 @@ import torch.nn.functional as F
 from color_transfer_tpu_torch.core.sampling import coords_grid
 
 # csrc/local_corr.cu's limits: radius 0-4 (one instantiation each), C a
-# multiple of 4 up to 256, 32-channel slices, a tile of 32 or 64 pixels, at
-# most 3 stages.
-MAX_RADIUS, MAX_CHANNELS, SLICE, MAX_TILE_PX = 4, 256, 32, 64
+# multiple of 4 (f32) or 8 (bf16: a 16-byte vector) up to 256, slices of
+# 128 bytes a position (32 f32 or 64 bf16 channels), a tile of 32 or 64
+# pixels, at most 3 stages.
+MAX_RADIUS, MAX_CHANNELS, SLICE_BYTES, MAX_TILE_PX = 4, 256, 128, 64
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # Shared memory of one H100 SM (233,472 bytes), 1 KB of it reserved for
 # each block, the rest shared by the blocks on the SM; one block takes at
 # most 227 KB. The kernel's own static arrays (window starts, phases,
@@ -65,28 +75,31 @@ TILE, STAGES, BLOCKS_PER_SM = (8, 8), 2, 2
 
 
 @functools.cache
-def launch_plan(c, local_radius):
-    """The kernel's launch at C channels and radius r: an 8 x 8 tile,
-    (r + 1) threads a pixel, two stages of 32-channel slices, and the most
-    box positions a stage can hold with two blocks on an SM. A smooth
-    flow's 8 x 8 tile at r = 4 needs a box of 17 x 17 = 289 positions; the
-    budget leaves room for the windows' spread (the slices make it the same
-    for every C)."""
+def launch_plan(c, local_radius, itemsize=4):
+    """The kernel's launch at C channels of ``itemsize`` bytes (4: f32, 2:
+    bf16) and radius r: an 8 x 8 tile, (r + 1) threads a pixel, two stages
+    of 128-byte slices (32 f32 or 64 bf16 channels), and the most box
+    positions a stage can hold with two blocks on an SM. A smooth flow's
+    8 x 8 tile at r = 4 needs a box of 17 x 17 = 289 positions; the budget
+    leaves room for the windows' spread (the slices make it the same for
+    every C and both types)."""
     if not 0 <= local_radius <= MAX_RADIUS:
         raise ValueError(f"local_radius must be in [0, {MAX_RADIUS}], got {local_radius}")
-    if c % 4 or not 4 <= c <= MAX_CHANNELS:
-        raise ValueError(f"C must be a multiple of 4 in [4, {MAX_CHANNELS}], got {c}")
+    per_vec = 16 // itemsize
+    if itemsize not in (2, 4) or c % per_vec or not per_vec <= c <= MAX_CHANNELS:
+        raise ValueError(f"C must be a multiple of {per_vec} in [{per_vec}, {MAX_CHANNELS}], "
+                         f"got {c} ({itemsize}-byte channels)")
     th, tw = TILE
     npx = th * tw
     per_block = min(SM_SMEM // BLOCKS_PER_SM - BLOCK_RESERVED - KERNEL_STATIC,
                     BLOCK_SMEM_LIMIT - KERNEL_STATIC)
-    position = SLICE * 4  # bytes of a box position (or a tile pixel) a slice
+    position = SLICE_BYTES  # bytes of a box position (or a tile pixel) a stage
     budget = per_block // (STAGES * position) - MAX_TILE_PX
     k = 2 * local_radius + 2
-    if budget * SLICE < npx * k * k:  # the dots reuse the first stage
+    if budget * (position // 4) < npx * k * k:  # the f32 dots reuse the first stage
         raise ValueError("the staging budget cannot hold the tile's dots")
-    return CorrPlan(th, tw, npx * (local_radius + 1), SLICE, STAGES, budget,
-                    STAGES * (budget + MAX_TILE_PX) * position)
+    return CorrPlan(th, tw, npx * (local_radius + 1), SLICE_BYTES // itemsize, STAGES,
+                    budget, STAGES * (budget + MAX_TILE_PX) * position)
 
 
 def _bilinear_epilogue(dots, wx, wy, r, c):
@@ -107,8 +120,12 @@ def _bilinear_epilogue(dots, wx, wy, r, c):
 
 
 def local_correlation_with_flow_plain(feature0, feature1, flow, local_radius):
-    """Plain torch version: f0/f1 (B, H, W, C), flow (B, H, W, 2) ->
-    (B, H, W, (2r+1)^2), all float32."""
+    """Plain torch version: f0/f1 (B, H, W, C) float32 or bfloat16, flow
+    (B, H, W, 2) float32 -> (B, H, W, (2r+1)^2) float32. bf16 features are
+    widened to f32 first: their products are exact in f32 and every sum
+    runs in f32, the TPU kernel's MXU arithmetic."""
+    if feature0.dtype == torch.bfloat16:
+        feature0, feature1 = feature0.float(), feature1.float()
     b, h, w, c = feature0.shape
     r = local_radius
     k = 2 * r + 3  # the window plus the +1 bilinear corner on each side
@@ -186,13 +203,15 @@ def tile_boxes(flow, local_radius, plan):
 
 def check_kernel_inputs(feature0, feature1, flow, local_radius):
     """Raise ValueError for inputs the CUDA kernel does not take: it reads
-    contiguous, 16-byte aligned float32 (B, H, W, C) features with C a
-    multiple of 4 up to 256 (``MAX_CHANNELS``), a contiguous float32
-    (B, H, W, 2) flow, and 0 <= r <= 4 (``MAX_RADIUS``)."""
+    contiguous, 16-byte aligned (B, H, W, C) features, both float32 or both
+    bfloat16, with C a multiple of 4 (f32) or 8 (bf16: a 16-byte vector)
+    up to 256 (``MAX_CHANNELS``), a contiguous float32 (B, H, W, 2) flow,
+    and 0 <= r <= 4 (``MAX_RADIUS``)."""
     for name, t in (("feature0", feature0), ("feature1", feature1),
                     ("flow", flow)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: float32 required, got {t.dtype}")
+        want = (torch.float32,) if name == "flow" else KERNEL_DTYPES
+        if t.dtype not in want:
+            raise ValueError(f"{name}: {' or '.join(map(str, want))} required, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
         if name != "flow" and t.data_ptr() % 16:  # features are read as float4
@@ -200,14 +219,17 @@ def check_kernel_inputs(feature0, feature1, flow, local_radius):
         if t.ndim != 4:
             raise ValueError(f"{name}: (B, H, W, *) required, got {tuple(t.shape)}")
     b, h, w, c = feature0.shape
-    if feature1.shape != feature0.shape:
+    if feature1.shape != feature0.shape or feature1.dtype != feature0.dtype:
         raise ValueError(
-            f"feature1 {tuple(feature1.shape)} != feature0 {tuple(feature0.shape)}"
+            f"feature1 {tuple(feature1.shape)} {feature1.dtype} != feature0 "
+            f"{tuple(feature0.shape)} {feature0.dtype}"
         )
     if flow.shape != (b, h, w, 2):
         raise ValueError(f"flow must be {(b, h, w, 2)}, got {tuple(flow.shape)}")
-    if c % 4 or not 4 <= c <= MAX_CHANNELS:
-        raise ValueError(f"C must be a multiple of 4 in [4, {MAX_CHANNELS}], got {c}")
+    per_vec = 16 // feature0.element_size()
+    if c % per_vec or not per_vec <= c <= MAX_CHANNELS:
+        raise ValueError(f"C must be a multiple of {per_vec} in [{per_vec}, {MAX_CHANNELS}], "
+                         f"got {c}")
     if not 0 <= local_radius <= MAX_RADIUS:
         raise ValueError(f"local_radius {local_radius} out of range [0, {MAX_RADIUS}]")
     if max(h, w) >= 2**24 or -(-h // TILE[0]) >= 2**16 or b >= 2**16:
@@ -231,13 +253,14 @@ def _launch(feature0, feature1, flow, local_radius, routes=False):
     from color_transfer_tpu_torch.ops import _build
 
     lib = _build.load("local_corr")
-    fn = lib.local_corr_forward
+    bf16 = feature0.dtype == torch.bfloat16
+    fn = lib.local_corr_forward_bf16 if bf16 else lib.local_corr_forward
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     b, h, w, c = feature0.shape
-    plan = launch_plan(c, local_radius)
+    plan = launch_plan(c, local_radius, feature0.element_size())
     out = torch.empty(
         (b, h, w, (2 * local_radius + 1) ** 2), dtype=torch.float32,
         device=feature0.device,
@@ -257,14 +280,21 @@ def _launch(feature0, feature1, flow, local_radius, routes=False):
     if err != 0:
         raise RuntimeError(f"local_corr_forward launch failed: CUDA error {err}")
     local_correlation_with_flow.launches += 1
+    local_correlation_with_flow.bf16_launches += bf16
     return (out, tiles) if routes else out
 
 
-def local_correlation_with_flow(feature0, feature1, flow, local_radius):
+def local_correlation_with_flow(feature0, feature1, flow, local_radius,
+                                corr_dtype=torch.float32):
     """GMFlow's refinement correlation: f0/f1 (B, H, W, C), flow (B, H, W, 2)
-    -> (B, H, W, (2r+1)^2). CPU tensors take the plain torch version; CUDA
-    tensors run the hand-written kernel (csrc/local_corr.cu), with no
-    fallback: a failed build or launch raises."""
+    -> (B, H, W, (2r+1)^2) float32, the features cast to ``corr_dtype``
+    (float32 or bfloat16) first, as the JAX package casts them. CPU tensors
+    take the plain torch version; CUDA tensors run the hand-written kernel
+    (csrc/local_corr.cu) of that type, with no fallback: a failed build or
+    launch raises."""
+    if corr_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"corr_dtype must be float32 or bfloat16, got {corr_dtype}")
+    feature0, feature1 = feature0.to(corr_dtype), feature1.to(corr_dtype)
     if feature0.device.type == "cpu":
         return local_correlation_with_flow_plain(
             feature0, feature1, flow, local_radius
@@ -275,3 +305,4 @@ def local_correlation_with_flow(feature0, feature1, flow, local_radius):
 
 
 local_correlation_with_flow.launches = 0
+local_correlation_with_flow.bf16_launches = 0  # those of the bf16 instantiation

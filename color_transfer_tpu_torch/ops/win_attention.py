@@ -25,14 +25,29 @@ Each function has two implementations:
     tests/test_torch_port_win_attention.py emulates the arithmetic on the
     CPU.
 
+Both take float32 tokens and weights, or bfloat16 ones (the bf16 recipe;
+LayerNorm parameters and a mask operand stay float32). In bf16 every
+function rounds where the TPU kernel's body rounds on its bf16 route: each
+product's operands are bf16, its products exact and its sums f32, and its
+result rounded to bf16 where the TPU kernel casts it (q and [k | v] after
+their projections, p before P.V, the message, the merge and FFN outputs
+before LayerNorm, LayerNorm's output, the residual sum); the scores,
+softmax and LayerNorm statistics are f32, and B2c's GELU is the TPU
+kernel's own (the Abramowitz & Stegun erf of ``_gelu_exact_kernel``, in f32
+on the rounded input, rounded after). The plain versions state that with
+f32 matmuls of bf16-valued operands (``_mm``); the CUDA kernels run one
+bf16 mma.sync a product (csrc/win_common.cuh's bf16 section).
+
 ``window_attention_fused``, ``window_sublayer_fused`` and ``ffn_fused`` route
 by device: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. Each is a torch.autograd.Function whose backward is
+kernel of its dtype or raises. Each is a torch.autograd.Function whose backward is
 autograd of the plain version, as JAX's custom VJPs run the XLA twins; the
 DMSCT matcher is frozen, so no path of the port needs it. Each counts its
 kernel launches in ``.launches``, one per call (a ``window_sublayer_fused``
-call is three CUDA kernels: the weight packing, the k/v projection, then
-the rest; a ``ffn_fused`` call two: the packing, then the FFN).
+call is three CUDA kernels in f32: the weight packing, the k/v projection,
+then the rest; a ``ffn_fused`` call two: the packing, then the FFN; in bf16
+a sublayer call is two, the q, k and v projections, then the rest, and an
+FFN call one).
 
 ``eligible`` and ``ffn_eligible`` are the JAX package's routing guards,
 copied so that the same layers take the fused route in both packages.
@@ -102,6 +117,38 @@ def ffn_eligible(x_shape, x_dtype, ffn_dim):
 # Plain versions
 # ---------------------------------------------------------------------------
 
+# Abramowitz & Stegun 7.1.26 erf (|err| <= 1.5e-7), the TPU kernel's
+# (color_transfer_tpu/ops/win_attention.py::_gelu_exact_kernel): the bf16
+# FFN's GELU.
+_ERF_P = 0.3275911
+_ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+
+
+def _wide(x):
+    """bf16 values in f32 (exact); any other dtype as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _mm(x, w):
+    """x @ w rounded to x's dtype: f32 stays f32 (the same product), bf16
+    operands give exact f32 products summed in f32 and one rounding, as the
+    TPU kernel's bf16 dots (preferred_element_type f32, then a cast)."""
+    return torch.matmul(_wide(x), _wide(w)).to(x.dtype)
+
+
+def gelu_as(x):
+    """The TPU kernel's exact-erf GELU, in f32 from x, cast back to x's
+    dtype: 0.5 x (1 + erf(x / sqrt(2))) with the A&S erf."""
+    xf = x.float()
+    z = xf * torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
+    az = z.abs()
+    t = 1.0 / (1.0 + _ERF_P * az)
+    a1, a2, a3, a4, a5 = _ERF_A
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    erf_abs = 1.0 - poly * torch.exp(-az * az)
+    erf = torch.where(z < 0.0, -erf_abs, erf_abs)
+    return (0.5 * xf * (1.0 + erf)).to(x.dtype)
+
 
 def region_labels(k, hs, ws, device=None):
     """(k*k, hs*ws) labels: the 3x3 swin region of every token of every
@@ -137,18 +184,19 @@ def layer_norm(x, scale, bias, eps=1e-6):
 
 def window_attention_plain(q, k, v, mask=None, *, shift_windows=None):
     """softmax(q k^T / sqrt(C) + mask[w % n_mask]) v per window, the scores
-    and softmax in f32. ``shift_windows=(k, hs, ws)`` builds the mask from
-    window geometry."""
+    and softmax in f32, the probabilities cast to q's dtype before P.V (f32
+    sums), the result in q's dtype. ``shift_windows=(k, hs, ws)`` builds the
+    mask from window geometry."""
     if shift_windows is not None:
         mask = geometry_mask(*shift_windows, device=q.device)
     c = q.shape[-1]
-    scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(c)
+    scores = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)).float() / math.sqrt(c)
     if mask is not None:
         n = mask.shape[0]
         scores = (scores.reshape(-1, n, *scores.shape[1:]) + mask.float()).reshape(
             scores.shape)
     prob = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(prob, v).to(q.dtype)
+    return _mm(prob, v)
 
 
 def window_sublayer_plain(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
@@ -156,18 +204,19 @@ def window_sublayer_plain(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bia
     """q = x_src w_q, [k | v] = x_tgt w_kv, windowed attention, merge,
     LayerNorm, optionally + x_src."""
     c = w_q.shape[1]
-    kv = x_tgt @ w_kv
-    msg = window_attention_plain(x_src @ w_q, kv[..., :c], kv[..., c:],
+    kv = _mm(x_tgt, w_kv)
+    msg = window_attention_plain(_mm(x_src, w_q), kv[..., :c], kv[..., c:],
                                  shift_windows=shift_windows)
-    y = layer_norm(msg @ w_merge, norm_scale, norm_bias)
+    y = layer_norm(_mm(msg, w_merge), norm_scale, norm_bias)
     return x_src + y if add_residual else y
 
 
 def ffn_plain(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False):
-    """gelu([x_src | x_msg] w0) w2 (exact GELU), LayerNorm, optionally +
-    x_src."""
-    y = F.gelu(torch.cat([x_src, x_msg], dim=-1) @ w0)
-    y = layer_norm(y @ w2, norm_scale, norm_bias)
+    """gelu([x_src | x_msg] w0) w2 (exact GELU: torch's erf in f32, the TPU
+    kernel's A&S erf in bf16), LayerNorm, optionally + x_src."""
+    y = _mm(torch.cat([x_src, x_msg], dim=-1), w0)
+    y = gelu_as(y) if y.dtype == torch.bfloat16 else F.gelu(y)
+    y = layer_norm(_mm(y, w2), norm_scale, norm_bias)
     return x_src + y if add_residual else y
 
 
@@ -176,13 +225,20 @@ def ffn_plain(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False
 # ---------------------------------------------------------------------------
 
 
-def check_kernel_inputs(tokens, tensors, ffn_dim=None):
-    """Raise ValueError for inputs the CUDA kernels do not take: float32
-    tensors on one device, tokens (B', L, 128) with L <= 1024 and B' <=
-    65535 (the attention kernels), F a multiple of 64 (the FFN)."""
-    for t in (tokens, *tensors):
-        if t.dtype != torch.float32:
-            raise ValueError(f"the kernels are float32, got {t.dtype}")
+def check_kernel_inputs(tokens, tensors, ffn_dim=None, f32=()):
+    """Raise ValueError for inputs the CUDA kernels do not take: tensors on
+    one device, tokens (B', L, 128) with L <= 1024 and B' <= 65535 (the
+    attention kernels), F a multiple of 64 (the FFN); float32 tokens with
+    float32 ``tensors``, or bfloat16 tokens with bfloat16 ``tensors``; the
+    ``f32`` tensors (LayerNorm parameters, a mask operand) float32 either
+    way."""
+    if tokens.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the kernels take float32 or bfloat16 tokens, got {tokens.dtype}")
+    for t in (tokens, *tensors, *f32):
+        want = torch.float32 if any(t is u for u in f32) else tokens.dtype
+        if t.dtype != want:
+            raise ValueError(f"the kernels take {want} here with {tokens.dtype} tokens, "
+                             f"got {t.dtype}")
         if t.device != tokens.device:
             raise ValueError(f"tensors on {t.device} and {tokens.device}")
     bp, length, c = tokens.shape
@@ -222,20 +278,22 @@ def _launch_attention(q, k, v, mask, *, shift_windows=None):
     q, k, v = (t.contiguous() for t in (q, k, v))
     if mask is not None:
         mask = mask.contiguous()
-    check_kernel_inputs(q, [t for t in (k, v, mask) if t is not None])
+    check_kernel_inputs(q, [k, v], f32=[] if mask is None else [mask])
     bp, length, c = q.shape
     mode, n_mask, geom = 0, 1, (0, 0, 0)
     if shift_windows is not None:
         mode, geom = 1, shift_windows
     elif mask is not None:
         mode, n_mask = 2, mask.shape[0]
-    fn = _kernel("win_attention", "window_attention_forward",
+    bf16 = q.dtype == torch.bfloat16
+    fn = _kernel("win_attention", "window_attention_forward" + "_bf16" * bf16,
                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
     _run(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          None if mask is None else mask.data_ptr(), out.data_ptr(),
          bp, length, mode, n_mask, *geom, 1.0 / math.sqrt(c))
     window_attention_fused.launches += 1
+    window_attention_fused.bf16_launches += bf16
     return out
 
 
@@ -243,9 +301,22 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
                      shift_windows=None, add_residual=False):
     tensors = [t.contiguous() for t in (x_src, x_tgt, w_q, w_kv, w_merge, norm_scale,
                                         norm_bias)]
-    check_kernel_inputs(tensors[0], tensors[1:])
+    check_kernel_inputs(tensors[0], tensors[1:5], f32=tensors[5:])
     x_src = tensors[0]
     bp, length, c = x_src.shape
+    geom = (0, 0, 0) if shift_windows is None else shift_windows
+    if x_src.dtype == torch.bfloat16:
+        fn = _kernel("win_sublayer", "window_sublayer_forward_bf16",
+                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
+        qkv = torch.empty(bp, length, 3 * c, dtype=x_src.dtype, device=x_src.device)
+        out = torch.empty_like(x_src)
+        _run(fn, x_src.device, *(t.data_ptr() for t in tensors), qkv.data_ptr(),
+             out.data_ptr(), bp, length, int(shift_windows is not None), *geom,
+             int(add_residual), 1.0 / math.sqrt(c))
+        window_sublayer_fused.launches += 1
+        window_sublayer_fused.bf16_launches += 1
+        return out
     fn = _kernel("win_sublayer", "window_sublayer_forward",
                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     # The three weights' TF32 halves in mma.sync's fragment order.
@@ -253,7 +324,6 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
                          dtype=torch.int32, device=x_src.device)
     kv = torch.empty(bp, length, 2 * c, dtype=x_src.dtype, device=x_src.device)
     out = torch.empty_like(x_src)
-    geom = (0, 0, 0) if shift_windows is None else shift_windows
     _run(fn, x_src.device, *(t.data_ptr() for t in tensors), packed.data_ptr(), kv.data_ptr(),
          out.data_ptr(), bp, length, int(shift_windows is not None), *geom, int(add_residual),
          1.0 / math.sqrt(c))
@@ -263,8 +333,18 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
 
 def _launch_ffn(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False):
     tensors = [t.contiguous() for t in (x_src, x_msg, w0, w2, norm_scale, norm_bias)]
-    check_kernel_inputs(tensors[0], tensors[1:], ffn_dim=w0.shape[1])
+    check_kernel_inputs(tensors[0], tensors[1:4], ffn_dim=w0.shape[1], f32=tensors[4:])
     x_src = tensors[0]
+    if x_src.dtype == torch.bfloat16:
+        fn = _kernel("win_ffn", "ffn_forward_bf16",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p])
+        out = torch.empty_like(x_src)
+        _run(fn, x_src.device, *(t.data_ptr() for t in tensors), out.data_ptr(),
+             x_src.numel() // x_src.shape[-1], w0.shape[1], int(add_residual))
+        ffn_fused.launches += 1
+        ffn_fused.bf16_launches += 1
+        return out
     fn = _kernel("win_ffn", "ffn_forward",
                  [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_void_p])
@@ -367,3 +447,7 @@ def ffn_fused(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False
 window_attention_fused.launches = 0
 window_sublayer_fused.launches = 0
 ffn_fused.launches = 0
+# The launches of each op's bf16 kernel (counted in .launches too).
+window_attention_fused.bf16_launches = 0
+window_sublayer_fused.bf16_launches = 0
+ffn_fused.bf16_launches = 0

@@ -134,7 +134,14 @@ class DMSCTModule:
     per-step cosine schedule to 1e-6 and MSE + 0.1 SSIM loss (reference
     methods/dmsct.py:118-131, :186-195). The matcher's parameters stay out
     of the optimizer and never require grad (the JAX package masks them
-    with ``set_to_zero``)."""
+    with ``set_to_zero``).
+
+    ``matcher_corr_dtype``, ``matcher_compute_dtype`` and
+    ``corrector_compute_dtype`` are the JAX module's mixed-precision knobs
+    (models/dmsct.py; "bfloat16" opt-in, the defaults float32). The
+    parameters, the checkpoints and the optimizer stay float32 whatever
+    the recipe; the serving surfaces consult the recipe's gate record
+    (methods/gates.py)."""
 
     name = "dmsct"
     # The train step's backward convolutions through cuDNN (True) or ATen.
@@ -148,20 +155,27 @@ class DMSCTModule:
                  learning_rate=3e-4, eta_min=1e-6, weight_decay=0.01,
                  heavy_metrics=True, matcher_checkpoint=None,
                  matcher_num_layers=6, matcher_num_reg_refine=6,
-                 matcher_fused_attention="auto"):
+                 matcher_corr_dtype="float32", matcher_compute_dtype=None,
+                 corrector_compute_dtype=None, matcher_fused_attention="auto"):
         if encoder_weights is not None:  # the reference configs pass null
             raise NotImplementedError(
                 f"encoder_weights={encoder_weights!r}: pretrained encoder "
                 "weights are not supported; pass null"
             )
-        self.model = DMSCT(
+        # The model's keywords (a caller may rebuild the model with more:
+        # tools/deep_gate.py adds matcher_refine_dtype).
+        self.model_kwargs = dict(
             encoder_name=encoder_name,
             encoder_depth=encoder_depth,
             decoder_channels=tuple(decoder_channels),
             matcher_num_layers=matcher_num_layers,
             matcher_num_reg_refine=matcher_num_reg_refine,
+            matcher_corr_dtype=matcher_corr_dtype,
+            matcher_compute_dtype=matcher_compute_dtype,
+            corrector_compute_dtype=corrector_compute_dtype,
             matcher_fused_attention=matcher_fused_attention,
-        ).eval()
+        )
+        self.model = DMSCT(**self.model_kwargs).eval()
         self.learning_rate = learning_rate
         self.eta_min = eta_min
         self.weight_decay = weight_decay
@@ -172,6 +186,7 @@ class DMSCTModule:
             "encoder_depth": encoder_depth,
             "decoder_channels": list(decoder_channels),
             "learning_rate": learning_rate,
+            "corrector_compute_dtype": corrector_compute_dtype,
             "matcher_num_layers": matcher_num_layers,
             "matcher_num_reg_refine": matcher_num_reg_refine,
             "matcher_fused_attention": matcher_fused_attention,
@@ -290,9 +305,10 @@ class DMSCTModule:
         """batch: {'target', 'reference'} (B, H, W, 3) in [0, 1] on the
         variables' device -> corrected (B, H, W, 3).
 
-        Runs in full float32 (``full_f32_inference``): the GRU refinement
-        amplifies TF32 rounding, and only the f32 recipe passes the JAX
-        package's drift gate."""
+        Runs with TF32 off and cuBLAS's bf16 sums in f32
+        (``full_f32_inference``): the GRU refinement amplifies any rounding,
+        so the f32 recipe is true float32 and a bf16 recipe rounds only
+        where the JAX package's does (its gate record: methods/gates.py)."""
         with full_f32_inference():
             return torch.func.functional_call(
                 self.model, variables, (batch["target"], batch["reference"]),

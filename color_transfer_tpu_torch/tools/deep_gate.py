@@ -19,15 +19,22 @@ corrector's residual is high-frequency noise, so rounding does not cancel.
         --device cpu --height 64 --width 96 --limit 2 \\
         --model.matcher_num_layers 1 --model.matcher_num_reg_refine 1
 
-The recipes:
+The recipes (the JAX gate's names and keywords, examples/deep_gate.py::
+build_model):
   * DMSCT ``fused``: the matcher transformer's fused route
     (``matcher_fused_attention=True``, kernels B2b and B2c on the card);
+  * DMSCT ``bf16``: the matcher's correlation (B1) and compute dtypes and
+    the corrector's in bfloat16 (the transformer fused: "auto" fuses in
+    bf16); ``bf16+fused`` with the fused route asked for, ``bf16-nofuse``
+    unfused; ``bf16m`` the matcher only, ``bf16c`` the corrector only;
+    ``bf16+refine32``: ``bf16`` with the matcher's flow arithmetic after the
+    transformer in float32 (``matcher_refine_dtype``, a keyword of the model
+    that the module does not take: the gate builds the model with it, as
+    the JAX gate does);
   * DCMCS3DI ``bf16``: ``compute_dtype="bfloat16"``; both of its runs take
     the kernel route (``inference=True, use_kernels=True``), as the JAX gate
     runs ``use_pallas=True``;
   * ``""``: the float32 default against itself (no drift).
-The JAX package's other DMSCT recipes (bf16, bf16m, bf16c, refine32, nofuse)
-need a bf16 matcher or corrector, which the port does not have: they raise.
 Runs on the card unless ``--device cpu``; the summary is the JAX gate's JSON
 line, and the exit code is 1 when the recipe fails the gate.
 """
@@ -43,35 +50,49 @@ from color_transfer_tpu_torch import metrics
 from color_transfer_tpu_torch.data.distortions import setup_grid_distortions
 
 GATE_DB, GATE_SSIM, GATE_ICID = 0.05, 5e-4, 5e-4
-RECIPES = {"dmsct": {"": {}, "fused": {"matcher_fused_attention": True}},
-           "dcmcs3di": {"": {}, "bf16": {"compute_dtype": "bfloat16"}}}
+_BF16_ALL = {"matcher_corr_dtype": "bfloat16", "matcher_compute_dtype": "bfloat16",
+             "corrector_compute_dtype": "bfloat16"}
+RECIPES = {
+    "dmsct": {
+        "": {},
+        "fused": {"matcher_fused_attention": True},
+        "bf16": _BF16_ALL,
+        "bf16+fused": {**_BF16_ALL, "matcher_fused_attention": True},
+        "bf16-nofuse": {**_BF16_ALL, "matcher_fused_attention": False},
+        "bf16m": {"matcher_corr_dtype": "bfloat16", "matcher_compute_dtype": "bfloat16"},
+        "bf16c": {"corrector_compute_dtype": "bfloat16"},
+        "bf16+refine32": {**_BF16_ALL, "matcher_refine_dtype": "float32"},
+    },
+    "dcmcs3di": {"": {}, "bf16": {"compute_dtype": "bfloat16"}},
+}
 
 
 def recipe_kwargs(model, recipe):
-    """The module keywords of ``recipe`` for ``model``; raises for a recipe
-    the port does not have."""
+    """The keywords of ``recipe`` for ``model`` (the JAX gate's for the same
+    name); raises for a recipe neither package has."""
     if model not in RECIPES:
         raise ValueError(f"unknown model {model!r}")
     if recipe in RECIPES[model]:
-        return RECIPES[model][recipe]
+        return dict(RECIPES[model][recipe])
     if model == "dcmcs3di" and "fused" in recipe:
         raise ValueError("the fused recipe applies to the DMSCT matcher only")
-    if model == "dmsct" and any(k in recipe for k in ("bf16", "refine32", "nofuse")):
-        raise NotImplementedError(
-            f"DMSCT recipe {recipe!r} needs a bfloat16 matcher or corrector, which "
-            "the port does not have (ROADMAP.md, 'Do not port': the bf16 knobs "
-            "matcher_compute_dtype and refine_dtype; queued with the DMSCT bf16 "
-            "recipes, which need their own gate on the card)"
-        )
     raise ValueError(f"unknown {model} recipe {recipe!r} (have {sorted(RECIPES[model])})")
 
 
 def build(model, recipe, module_kwargs=None):
-    """The module of ``model`` in ``recipe``."""
+    """The module of ``model`` in ``recipe``. DMSCT's
+    ``matcher_refine_dtype`` is a keyword of the model, not of the module:
+    the module's model is rebuilt with it."""
+    from color_transfer_tpu_torch.models.dmsct import DMSCT
     from color_transfer_tpu_torch.run.modules import DCMCS3DIModule, DMSCTModule
 
     cls = {"dmsct": DMSCTModule, "dcmcs3di": DCMCS3DIModule}[model]
-    return cls(**dict(module_kwargs or {}), **recipe_kwargs(model, recipe))
+    kwargs = {**dict(module_kwargs or {}), **recipe_kwargs(model, recipe)}
+    refine = kwargs.pop("matcher_refine_dtype", None)
+    module = cls(**kwargs)
+    if refine is not None:
+        module.model = DMSCT(**module.model_kwargs, matcher_refine_dtype=refine).eval()
+    return module
 
 
 def forward(model, module, variables):
@@ -113,10 +134,12 @@ def load_pair(height=544, width=960, left=None, right=None, downscale=1):
 
 def run_gate(model, recipe, *, height=544, width=960, left=None, right=None,
              downscale=1, gate_db=GATE_DB, limit=0, seed=0, device=None,
-             module_kwargs=None):
+             module_kwargs=None, baseline=None):
     """Both runs over the grid. Returns (summary, rows): the JAX gate's
     summary keys, and per distortion its max|delta|, pair PSNR and metric
-    deltas."""
+    deltas. ``baseline``: a dict that keeps the float32 run's outputs
+    between calls on the same model, weights, pair and module keywords
+    (one f32 run for several recipes); None runs it each time."""
     from color_transfer_tpu_torch.methods.video import resolve_device
 
     device = resolve_device(device)
@@ -130,10 +153,17 @@ def run_gate(model, recipe, *, height=544, width=960, left=None, right=None,
         grid = grid[:limit]
     g4, r4 = gt[None], ref[None]
     rows = []
+    key = (model, seed, height, width, left, right, downscale,
+           tuple(sorted(dict(module_kwargs or {}).items())))
     with torch.no_grad():
         for i, dist_fn in enumerate(grid):
             t4 = dist_fn(gt).clamp(0.0, 1.0)[None]
-            out_f32 = base_fwd(t4, r4).clamp(0.0, 1.0)
+            if baseline is not None and (key, i) in baseline:
+                out_f32 = baseline[key, i]
+            else:
+                out_f32 = base_fwd(t4, r4).clamp(0.0, 1.0)
+                if baseline is not None:
+                    baseline[key, i] = out_f32
             out_rec = rec_fwd(t4, r4).clamp(0.0, 1.0).float()
             rows.append({
                 "i": i,
@@ -228,7 +258,9 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(prog="color_transfer_tpu_torch.tools.deep_gate")
     ap.add_argument("--model", default="dmsct", choices=sorted(RECIPES))
-    ap.add_argument("--recipe", default="fused", help="dmsct: fused; dcmcs3di: bf16")
+    ap.add_argument("--recipe", default="fused",
+                    help="dmsct: fused, bf16, bf16+fused, bf16-nofuse, bf16m, bf16c, "
+                         "bf16+refine32; dcmcs3di: bf16")
     ap.add_argument("--left")
     ap.add_argument("--right")
     ap.add_argument("--downscale", type=int, default=1)

@@ -131,10 +131,10 @@ def served_b1_args(device, small=False):
     kept = []
     call = gmflow.local_correlation_with_flow
 
-    def keep(f0, f1, flow, local_radius):
+    def keep(f0, f1, flow, local_radius, **kw):
         if not kept:
             kept.extend(t.clone() for t in (f0, f1, flow))
-        return call(f0, f1, flow, local_radius)
+        return call(f0, f1, flow, local_radius, **kw)
 
     gmflow.local_correlation_with_flow = keep
     try:

@@ -46,21 +46,26 @@ PUBLISHED_ARTIFICIAL = {
 }
 
 
-def load_deep(path, kind, device=None):
+def load_deep(path, kind, device=None, **module_kwargs):
     """A reference checkpoint of ``kind`` -> (the port's module, its
-    variables on ``device``; None: the card)."""
+    variables on ``device``; None: the card). ``module_kwargs`` go to the
+    module beside the checkpoint's hparams (DMSCT's
+    ``matcher_corr_dtype``)."""
     from color_transfer_tpu_torch.methods.video import resolve_device
 
     ckpt = load_reference_ckpt(path, kind)
     device = resolve_device(device)
-    return module_for(kind, ckpt.hparams), {k: v.to(device) for k, v in
-                                            ckpt.state_dict.items()}
+    return module_for(kind, ckpt.hparams, **module_kwargs), {
+        k: v.to(device) for k, v in ckpt.state_dict.items()}
 
 
 def run_sweep(data_dir, dcmcs3di_ckpt=None, dmsct_ckpt=None, classical=True,
               eval_buckets=None, max_batches=None, batch_size=1, num_workers=4,
-              log_dir="runs/parity_sweep", seed=42, device=None):
-    """Returns {method_name: {"Test PSNR/dataloader_idx_0": ..., ...}}."""
+              log_dir="runs/parity_sweep", seed=42, device=None,
+              matcher_corr_dtype="float32"):
+    """Returns {method_name: {"Test PSNR/dataloader_idx_0": ..., ...}}.
+    ``matcher_corr_dtype``: DMSCT's GRU-loop correlation (kernel B1) in
+    float32 (bit-strict, the default) or bfloat16, as the JAX sweep."""
     from color_transfer_tpu_torch.run.datamodule import DataModule
     from color_transfer_tpu_torch.run.modules import ClassicalModule
     from color_transfer_tpu_torch.run.trainer import Trainer
@@ -85,7 +90,8 @@ def run_sweep(data_dir, dcmcs3di_ckpt=None, dmsct_ckpt=None, classical=True,
             eval_buckets=eval_buckets)
     if dmsct_ckpt is not None:
         trainer = trainer_for("dmsct")
-        module, variables = load_deep(dmsct_ckpt, "dmsct", trainer.device)
+        module, variables = load_deep(dmsct_ckpt, "dmsct", trainer.device,
+                                      matcher_corr_dtype=matcher_corr_dtype)
         results["Ours (DMSCT)"] = trainer.test(module, datamodule, variables=variables,
                                                max_batches=max_batches)
     return results
@@ -120,8 +126,9 @@ def main(argv=None):
     parser.add_argument("--eval_buckets", type=int, default=None)
     parser.add_argument("--max_batches", type=int, default=None)
     parser.add_argument("--num_workers", type=int, default=4)
-    parser.add_argument("--matcher_corr_dtype", default="float32", choices=["float32"],
-                        help="float32 only: the port has no bf16 matcher (ROADMAP.md)")
+    parser.add_argument("--matcher_corr_dtype", default="float32",
+                        help="float32 for bit-strict parity (default); "
+                             "bfloat16 for speed after the drift is gated")
     parser.add_argument("--device", default=None, help="cpu; default: the card")
     parser.add_argument("--out", default=None, help="write the markdown table here")
     args = parser.parse_args(argv)
@@ -135,6 +142,7 @@ def main(argv=None):
         max_batches=args.max_batches,
         num_workers=args.num_workers,
         device=args.device,
+        matcher_corr_dtype=args.matcher_corr_dtype,
     )
     table = format_table(results, published=PUBLISHED_ARTIFICIAL)
     print(json.dumps(results, indent=2))

@@ -73,9 +73,24 @@ def test_occlusion_flips_report():
 
 @pytest.mark.parametrize("recipe", ["bf16", "bf16m", "bf16c", "bf16+fused", "bf16-nofuse",
                                     "bf16+refine32"])
-def test_recipes_the_port_lacks_raise(recipe):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        deep_gate.recipe_kwargs("dmsct", recipe)
+def test_recipe_kwargs_are_the_jax_gates(recipe, monkeypatch):
+    """Each DMSCT bf16 recipe's keywords are those examples/deep_gate.py::
+    build_model passes the JAX model for the same name."""
+    import examples.deep_gate as jgate
+    from color_transfer_tpu.models import dmsct as jdmsct
+
+    seen = {}
+
+    class Capture:
+        def __init__(self, **kwargs):
+            seen.update(kwargs)
+
+        def apply(self, *a, **k):
+            raise AssertionError("not called")
+
+    monkeypatch.setattr(jdmsct, "DMSCT", Capture)
+    jgate.build_model("dmsct", recipe)
+    assert deep_gate.recipe_kwargs("dmsct", recipe) == seen
 
 
 def test_unknown_recipes_raise():

@@ -799,3 +799,118 @@ def test_gloo_collectives_on_cuda_tensors(gen, tmp_path):
             p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"OK rank {r}" in out, out[-3000:]
+
+
+# -- the bf16 instantiations (DMSCT's bf16 recipes) ---------------------------------
+# Lines in bf16 ulps of the output's magnitude: B2a, B2b, B2c round at the
+# TPU kernel's points as their plain versions do, summing exact bf16
+# products in f32 in other orders, so a value within an f32 rounding of a
+# bf16 boundary rounds the other way and, in B2b's and B2c's chains, feeds
+# the next rounding: 2 ulps. B1's output is f32 from exact products: f32
+# rounding only, 1/64 ulp.
+
+
+def _bf16_ulps(got, want):
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("shape,r", [((2, 128, 224, 128), 4), ((1, 13, 37, 16), 1),
+                                     ((3, 20, 24, 256), 4)])
+@pytest.mark.parametrize("kind", ["mixed", "smooth"])
+def test_local_corr_bf16(gen, shape, r, kind):
+    """B1's bf16 instantiation (corr_dtype=bfloat16) on both routes: held to
+    the plain version, the routes to tile_boxes, two runs bit-equal, its
+    launch counted as bf16."""
+    b, h, w, c = shape
+    f0, f1 = (_randn(gen, *shape).to(torch.bfloat16) for _ in range(2))
+    if kind == "mixed":
+        flow = _randn(gen, b, h, w, 2, scale=3.0)
+        flow = torch.where(_randn(gen, b, h, w, 1) > 0.5, flow * 40, flow).contiguous()
+    else:
+        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                                torch.arange(w, dtype=torch.float32), indexing="ij")
+        flow = torch.stack([2.5 + 0.2 * torch.sin(yy / 5.0), -1.5 + 0.1 * xx / w], -1)
+        flow = flow[None].repeat(b, 1, 1, 1).cuda().contiguous()
+    before = lc.local_correlation_with_flow.bf16_launches
+    with torch.no_grad():
+        got = lc.local_correlation_with_flow(f0, f1, flow, r, corr_dtype=torch.bfloat16)
+        again, routes = lc._launch(f0, f1, flow, r, routes=True)
+        want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
+    assert lc.local_correlation_with_flow.bf16_launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert torch.equal(routes.bool(), lc.tile_boxes(flow, r, lc.launch_plan(c, r, 2))["staged"])
+    assert _bf16_ulps(got, want) <= 1 / 64
+
+
+B2_BF16_SHAPES = [((256, 448, 128), (8, 16, 28)), ((96, 480, 128), (2, 16, 30)),
+                  ((3072, 120, 128), (8, 8, 15)), ((8, 35, 128), (2, 5, 7)),
+                  ((4, 1000, 128), (2, 20, 50)), ((12, 91, 128), (2, 7, 13))]
+
+
+@pytest.mark.parametrize("mode", ["none", "shift", "mask"])
+@pytest.mark.parametrize("shape,geom", B2_BF16_SHAPES)
+def test_window_attention_bf16(gen, shape, geom, mode):
+    q, k, v = (_randn(gen, *shape).to(torch.bfloat16) for _ in range(3))
+    kwargs = {"shift": {"shift_windows": geom},
+              "mask": {"mask": wn.geometry_mask(*geom, device="cuda")}}.get(mode, {})
+    before = wn.window_attention_fused.bf16_launches
+    with torch.no_grad():
+        got = wn.window_attention_fused(q, k, v, **kwargs)
+        again = wn.window_attention_fused(q, k, v, **kwargs)
+        want = wn.window_attention_plain(q, k, v, **kwargs)
+    assert wn.window_attention_fused.bf16_launches == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert _bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("self_attn", [True, False])
+@pytest.mark.parametrize("shape,geom", B2_BF16_SHAPES)
+def test_window_sublayer_bf16(gen, shape, geom, self_attn):
+    xs = _randn(gen, *shape).to(torch.bfloat16)
+    xt = xs if self_attn else _randn(gen, *shape).to(torch.bfloat16)
+    w = [t.to(torch.bfloat16) if t.ndim == 2 else t for t in _sublayer_weights(gen, shape[-1])]
+    kwargs = {"shift_windows": geom, "add_residual": True} if self_attn else {}
+    before = wn.window_sublayer_fused.bf16_launches
+    with torch.no_grad():
+        got = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
+        again = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
+        want = wn.window_sublayer_plain(xs, xt, *w, **kwargs)
+    assert wn.window_sublayer_fused.bf16_launches == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert _bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("shape,f", [((256, 448, 128), 1024), ((3072, 120, 128), 1024),
+                                     ((3, 37, 128), 64), ((8, 35, 128), 1024)])
+def test_ffn_bf16(gen, shape, f):
+    c = shape[-1]
+    bf = torch.bfloat16
+    xs, xm = _randn(gen, *shape).to(bf), _randn(gen, *shape).to(bf)
+    w0 = _randn(gen, 2 * c, f, scale=(2 * c) ** -0.5).to(bf)
+    w2 = _randn(gen, f, c, scale=f**-0.5).to(bf)
+    ns, nb = 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1)
+    before = wn.ffn_fused.bf16_launches
+    with torch.no_grad():
+        got = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
+        again = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
+        want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=True)
+    assert wn.ffn_fused.bf16_launches == before + 2
+    assert got.dtype == bf and torch.equal(got, again)
+    assert _bf16_ulps(got, want) <= 2
+
+
+def test_bf16_tokens_need_bf16_weights(gen):
+    """A bf16 tensor a wrapper cannot take raises on the card; it does not
+    fall back to the plain version."""
+    x = _randn(gen, 8, 35, 128).to(torch.bfloat16)
+    w = _sublayer_weights(gen, 128)  # f32 weights
+    before = wn.window_sublayer_fused.launches
+    with pytest.raises(ValueError):
+        wn.window_sublayer_fused(x, x, *w)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        f = _randn(gen, 1, 4, 6, 12).to(torch.bfloat16)
+        lc.local_correlation_with_flow(f, f, _randn(gen, 1, 4, 6, 2), 1,
+                                       corr_dtype=torch.bfloat16)
+    assert wn.window_sublayer_fused.launches == before

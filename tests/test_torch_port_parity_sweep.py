@@ -103,8 +103,3 @@ def test_format_table_shape():
     assert "34.03" in table
     partial = {"Ours (DMSCT)": {"Test PSNR/dataloader_idx_0": 30.0}}
     assert parity_sweep.format_table(partial) == jsweep.format_table(partial)
-
-
-def test_bf16_matcher_flag_is_refused(data_root):
-    with pytest.raises(SystemExit):
-        parity_sweep.main(["--data_dir", str(data_root), "--matcher_corr_dtype", "bfloat16"])

@@ -414,7 +414,7 @@ def test_ffn_weight_shapes_checked(rng):
 
 GUARD_SHAPES = [(128, 448, 128), (8, 1792, 128), (96, 480, 128), (1536, 120, 128),
                 (6144, 120, 128), (256, 448, 128), (2, 799, 128), (2, 800, 128),
-                (5, 700, 128), (8, 4096, 128), (4, 24, 32)]
+                (5, 700, 128), (8, 4096, 128), (4, 24, 32), (3072, 120, 128)]
 
 
 @pytest.mark.parametrize("shape", GUARD_SHAPES)

@@ -163,18 +163,22 @@ fallback):
                 its weights in bf16, bf16-nofuse, bf16m, bf16c and
                 bf16+refine32: exact launch counts (B1 6 a frame, bf16 where
                 the recipe's correlation is; B2b 12 and B2c 6 a frame, bf16,
-                on the fused recipes), the output finite in [0, 1], warm
+                on the fused recipes; B2b's by route), the output finite in
+                [0, 1], warm
                 ms/frame, device busy ms and share, device ms by stage, peak
                 memory, the pair PSNR against phase 4's f32 output, the bf16
                 recipe's convolutions timed, and the small pair stage by
                 stage against the port's CPU run of the recipe (bf16 lines in
                 ulps); the bf16 kernels against their plain versions in bf16
                 ulps (B1 at the served and the training shapes on the smooth,
-                mixed and served flows; B2a with the shift mask, B2b self
-                and cross, B2c at the 1080p and the training shapes), each
-                timed beside its plain version, its bound and (B2a) SDPA in
-                bf16; the drift gate for all six recipes (one f32 run shared;
-                a near-miss again at seeds 1 and 2); three train steps at
+                mixed and served flows; B2a in its three mask modes, B2b self
+                and cross at the 1080p and the training shapes, a streamed L
+                of 1024 and a ragged L of 200, on each route the plan allows,
+                the routes bit-equal and both launched; B2c at the 1080p and
+                the training shapes), each timed beside its plain version,
+                its bound and (B2a) SDPA in bf16; the drift gate for all
+                six recipes (one f32 run shared; a near-miss again at seeds 1
+                and 2); three train steps at
                 configs/dmsct.yaml's full width in bf16c and bf16 (finite
                 losses, the matcher bit-unchanged, the corrector and its BN
                 statistics moved). Prints its time.
@@ -191,6 +195,7 @@ the same function, and its bound on the card: the larger of its bytes over
 last line is {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import json
 import math
 import re
@@ -350,7 +355,7 @@ def build():
                                   r"window_attention_kernel|sublayer_kernel|"
                                   r"kv_projection_kernel|ffn_kernel|pack_weights_kernel|"
                                   r"window_attention_bf16_kernel|sublayer_bf16_kernel|"
-                                  r"projection_bf16_kernel|ffn_bf16_kernel|"
+                                  r"kv_projection_bf16_kernel|ffn_bf16_kernel|"
                                   r"warp_adjoint_kernel)((?:I(?:L[ib]\d+E)+)?)", line)
                 if entry:  # e.g. row_attention_bf16 ILi64ELb1ELb0E: <C = 64, out, no colsum>
                     _log(f"  {entry.group(1)} {entry.group(2)}")
@@ -767,6 +772,8 @@ def _reset_launches():
             fn.vector_launches = 0
         if hasattr(fn, "bf16_launches"):  # the launches of a bf16 instantiation
             fn.bf16_launches = 0
+        if hasattr(fn, "bf16_routes"):  # B2a's and B2b's bf16 launches by route
+            fn.bf16_routes = dict.fromkeys(fn.bf16_routes, 0)
 
 
 def _bf16_launches():
@@ -3438,9 +3445,13 @@ B2_BF16_ULPS, B1_BF16_ULPS = 2, 1 / 64
 BF16_STAGE_ULPS = {"matcher.backbone": 4, "matcher.transformer": 6,
                    "matcher.feature_flow_attn": 0.25, "encoder": 1, "decoder": 2, "head": 1}
 # B2 at the bf16 path's shapes: 1080p scale 1 (the served shape) and the
-# training shape's two scales.
+# training shape's two scales. B2a and B2b bf16 also at a streamed L (1024:
+# K does not stay in shared memory) and a ragged one (200, not a multiple
+# of 64), each on every route its plan allows (ops/win_attention.py::
+# attention_plan; the resident one where it fits, the streamed one always).
 B2_BF16_SHAPES = (((256, 448, 128), (8, 16, 28)), ((3072, 120, 128), (8, 8, 15)),
                   ((96, 480, 128), (2, 16, 30)))
+B2_BF16_EDGES = (((16, 1024, 128), (2, 32, 32)), ((64, 200, 128), (2, 10, 20)))
 # A gate failure "by a margin under 2x the line": every worst delta within
 # twice its line.
 NEAR_MISS = 2.0
@@ -3552,7 +3563,13 @@ def serve_bf16(f32):
         if fused:
             for name, n in (("window_sublayer_fused", B2B_PER_FRAME), ("ffn_fused", B2C_PER_FRAME)):
                 want[name] = want_bf16[name] = n * FRAMES
-        _log(f"bf16 serve {recipe}: output {tuple(out.shape)}, launches {counts}, of them bf16 {bf16}")
+        from color_transfer_tpu_torch.ops import win_attention as wn
+
+        routes = dict(wn.window_sublayer_fused.bf16_routes)
+        _log(f"bf16 serve {recipe}: output {tuple(out.shape)}, launches {counts}, of them bf16 "
+             f"{bf16}; B2b bf16 by route {routes}")
+        if sum(routes.values()) != bf16["window_sublayer_fused"]:
+            raise AssertionError(f"bf16 serve {recipe}: B2b routes {routes} against {bf16}")
         if counts != want or bf16 != want_bf16:
             raise AssertionError(f"bf16 serve {recipe}: launches {counts} / {bf16}, expected "
                                  f"{want} / {want_bf16}")
@@ -3607,12 +3624,15 @@ def check_bf16_kernels(g, kept):
     """The bf16 kernels against their plain versions at the bf16 path's
     shapes, in bf16 ulps: B1 at the served (2, 128, 224, 128) shape on the
     smooth, the mixed and the served flow (the bf16 recipe's first B1 call)
-    and at the training shape (24, 64, 120, 128); B2a with the shift mask,
-    B2b cross and self (the shift and the residual) and B2c at
-    B2_BF16_SHAPES. Each timed at the served shape beside its plain
-    version, its bound (bf16 bytes at 3.35 TB/s or bf16 products at 989
-    TFLOP/s) and, for B2a, SDPA in bf16 with the tiled mask. Returns the
-    four rows, their launches from the bf16 recipe's serving."""
+    and at the training shape (24, 64, 120, 128); B2a in its three mask
+    modes, B2b cross and self (the shift and the residual) at
+    B2_BF16_SHAPES and B2_BF16_EDGES on each route the plan allows (the
+    routes bit-equal; both must launch; the plan's shared memory equal to
+    the kernel library's for every L), and B2c at B2_BF16_SHAPES. Each
+    timed at the served shape beside its plain version, its bound (bf16
+    bytes at 3.35 TB/s or bf16 products at 989 TFLOP/s) and, for B2a, SDPA
+    in bf16 with the tiled mask. Returns the four rows, their launches from
+    the bf16 recipe's serving."""
     import torch.nn.functional as F
 
     from color_transfer_tpu_torch.ops import local_corr as lc
@@ -3676,10 +3696,55 @@ def check_bf16_kernels(g, kept):
     norm = [(1 + 0.1 * torch.randn(c, generator=g)).cuda(), (0.1 * torch.randn(c, generator=g)).cuda()]
     w0 = (torch.randn(2 * c, B2_FFN, generator=g) / (2 * c) ** 0.5).cuda().to(bf)
     w2 = (torch.randn(B2_FFN, c, generator=g) / B2_FFN**0.5).cuda().to(bf)
+    smem = wn._kernel("win_attention", "window_attention_bf16_smem", [ctypes.c_int] * 3)
+    for length in range(1, wn._MAX_L + 1):  # the plan states the library's sum
+        for sub in (False, True):
+            for route in wn.ROUTES:
+                try:
+                    plan = wn.attention_plan(length, 1, sublayer=sub, route=route).smem
+                except ValueError:
+                    plan = None
+                lib = smem(wn.ROUTES.index(route), length, int(sub))
+                if (plan if plan is not None else lib) != lib or (
+                        plan is None) != (lib > wn.BLOCK_SMEM_LIMIT):
+                    raise AssertionError(f"attention_plan({length}, sublayer={sub}, {route}): "
+                                         f"{plan} bytes, the library {lib}")
+    before = {fn.__name__: dict(fn.bf16_routes)
+              for fn in (wn.window_attention_fused, wn.window_sublayer_fused)}
     timed = {}
-    for shape, geom in B2_BF16_SHAPES:
+    for shape, geom in B2_BF16_SHAPES + B2_BF16_EDGES:
         x, y, v = (torch.randn(*shape, generator=g).cuda().to(bf) for _ in range(3))
-        cases = {
+        mask = wn.geometry_mask(*geom, device="cuda")
+        routed = {
+            "B2a none": (wn._launch_attention, wn.window_attention_plain, (x, y, v, None), {}),
+            "B2a shift": (wn._launch_attention, wn.window_attention_plain, (x, y, v, None),
+                          {"shift_windows": geom}),
+            "B2a mask": (wn._launch_attention, wn.window_attention_plain, (x, y, v, mask), {}),
+            "B2b self": (wn._launch_sublayer, wn.window_sublayer_plain,
+                         (x, x, *weights, *norm), {"shift_windows": geom, "add_residual": True}),
+            "B2b cross": (wn._launch_sublayer, wn.window_sublayer_plain,
+                          (x, y, *weights, *norm), {}),
+        }
+        report = []
+        for label, (launch, plain, args, kw) in routed.items():
+            sub = launch is wn._launch_sublayer
+            routes = [r for r in wn.ROUTES
+                      if r == "streamed" or wn.attention_plan(shape[1], shape[0], sub).route == r]
+            with torch.no_grad():
+                want = plain(*args, **kw)
+                got = {r: launch(*args, route=r, **kw) for r in routes}
+                again = launch(*args, **kw)
+            first = got[routes[0]]
+            errs = {r: _bf16_ulps(out, want) for r, out in got.items()}
+            report.append(f"{label} " + " / ".join(f"{r} {e:.2f}" for r, e in errs.items()))
+            if first.dtype != bf or not torch.equal(first, again) or not all(
+                    torch.equal(first, out) for out in got.values()):
+                raise AssertionError(f"{label} bf16 at {shape}: dtype, or two runs or the "
+                                     "routes differ")
+            if not all(np.isfinite(e) and e <= B2_BF16_ULPS for e in errs.values()):
+                raise AssertionError(f"{label} bf16 kernel disagrees at {shape}: {errs} ulps")
+            del got, again, want
+        cases = {} if (shape, geom) in B2_BF16_EDGES else {
             "B2a shift": (wn.window_attention_fused, wn.window_attention_plain, (x, y, v),
                           {"shift_windows": geom}),
             "B2b self": (wn.window_sublayer_fused, wn.window_sublayer_plain,
@@ -3688,12 +3753,12 @@ def check_bf16_kernels(g, kept):
                           (x, y, *weights, *norm), {}),
             "B2c": (wn.ffn_fused, wn.ffn_plain, (x, y, w0, w2, *norm), {"add_residual": True}),
         }
-        report = []
         for label, (fn, plain, args, kw) in cases.items():
             with torch.no_grad():
                 got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
             err = _bf16_ulps(got, want)
-            report.append(f"{label} {err:.2f}")
+            if label == "B2c":
+                report.append(f"{label} {err:.2f}")
             if got.dtype != bf or not torch.equal(got, again):
                 raise AssertionError(f"{label} bf16 at {shape}: dtype or two runs differ")
             if not np.isfinite(err) or err > B2_BF16_ULPS:
@@ -3706,19 +3771,23 @@ def check_bf16_kernels(g, kept):
                                     _time_ms(lambda: plain(*args, **kw), iters=3),
                                     _time_ms(lambda: fn(*a32, **kw), iters=5))
             del got, again, want
-        _log(f"B2 bf16 {shape} geometry {geom}: max|d| in bf16 ulps (line {B2_BF16_ULPS}): "
-             + ", ".join(report))
+        _log(f"B2 bf16 {shape} geometry {geom}: max|d| in bf16 ulps (line {B2_BF16_ULPS}), "
+             "by route: " + ", ".join(report))
         if shape == B2_BF16_SHAPES[0][0]:
-            mask = wn.geometry_mask(*geom, device="cuda").to(bf)
-            attn_mask = mask.repeat(shape[0] // mask.shape[0], 1, 1)[:, None]
+            tiled = mask.to(bf).repeat(shape[0] // mask.shape[0], 1, 1)[:, None]
             with torch.no_grad():
                 sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    x[:, None], y[:, None], v[:, None], attn_mask=attn_mask), iters=10)
+                    x[:, None], y[:, None], v[:, None], attn_mask=tiled), iters=10)
             _log(f"B2 bf16 {shape}, ms (kernel / plain / the f32 kernel): " + ", ".join(
                 f"{k} {ms:.4f} / {pm:.4f} / {m32:.4f}" for k, (_, ms, pm, m32) in timed.items())
                 + f"; SDPA in bf16 with the tiled mask {sdpa_ms:.4f}")
-            del mask, attn_mask
-        del x, y, v
+            del tiled
+        del x, y, v, mask
+    routes = {fn.__name__: {r: n - before[fn.__name__][r] for r, n in fn.bf16_routes.items()}
+              for fn in (wn.window_attention_fused, wn.window_sublayer_fused)}
+    _log(f"B2 bf16 launches by route in these checks: {routes}")
+    if not all(n > 0 for by in routes.values() for n in by.values()):
+        raise AssertionError(f"B2 bf16: a route never launched: {routes}")
     torch.cuda.empty_cache()
     (bp, length, c), _ = B2_BF16_SHAPES[0]
     n = bp * length * c

@@ -83,9 +83,15 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hopper::desc_lo;
+using hopper::fence_accumulator;
+using hopper::smem_addr;
+using hopper::wgmma_64x64x16;
 
 constexpr int kTileW = 16;      // output pixels per f32 tile row
 constexpr int kRowsF32 = 8;     // output rows per f32 tile
@@ -94,10 +100,6 @@ constexpr int kRowsBf16 = 12;   // output rows (= warps) per bf16 tile
 constexpr int kPixBf16 = 32;    // output pixels per bf16 tile row (a warp's)
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : 0.01f * v; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8, and gets of matrix i, in r[i], row lane / 4, columns 2 (lane % 4)
@@ -304,42 +306,6 @@ struct WgLayout {
   static constexpr size_t kBytes = kWBytes + size_t(2) * kHalo + 64 * sizeof(float);
 };
 
-// Shared-memory matrix descriptor of a K-major bf16 operand with the 128-byte
-// swizzle: rows of 128 B (64 channels), 8-row groups 1024 B apart. Its low
-// word holds the start address in 16-byte units (and the unused leading
-// offset); the high word (the stride, 1024 B, and the swizzle mode) is one
-// constant, so a descriptor costs one register and moves by a plain add.
-constexpr uint32_t kDescHi = (1024u >> 4) | (1u << 30);
-
-__device__ __forceinline__ uint32_t wgmma_desc_lo(uint32_t addr) {
-  return ((addr & 0x3FFFF) >> 4) | (1u << 16);
-}
-
-// d (64 x 64, f32; a thread's 32 values) (+)= a (64 x 16) . b (64 x 16)^T.
-__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint32_t a_lo, uint32_t b_lo,
-                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %34, 0;\n"
-      "mov.b64 da, {%32, %35};\nmov.b64 db, {%33, %35};\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "da, db, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a_lo), "r"(b_lo), "r"(accumulate), "r"(kDescHi));
-}
-
-// Orders later reads of an accumulator after the wgmma.wait_group before
-// them: the compiler sees no other dependence between the two.
-__device__ __forceinline__ void fence_accumulator(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // 16 bytes of a 128-byte shared row: chunk c goes to the slot the 128-byte
 // swizzle gives it, c ^ (bits 7-9 of the row's shared address). wgmma applies
 // the same XOR to the addresses it forms, so an operand may start at any row.
@@ -395,7 +361,7 @@ conv3x3_bf16_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
   float* sb = reinterpret_cast<float*>(sx + 2 * L::kHalo);  // the bias
   if (tid < C) sb[tid] = bias[tid];
-  const uint32_t w_desc = wgmma_desc_lo(smem_addr(sw));
+  const uint32_t w_desc = desc_lo(smem_addr(sw));
 
   // The 36 MMAs (9 taps x 4 k-steps of m64n64k16) of output row `row` of the
   // tile whose halo starts at x_desc, into d; one commit group. The loop
@@ -481,7 +447,7 @@ conv3x3_bf16_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
     __syncthreads();  // this tile's halo (and the weights) landed; tile t - 1's MMAs are done
     if (t + int(gridDim.x) < n_tiles) fetch(t + gridDim.x, (it + 1) & 1);
 
-    const uint32_t x_desc = wgmma_desc_lo(smem_addr(sx + (it & 1) * L::kHalo));
+    const uint32_t x_desc = desc_lo(smem_addr(sx + (it & 1) * L::kHalo));
     mma_row(acc[0], x_desc, 2 * group);
     if (it > 0) epilogue(acc[1], pb, ph + 1, pw);
     mma_row(acc[1], x_desc, 2 * group + 1);

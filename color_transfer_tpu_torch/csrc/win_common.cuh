@@ -1,8 +1,9 @@
 // Pieces shared by the matcher transformer's kernels: win_attention.cu (B2a),
 // win_sublayer.cu (B2b) and win_ffn.cu (B2c). Tokens 128 channels wide
 // (GMFlow's d_model). The f32 kernels' pieces come first; the bf16 ones
-// (the bfloat16 recipe, one bf16 mma.sync a product) are in the last
-// section of this file. f32 operands: Every product runs on the tensor cores in
+// (the bfloat16 recipe: B2c's mma.sync pieces, then B2a's and B2b's wgmma
+// attention core) are in the last two sections of this file. f32 operands:
+// Every product runs on the tensor cores in
 // 3xTF32 (mma.sync.m16n8k8), f32's accuracy: the attention core (attend)
 // and the weight products (the GEMM core at the end of this file: B2b's q,
 // k/v and merge projections, B2c's two FFN products). Blocks run kThreads =
@@ -17,6 +18,8 @@
 
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace win {
 
@@ -753,43 +756,31 @@ __device__ __forceinline__ void store_acc(float* dst, long long ld, const float 
 }
 
 
-// ---- bf16: the bfloat16 recipe's pieces, mma.sync.m16n8k16 ---------------
+// ---- bf16: the bfloat16 recipe's pieces ------------------------------------
 //
 // The TPU kernels take bf16 tokens and weights on their bf16 route and
 // round where the JAX package's kernel bodies round
 // (color_transfer_tpu/ops/win_attention.py): a product's operands are bf16,
 // its products exact and its sums f32 (bf16 x bf16 -> f32 on the MXU), and
-// its result is rounded to bf16 where the TPU kernel casts it. Here each
-// product is one mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (3xTF32's three
-// products become one). Fragments (PTX ISA, m16n8k16, lane = 4 g + t4):
+// its result is rounded to bf16 where the TPU kernel casts it. B2c's
+// products (win_ffn.cu) are each one mma.sync.m16n8k16.row.col.f32.bf16.bf16
+// .f32, the pieces below; B2a's and B2b's run on wgmma (the last section of
+// this file). Fragments (PTX ISA, m16n8k16, lane = 4 g + t4):
 //   A (16 x 16, row): a0 (row g, k 2t4, 2t4 + 1), a1 (row g + 8, same k),
 //     a2 (row g, k 2t4 + 8, + 9), a3 (row g + 8, k 2t4 + 8, + 9);
 //   B (16 x 8, col): b0 (k 2t4, 2t4 + 1; column g), b1 (k 2t4 + 8, + 9);
 //   C (16 x 8, f32): c0, c1 (row g, columns 2t4, 2t4 + 1), c2, c3 (row g + 8).
 // Two n-tiles of an accumulator (16 columns) rounded to bf16 and packed in
-// pairs are the A fragment of a k-step whose k runs over those columns (P
-// before P.V, the message before the merge, gelu(h) before h W2): no
+// pairs are the A fragment of a k-step whose k runs over those columns
+// (gelu(h) before h W2; and, in wgmma's register-A form, whose layout per
+// warp is this one, P before P.V and the message before the merge): no
 // permutation, no shared memory. Operands in shared memory are read with
-// ldmatrix: A tiles and K (keys x channels, whose rows are B's columns)
-// without .trans, V and the weights (input-major, K x N row-major) with
-// .trans. Tiles of 128 bf16 channels use a row stride of 136 (kBS, 272
-// bytes): the eight 16-byte rows an 8 x 8 matrix reads fall in distinct
-// bank groups.
-//
-// The attention (attend_bf16) keeps JAX's rounding: the softmax is
-// normalised in f32 before p is rounded to bf16, as the TPU kernel rounds
-// softmax(s) (an online softmax would round exp(s - running max) and
-// normalise after). So it runs two passes over the keys: the first takes
-// each query row's max and sum, the second recomputes the scores (one bf16
-// MMA a product: cheap beside 3xTF32), forms p = exp(s - max) / sum in f32,
-// rounds it to bf16 and accumulates P.V in f32. A block holds kRowsB = 64
-// query rows, a warp 16 of them with the query's A fragments (all 128
-// channels) in registers.
+// ldmatrix: A tiles without .trans, the weights (input-major, K x N
+// row-major) with .trans. Tiles of 128 bf16 channels use a row stride of
+// 136 (kBS, 272 bytes): the eight 16-byte rows an 8 x 8 matrix reads fall in
+// distinct bank groups.
 
-constexpr int kBS = kC + 8;        // bf16 row stride of a 128-wide tile in shared memory
-constexpr int kRowsB = 64;         // query rows (tokens) of a bf16 block: 16 a warp
-constexpr int kThreadsB = 128;     // 4 warps
-constexpr int kTileB = 64;         // keys (or values) staged at a time
+constexpr int kBS = kC + 8;  // bf16 row stride of a 128-wide tile in shared memory
 
 typedef __nv_bfloat16 bf16;
 
@@ -898,173 +889,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&pa)[4], const float (&acc)[N
   pa[3] = pack_bf16(acc[2 * ks + 1][2], acc[2 * ks + 1][3]);
 }
 
-// The bf16 attention kernels' shared memory: the query tile (kRowsB x kBS),
-// the K and the V tile (kTileB x kBS each).
-struct AttnSmemB {
-  bf16 *q, *k, *v;
-  __device__ explicit AttnSmemB(bf16* base)
-      : q(base), k(base + kRowsB * kBS), v(base + (kRowsB + kTileB) * kBS) {}
-  static constexpr size_t kElems = static_cast<size_t>(kRowsB + 2 * kTileB) * kBS;
-};
-
-// Query rows q0 + 16 warp + (g, g + 8) of window w (the query tile staged
-// in sm.q by the caller, its cp.async group committed) attend to the
-// window's L keys (key n at kbase + n * ld, value n at vbase + n * ld,
-// device memory, 16-byte aligned rows). o: this warp's 16 x 128 result in
-// f32 (not yet rounded), n-tile j holding channels 8 j + 2 t4, + 1 of rows
-// g (o[j][0..1]) and g + 8 (o[j][2..3]). Starts by waiting for the caller's
-// copies and a barrier; leaves sm.k and sm.v in use (barrier before reuse).
-__device__ __forceinline__ void attend_bf16(const AttnSmemB& sm, const bf16* kbase,
-                                            const bf16* vbase, long long ld, int L, int w,
-                                            int q0, int nq, float scale, const Mask& mask,
-                                            float (&o)[16][4]) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = 16 * warp + g;  // this thread's local rows r0 and r0 + 8
-
-  bool last_row = false, last_col = false;
-  int qlab[2] = {0, 0};
-  if (mask.mode == 1) {
-    const int gw = w % (mask.kw * mask.kw);
-    last_row = gw / mask.kw == mask.kw - 1;
-    last_col = gw % mask.kw == mask.kw - 1;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      qlab[h] = region_label(q0 + r0 + 8 * h, last_row, last_col, mask.hs, mask.ws);
-  }
-  const bool banded = mask.mode == 1 && (last_row || last_col);
-  // A key's label without integer division, as attend's.
-  const int row_split = (mask.hs - mask.hs / 2) * mask.ws, col_split = mask.ws - mask.ws / 2;
-  const float inv_ws = banded ? 1.f / static_cast<float>(mask.ws) : 0.f;
-  auto key_label = [&](int n) {
-    const int c = n - mask.ws * static_cast<int>((static_cast<float>(n) + 0.5f) * inv_ws);
-    return 3 * (last_row ? (n < row_split ? 1 : 2) : 0) +
-           (last_col ? (c < col_split ? 1 : 2) : 0);
-  };
-  const float* mw = mask.mode == 2
-                        ? mask.m + static_cast<long long>(w % mask.n_mask) * L * L
-                        : nullptr;
-
-  cp_async_wait_all();
-  __syncthreads();  // the query tile is in
-  uint32_t qa[8][4];  // the query's A fragments, 8 k-steps of 16 channels
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks)
-    ldsm_x4(qa[ks], sm.q + (16 * warp + (lane & 15)) * kBS + 16 * ks + (lane >> 4) * 8);
-
-  // S (16 x 64 keys: 8 n-tiles) of the staged K tile, scaled and masked,
-  // -inf past L.
-  auto scores = [&](float (&s)[8][4], int n0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const bf16* kp = sm.k + ((lane >> 4) * 8 + (lane & 7)) * kBS + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, kp + 16 * np * kBS + 16 * ks);
-        mma_bf16(s[2 * np], qa[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[ks], b[2], b[3]);
-      }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int n = n0 + 8 * j + 2 * t4 + c;
-        const int lab = banded ? key_label(n) : 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = s[j][2 * h + c] * scale;
-          if (n >= L) {
-            v = -INFINITY;
-          } else if (banded) {
-            if (qlab[h] != lab) v -= 100.f;
-          } else if (mw != nullptr && r0 + 8 * h < nq) {
-            v += mw[static_cast<long long>(q0 + r0 + 8 * h) * L + n];
-          }
-          s[j][2 * h + c] = v;
-        }
-      }
-  };
-
-  // Pass 1: each row's max and sum of exp(s - max) (this thread's columns,
-  // rescaled as the max moves; the quad's four parts added at the end).
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < L; n0 += kTileB) {
-    __syncthreads();  // every warp is done with the previous K tile
-    stage_bf16(sm.k, kBS, kbase + static_cast<long long>(n0) * ld, ld, kTileB, kC,
-               min(kTileB, L - n0), kThreadsB);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    float s[8][4];
-    scores(s, n0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[h], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * h] - mn) + expf(s[j][2 * h + 1] - mn);
-      l[h] = (m[h] == -INFINITY ? 0.f : l[h] * expf(m[h] - mn)) + sum;
-      m[h] = mn;
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-
-  // Pass 2: p = exp(s - max) / sum in f32, rounded to bf16, times V.
-#pragma unroll
-  for (int j = 0; j < 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  const bf16* vp = sm.v + (lane & 15) * kBS + (lane >> 4) * 8;
-  for (int n0 = 0; n0 < L; n0 += kTileB) {
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    const int nv = min(kTileB, L - n0);
-    stage_bf16(sm.k, kBS, kbase + static_cast<long long>(n0) * ld, ld, kTileB, kC, nv,
-               kThreadsB);
-    stage_bf16(sm.v, kBS, vbase + static_cast<long long>(n0) * ld, ld, kTileB, kC, nv,
-               kThreadsB);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    float s[8][4];
-    scores(s, n0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / l[e >> 1];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {  // keys 16 ks .. of the tile
-      uint32_t pa[4];
-      acc_to_a<8>(pa, s, ks);
-#pragma unroll
-      for (int cp = 0; cp < 8; ++cp) {  // channels 16 cp ..
-        uint32_t b[4];
-        ldsm_x4_t(b, vp + 16 * ks * kBS + 16 * cp);
-        mma_bf16(o[2 * cp], pa, b[0], b[1]);
-        mma_bf16(o[2 * cp + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-}
-
 // Per row of this warp (g, g + 8), LayerNorm of y (16 n-tiles of f32 values,
 // each already bf16-valued) by the JAX formula, rounded to bf16, plus the
-// residual row (bf16, added in f32 and rounded) when res is not null;
-// stored as bf16 pairs at out (row stride 128). Rows from `valid` on (local
-// index r0 + 8 h) are not written.
-__device__ __forceinline__ void layer_norm_store_bf16(float (&y)[16][4], const float* scale,
-                                                      const float* bias, const bf16* res,
-                                                      bf16* out, int r0, int valid) {
+// residual row (bf16, added in f32 and rounded) when res is not null; each
+// bf16 pair of row r (local index r0 + 8 h; rows from `valid` on skipped),
+// channels c, c + 1, goes to store(r, j, c, pair), c = 8 j + 2 t4.
+template <typename Store>
+__device__ __forceinline__ void layer_norm_bf16(float (&y)[16][4], const float* scale,
+                                                const float* bias, const bf16* res, int r0,
+                                                int valid, Store store) {
   const int t4 = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1094,9 +927,472 @@ __device__ __forceinline__ void layer_norm_store_bf16(float (&y)[16][4], const f
         a += x.x;
         b += x.y;
       }
-      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(r) * kC + c) = pack_bf16(a, b);
+      store(r, j, c, pack_bf16(a, b));
     }
   }
+}
+
+// layer_norm_bf16 stored as bf16 pairs at out (row stride 128).
+__device__ __forceinline__ void layer_norm_store_bf16(float (&y)[16][4], const float* scale,
+                                                      const float* bias, const bf16* res,
+                                                      bf16* out, int r0, int valid) {
+  layer_norm_bf16(y, scale, bias, res, r0, valid, [&](int r, int, int c, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(r) * kC + c) = v;
+  });
+}
+
+// ---- bf16 attention (B2a, B2b): wgmma, a TMA ring, the window's K resident ----
+//
+// softmax(Q K^T * scale + mask) V for 128 query rows of one window, the TPU
+// kernels' bf16 rounding: q, k, v bf16, the scores and the softmax f32, p
+// normalised in f32 and then rounded to bf16 (jax.nn.softmax(s).astype(dtype)),
+// P.V summed in f32.
+//
+// What bounds it: at (256, 448, 128) the products are 39.5 GFLOP counting
+// both passes' Q K^T (0.040 ms at 989 TFLOP/s); q, k, v and the output are
+// 117 MB (0.035 ms at 3.35 TB/s). The first bf16 version (mma.sync, 64
+// rows a block of 4 warps, 0.536 ms there) waited on copies: each 64-key
+// tile was staged by cp.async and waited for at once, two barriers a tile,
+// and the window's K and V crossed L2 21 times.
+//
+// Design. A block is two consumer warpgroups of 64 query rows each and a
+// producer warpgroup (384 threads, one block an SM; setmaxnreg gives the
+// consumers 232 registers a thread: ptxas budgets a wgmma kernel by whole
+// warpgroups, so a lone producer warp left them 168 and spilled):
+//   * the producer's one thread issues every copy as a TMA box (a 128-byte
+//     swizzled half of 64 channels; rows past L, or past the tensor, read as
+//     zeros) that completes a full mbarrier; consumers free a slot through
+//     an empty mbarrier (one arrival per active warpgroup). The query tile
+//     (B2b: the x_src rows, and Wq), the K tiles and the V tiles all run
+//     ahead of the MMAs, and there is no __syncthreads after the set-up;
+//   * S = Q K^T over a 64-key tile is wgmma m64n64k16 (8 k-steps) with Q's
+//     A fragments in registers (loaded once by ldmatrix; B2b's come straight
+//     from its q projection's accumulator) and K from shared memory. With Q
+//     read from shared memory too the S products carry twice the operand
+//     bytes through the shared-memory port, and B2a took 0.148 ms in place
+//     of 0.135 (a variant build on the H100). P is rounded to bf16 in the
+//     accumulator layout S leaves it in, which per warp is mma.sync's A
+//     layout, and O += P V is wgmma m64n128k16 with A from registers and V
+//     (keys x channels, channels contiguous) as an MN-major B (hopper.cuh);
+//   * the route (ops/win_attention.py::attention_plan chooses it): resident,
+//     each of the window's K tiles gets a slot of its own, so K crosses L2
+//     once a block and pass 2 reads it from shared memory (L <= 640 for B2a,
+//     512 for B2b: the served L = 448 and the training L = 480 and 120);
+//     streamed, K passes through a ring of kKStagesStreamed slots in both
+//     passes (up to L = 1024). V goes through a two-stage ring on both;
+//   * two passes, as the TPU kernel normalises before it rounds p: pass 1
+//     takes each row's max and sum (an online rescale), pass 2 recomputes S,
+//     forms p = exp2(s' - max') * (1 / sum) in f32 (log2(e) is folded into
+//     the scale and the -100 of the mask; one reciprocal a row in place of a
+//     division a score: within an f32 rounding of JAX's quotient, and the
+//     card's 2-ulp line holds) and accumulates P V;
+//   * the shift mask leaves the score loop: a banded window's key labels
+//     are taken once a block, as 32-key bitmasks per label (a ballot a label
+//     per 32 keys) in shared memory, and a score tests one bit of the word
+//     its row's label selects. Unbanded windows do no mask work. The
+//     (n_mask, L, L) operand (mode 2, on no path) is read per score;
+//   * a warpgroup whose 64 rows lie wholly past L (the last block at L =
+//     448) returns before its first MMA, and the barriers count one arrival
+//     fewer. Each warpgroup stages its bf16 output over its own query rows
+//     and stores it by TMA;
+//   * the two warpgroups take turns to issue their products (ping-pong on
+//     two named barriers, as FlashAttention-3 does), so one's softmax runs
+//     while the other's products are on the tensor cores; in pass 2 a turn
+//     issues P(t) V and S(t + 1) together, one wait for both. Each was worth
+//     2-5% on the card (variant builds of this source, one call each).
+// Tried and dropped (variant builds on the H100): issuing the next tile's S
+// before this tile's softmax, with two S buffers (0.17-0.18 ms against
+// 0.147 at the same commit: it cost registers and ptxas serialised the
+// products); a three-stage V ring (no change); a division per score in
+// place of the reciprocal (0.27 ms against 0.14, and no error changed).
+//
+// What holds it back (variant builds, not kept): B2a takes ~0.135 ms at
+// (256, 448, 128), ~30% of the tensor cores' rate for its 39.5 GFLOP.
+// Without the exponentials it took 0.129, without pass 1 0.094, without the
+// P V products 0.072: P V costs several times its own tensor time, the
+// products' latency between a warpgroup's steps. 128-key S tiles (m64n128,
+// half the instructions) and a persistent block that overlaps one item's
+// loads with the last one's epilogue are the untried next steps.
+
+constexpr int kWgRowsA = 64;                     // query rows of a consumer warpgroup
+constexpr int kBlockRowsA = 2 * kWgRowsA;        // query rows of a block
+constexpr int kKeysA = 64;                       // keys of a K or V tile
+constexpr int kThreadsA = 384;                   // two consumer warpgroups, a producer one
+constexpr int kProducerA = 256;                  // the producer's issuing thread
+// Registers a thread: the producer warpgroup gives back down to 40, the
+// consumers take up to 232 (40 x 128 + 232 x 256 <= 65,536).
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kTileBytesA = kKeysA * kC * 2;     // a K or V tile: two 64-channel halves
+constexpr int kQBytesA = kBlockRowsA * kC * 2;   // the query tile: two halves of 128 rows
+constexpr int kWBytesA = kC * kC * 2;            // Wq or Wm (B2b): two halves of 128 rows
+constexpr int kVStagesA = 2;
+constexpr int kKStagesStreamed = 4;
+constexpr int kMaxKeyTilesA = 16;                // L <= 1024
+constexpr int kLabelWords = 2 * kMaxKeyTilesA * 9;
+constexpr int kBarriersA = 2 * kMaxKeyTilesA + 2 * kVStagesA + 3;
+// Label masks and barriers, and up to 1023 bytes to align the base to 1024.
+constexpr int kExtraA = 3072;
+static_assert(4 * kLabelWords + 8 * kBarriersA + 1023 <= kExtraA, "the extra region");
+constexpr int kRouteResident = 0, kRouteStreamed = 1;
+
+__host__ __device__ __forceinline__ int key_tiles(int L) { return (L + kKeysA - 1) / kKeysA; }
+
+// K slots of a block: resident, one a key tile of the window; streamed, a ring.
+__host__ __device__ __forceinline__ int k_slots(int route, int L) {
+  return route == kRouteResident ? key_tiles(L) : kKStagesStreamed;
+}
+
+// Shared memory a block asks for (sub: B2b's weight buffer). The Python plan
+// (ops/win_attention.py::attention_plan) states the same sum.
+__host__ __device__ __forceinline__ int attention_smem_bf16(int route, int L, bool sub) {
+  return kQBytesA + (k_slots(route, L) + kVStagesA) * kTileBytesA + (sub ? kWBytesA : 0) +
+         kExtraA;
+}
+
+// The tensor maps (128-byte swizzle, boxes of 64 channels): q (B2a) or x_src
+// (B2b), (128, L, windows), boxes of 128 rows; k and v, (128, L, windows),
+// boxes of 64 rows; B2b's wq and wm, (128 out, 128 in), boxes of 128 rows;
+// the output, (128, L, windows), boxes of 64 rows (a warpgroup's).
+struct AttnMaps {
+  CUtensorMap q, k, v, wq, wm, out;  // out: (128, L, windows), stored in boxes of 64 rows
+};
+
+struct AttnSmemA {
+  unsigned char *q, *k, *v, *w;
+  uint32_t* labels;  // [32-key chunk][label]: bit i set where key 32 chunk + i has the label
+  uint64_t *kfull, *kempty, *vfull, *vempty, *qfull, *wfull, *wempty;
+  __device__ AttnSmemA(unsigned char* raw, int slots, bool sub) {
+    q = raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
+    k = q + kQBytesA;
+    v = k + slots * kTileBytesA;
+    w = v + kVStagesA * kTileBytesA;
+    labels = reinterpret_cast<uint32_t*>(w + (sub ? kWBytesA : 0));
+    kfull = reinterpret_cast<uint64_t*>(labels + kLabelWords);
+    kempty = kfull + kMaxKeyTilesA;
+    vfull = kempty + kMaxKeyTilesA;
+    vempty = vfull + kVStagesA;
+    qfull = vempty + kVStagesA;
+    wfull = qfull + 1;
+    wempty = wfull + 1;
+  }
+};
+
+// The set-up every thread of a block runs: the barriers (thread 0) and, for
+// a banded window of the shift mask, the key labels' bitmasks (a warp per
+// 32 keys), then the block's one __syncthreads. Returns the number of
+// consumer warpgroups with rows before L; *banded says whether the window's
+// scores take the shift mask.
+__device__ __forceinline__ int attention_setup_bf16(const AttnSmemA& sm, int L, int w, int q0,
+                                                    int slots, const Mask& mask, bool* banded) {
+  const int active = min(2, (L - q0 + kWgRowsA - 1) / kWgRowsA);
+  bool last_row = false, last_col = false;
+  if (mask.mode == 1) {
+    const int gw = w % (mask.kw * mask.kw);
+    last_row = gw / mask.kw == mask.kw - 1;
+    last_col = gw % mask.kw == mask.kw - 1;
+  }
+  *banded = mask.mode == 1 && (last_row || last_col);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < slots; ++i) {
+      hopper::mbar_init(sm.kfull + i, 1);
+      hopper::mbar_init(sm.kempty + i, active);
+    }
+    for (int i = 0; i < kVStagesA; ++i) {
+      hopper::mbar_init(sm.vfull + i, 1);
+      hopper::mbar_init(sm.vempty + i, active);
+    }
+    hopper::mbar_init(sm.qfull, 1);
+    hopper::mbar_init(sm.wfull, 1);
+    hopper::mbar_init(sm.wempty, active);
+    hopper::fence_barrier_init();
+  }
+  if (*banded) {
+    const int lane = threadIdx.x & 31;
+    for (int c = threadIdx.x >> 5; c * 32 < L; c += kThreadsA / 32) {
+      const int n = 32 * c + lane;
+      const int lab = n < L ? region_label(n, last_row, last_col, mask.hs, mask.ws) : -1;
+#pragma unroll
+      for (int b = 0; b < 9; ++b) {
+        const uint32_t bits = __ballot_sync(0xffffffffu, lab == b);
+        if (lane == 0) sm.labels[9 * c + b] = bits;
+      }
+    }
+  }
+  __syncthreads();
+  return active;
+}
+
+// The producer warp's one thread: every copy of the block, in the order the
+// consumers use them. The query tile (B2b: the x_src rows, and Wq), pass 1's
+// K tiles, then (B2b) Wm once the q projections have read Wq, then pass 2's
+// V tiles, each after the K tile it meets on the streamed route.
+__device__ __forceinline__ void produce_bf16(const AttnSmemA& sm, const AttnMaps& maps, int L,
+                                             int w, int q0, int route, int slots, bool sub) {
+  using hopper::mbar_expect_tx;
+  using hopper::mbar_wait;
+  using hopper::tma_load_2d;
+  using hopper::tma_load_3d;
+  const int T = key_tiles(L);
+  mbar_expect_tx(sm.qfull, kQBytesA);
+  tma_load_3d(sm.q, &maps.q, sm.qfull, 0, q0, w);
+  tma_load_3d(sm.q + kQBytesA / 2, &maps.q, sm.qfull, 64, q0, w);
+  auto load_w = [&](const CUtensorMap* map) {
+    mbar_expect_tx(sm.wfull, kWBytesA);
+    tma_load_2d(sm.w, map, sm.wfull, 0, 0);
+    tma_load_2d(sm.w + kWBytesA / 2, map, sm.wfull, 64, 0);
+  };
+  if (sub) load_w(&maps.wq);
+  // Load i of a ring (slot i % n, its (i / n)-th use) of key tile `tile`.
+  auto load = [&](unsigned char* ring, uint64_t* full, uint64_t* empty, const CUtensorMap* map,
+                  int i, int n, int tile) {
+    const int s = i % n;
+    if (i >= n) mbar_wait(empty + s, (i / n - 1) & 1);
+    unsigned char* dst = ring + s * kTileBytesA;
+    mbar_expect_tx(full + s, kTileBytesA);
+    tma_load_3d(dst, map, full + s, 0, tile * kKeysA, w);
+    tma_load_3d(dst + kTileBytesA / 2, map, full + s, 64, tile * kKeysA, w);
+  };
+  for (int t = 0; t < T; ++t) load(sm.k, sm.kfull, sm.kempty, &maps.k, t, slots, t);
+  if (sub) {
+    mbar_wait(sm.wempty, 0);
+    load_w(&maps.wm);
+  }
+  for (int t = 0; t < T; ++t) {
+    if (route == kRouteStreamed) load(sm.k, sm.kfull, sm.kempty, &maps.k, T + t, slots, t);
+    load(sm.v, sm.vfull, sm.vempty, &maps.v, t, kVStagesA, t);
+  }
+}
+
+// The warpgroup's 64 output rows, staged (swizzled) over its rows of the
+// query tile by write(rows), stored by TMA (rows past L fall outside the
+// map and are not written); waits until the store has read them.
+template <typename Write>
+__device__ __forceinline__ void store_rows_bf16(const AttnSmemA& sm, const CUtensorMap* out,
+                                                int L, int w, int q0, int wg, Write write) {
+  unsigned char* rows = sm.q + kWgRowsA * wg * 128;
+  write(rows);
+  hopper::fence_proxy_async();
+  hopper::bar_sync(1 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+    hopper::tma_store_3d(out, rows, 0, q0 + kWgRowsA * wg, w);
+    hopper::tma_store_3d(out, rows + kQBytesA / 2, 64, q0 + kWgRowsA * wg, w);
+    hopper::bulk_commit();
+    hopper::bulk_wait_read();
+  }
+}
+
+// A warpgroup's 64 x 128 accumulator rounded to bf16 as the A fragments of
+// a product over its 128 columns (a[ks]: columns 16 ks .., n-tiles 2 ks and
+// 2 ks + 1): per warp, wgmma's accumulator layout is mma.sync's, so this is
+// acc_to_a's packing.
+__device__ __forceinline__ void acc_to_a_bf16(const float (&acc)[64], uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = 8 * ks + 4 * (u >> 1) + 2 * (u & 1);
+      a[ks][u] = pack_bf16(acc[e], acc[e + 1]);
+    }
+}
+
+// The query's A fragments of the warpgroup's 64 rows (qa[ks]: channels 16 ks
+// .., mma.sync's m16n8k16 A layout per warp) from the swizzled query tile
+// in sm.q, by ldmatrix.
+__device__ __forceinline__ void load_q_bf16(const AttnSmemA& sm, int wg, uint32_t (&qa)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  // lane l gives row l % 16 of the warp's 16 (matrices 0, 1: rows 0-7, 8-15
+  // of channels 0-7 of the k-step; 2, 3: of channels 8-15)
+  const int row = kWgRowsA * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
+  const unsigned char* base = sm.q + row * 128;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const int chunk = 2 * (ks & 3) + (lane >> 4);
+    const uint32_t a =
+        hopper::smem_addr(base + (ks >> 2) * (kQBytesA / 2) + ((chunk ^ (row & 7)) << 4));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(qa[ks][0]), "=r"(qa[ks][1]), "=r"(qa[ks][2]), "=r"(qa[ks][3])
+                 : "r"(a) : "memory");
+  }
+}
+
+// Rows q0 + 64 wg + 16 warp + (g, g + 8) of window w (their A fragments in
+// qa, as load_q_bf16 leaves them) attend to the window's L keys. o: the
+// warpgroup's 64 x 128 result in f32, not yet rounded (wgmma's accumulator
+// layout: o[4 j + e] is row g + 8 (e >> 1), channel 8 j + 2 t4 + (e & 1)).
+__device__ __forceinline__ void attend_bf16(const AttnSmemA& sm, int L, int w, int q0, int wg,
+                                            int route, int slots, float scale, const Mask& mask,
+                                            bool banded, const uint32_t (&qa)[8][4],
+                                            float (&o)[64], bool pingpong) {
+  using namespace hopper;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int T = key_tiles(L);
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int t4 = lane & 3;
+  const int r0 = q0 + kWgRowsA * wg + 16 * warp + (lane >> 2);  // rows r0, r0 + 8
+  const bool streamed = route == kRouteStreamed;
+  const bool elected = (threadIdx.x & 127) == 0;
+  const float sl = scale * kLog2e, band = 100.f * kLog2e;
+  int qlab[2] = {0, 0};
+  if (banded) {
+    const int gw = w % (mask.kw * mask.kw);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qlab[h] = region_label(r0 + 8 * h, gw / mask.kw == mask.kw - 1,
+                             gw % mask.kw == mask.kw - 1, mask.hs, mask.ws);
+  }
+  const float* mw = mask.mode == 2
+                        ? mask.m + static_cast<long long>(w % mask.n_mask) * L * L
+                        : nullptr;
+  const uint32_t k_lo = desc_lo(smem_addr(sm.k));
+  const uint32_t v_lo = desc_lo(smem_addr(sm.v), kTileBytesA / 2);
+
+  // K tile i of the producer's sequence (pass 1: i = t; pass 2: T + t on the
+  // streamed route) has landed; its slot.
+  auto k_ready = [&](int i) {
+    const int slot = i % slots;
+    mbar_wait(sm.kfull + slot, (i / slots) & 1);
+    return slot;
+  };
+  // Frees the K slot of sequence index i (the ring's; resident slots stay).
+  auto k_release = [&](int i) {
+    if (streamed && elected) mbar_arrive(sm.kempty + i % slots);
+  };
+  // S = Q K^T of the K tile in `slot` into s: one commit group, not waited.
+  auto issue_s = [&](float (&s)[32], int slot) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_64x64x16_rs(s, qa[ks],
+                        k_lo + slot * (kTileBytesA >> 4) + (ks >> 2) * (kTileBytesA / 2 >> 4) +
+                            2 * (ks & 3),
+                        ks > 0);
+    wgmma_commit();
+  };
+  // S of key tile t (its group waited for) in log2 units: scaled, masked,
+  // -inf past L.
+  auto finish_s = [&](float (&s)[32], int t) {
+    fence_accumulator(s);
+    if (banded) {  // bit 8 j' + e of lm[h][u]: this thread's key 8 (4 u + j') + 2 t4 + e
+      uint32_t lm[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) lm[h][u] = sm.labels[9 * (2 * t + u) + qlab[h]] >> (2 * t4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool same = (lm[e >> 1][j >> 2] >> (8 * (j & 3) + (e & 1))) & 1u;
+          s[4 * j + e] = s[4 * j + e] * sl - (same ? 0.f : band);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] *= sl;
+    }
+    const int n0 = t * kKeysA + 2 * t4;
+    if (mw != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = n0 + 8 * j + (e & 1), r = r0 + 8 * (e >> 1);
+          if (n < L && r < L) s[4 * j + e] += mw[static_cast<long long>(r) * L + n] * kLog2e;
+        }
+    }
+    if ((t + 1) * kKeysA > L) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n0 + 8 * j + (e & 1) >= L) s[4 * j + e] = -INFINITY;
+    }
+  };
+
+  // Ping-pong (two active warpgroups): each issue of products is a turn,
+  // named barrier 3 + wg being this warpgroup's; the two take turns, so one's
+  // softmax runs while the other's products are on the tensor cores. Both
+  // have 2 T + 1 turns; warpgroup 0 takes the first, and at the end takes up
+  // warpgroup 1's last hand-over so that no arrival is left pending.
+  auto turn = [&] {
+    if (pingpong) bar_sync(3 + wg, 256);
+  };
+  auto pass_turn = [&] {
+    if (pingpong) bar_arrive(3 + (wg ^ 1), 256);
+  };
+  if (pingpong && wg == 1) bar_arrive(3, 256);
+  // Pass 1: each row's max and sum of exp2(s - max) (this thread's columns,
+  // rescaled as the max moves; the quad's four parts added at the end).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[32];
+  for (int t = 0; t < T; ++t) {
+    const int slot = k_ready(t);
+    turn();
+    issue_s(s, slot);
+    pass_turn();
+    wgmma_wait<0>();
+    finish_s(s, t);
+    k_release(t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[h], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += ex2(s[4 * j + 2 * h] - mn) + ex2(s[4 * j + 2 * h + 1] - mn);
+      l[h] = l[h] * ex2(m[h] - mn) + sum;  // ex2(-inf) = 0 on the first tile
+      m[h] = mn;
+    }
+  }
+  float rl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    rl[h] = 1.f / l[h];
+  }
+
+  // Pass 2, batched: P(t) V and S(t + 1) issued back to back, one wait.
+  auto kidx = [&](int t) { return streamed ? T + t : t; };
+  {
+    const int slot = k_ready(kidx(0));
+    turn();
+    issue_s(s, slot);
+    pass_turn();
+  }
+  wgmma_wait<0>();
+  for (int t = 0; t < T; ++t) {
+    finish_s(s, t);
+    k_release(kidx(t));
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int h = u & 1, e = 8 * ks + 4 * (u >> 1) + 2 * h;
+        pa[ks][u] = pack_bf16(ex2(s[e] - m[h]) * rl[h], ex2(s[e + 1] - m[h]) * rl[h]);
+      }
+    const int vs = t % kVStagesA;
+    mbar_wait(sm.vfull + vs, (t / kVStagesA) & 1);
+    const int next = t + 1 < T ? k_ready(kidx(t + 1)) : 0;
+    turn();
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_64x128x16_rs_tb(o, pa[ks], v_lo + vs * (kTileBytesA >> 4) + ks * (16 * 128 >> 4),
+                            t > 0 || ks > 0);
+    wgmma_commit();
+    if (t + 1 < T) issue_s(s, next);
+    pass_turn();
+    wgmma_wait<0>();
+    fence_accumulator(o);
+    if (elected) mbar_arrive(sm.vempty + vs);
+  }
+  if (pingpong && wg == 0) bar_sync(3, 256);
 }
 
 }  // namespace win

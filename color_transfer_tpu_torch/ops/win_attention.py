@@ -35,8 +35,11 @@ before LayerNorm, LayerNorm's output, the residual sum); the scores,
 softmax and LayerNorm statistics are f32, and B2c's GELU is the TPU
 kernel's own (the Abramowitz & Stegun erf of ``_gelu_exact_kernel``, in f32
 on the rounded input, rounded after). The plain versions state that with
-f32 matmuls of bf16-valued operands (``_mm``); the CUDA kernels run one
-bf16 mma.sync a product (csrc/win_common.cuh's bf16 section).
+f32 matmuls of bf16-valued operands (``_mm``). The bf16 CUDA kernels of
+B2a and B2b run wgmma with TMA-fed rings (csrc/win_common.cuh's last
+section) on one of two routes that ``attention_plan`` chooses from L: the
+window's K resident in shared memory, or streamed; B2c's runs one bf16
+mma.sync a product.
 
 ``window_attention_fused``, ``window_sublayer_fused`` and ``ffn_fused`` route
 by device: a CPU tensor takes the plain version; a CUDA tensor launches the
@@ -46,8 +49,9 @@ DMSCT matcher is frozen, so no path of the port needs it. Each counts its
 kernel launches in ``.launches``, one per call (a ``window_sublayer_fused``
 call is three CUDA kernels in f32: the weight packing, the k/v projection,
 then the rest; a ``ffn_fused`` call two: the packing, then the FFN; in bf16
-a sublayer call is two, the q, k and v projections, then the rest, and an
-FFN call one).
+a sublayer call is two, the k/v projection, then the rest, and an FFN call
+one), its bf16 calls in ``.bf16_launches`` too, and B2a's and B2b's bf16
+calls by route in ``.bf16_routes``.
 
 ``eligible`` and ``ffn_eligible`` are the JAX package's routing guards,
 copied so that the same layers take the fused route in both packages.
@@ -56,6 +60,7 @@ copied so that the same layers take the fused route in both packages.
 import ctypes
 import functools
 import math
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +73,22 @@ JAX_ROUTING_CAP = 8 * 1024 * 1024
 _KERNEL_C = 128  # the kernels' token width (GMFlow's d_model)
 _MAX_L = 1024  # tokens per window the kernels are held to
 _MAX_WINDOWS = 65535  # the kernels' grid y
+
+# The bf16 attention kernels' blocks (csrc/win_common.cuh, the wgmma
+# section): 128 query rows (two consumer warpgroups), 64-key K and V tiles
+# of 16 KB, a 32 KB query tile, B2b's 32 KB weight buffer, a two-stage V
+# ring, a four-slot K ring on the streamed route, 3 KB of label masks,
+# barriers and alignment; at most 232,448 bytes of shared memory a block.
+BLOCK_ROWS = 128
+KEY_TILE = 64
+_TILE_BYTES = KEY_TILE * _KERNEL_C * 2
+_Q_BYTES = BLOCK_ROWS * _KERNEL_C * 2
+_W_BYTES = _KERNEL_C * _KERNEL_C * 2
+_V_STAGES = 2
+_K_STAGES_STREAMED = 4
+_EXTRA_BYTES = 3072
+BLOCK_SMEM_LIMIT = 232448
+ROUTES = ("resident", "streamed")
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +246,44 @@ def ffn_plain(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False
 # ---------------------------------------------------------------------------
 
 
+AttentionPlan = namedtuple("AttentionPlan", "route k_slots smem grid")
+
+
+def attention_plan(length, n_windows, sublayer=False, route=None):
+    """The bf16 attention kernels' launch (B2a; B2b's attention block with
+    ``sublayer``) for ``n_windows`` windows of ``length`` tokens: the route,
+    its K slots, the shared memory a block asks for in bytes (the sum
+    csrc/win_common.cuh::attention_smem_bf16 takes) and the grid (query
+    blocks of 128 rows, windows).
+
+    "resident": each of the window's 64-key tiles keeps a K slot, so K
+    crosses L2 once a block and the second pass reads it from shared memory;
+    "streamed": K passes through a ring of four slots in both passes. The
+    resident route wherever a block fits 232,448 bytes (L <= 640 for B2a,
+    L <= 512 for B2b, whose block also holds a weight), else the streamed
+    one. ``route`` forces one; a route that cannot launch raises ValueError
+    (no fallback to the other)."""
+    if not (0 <= length <= _MAX_L and 0 <= n_windows <= _MAX_WINDOWS):
+        raise ValueError(f"L in [0, {_MAX_L}] and 0 to {_MAX_WINDOWS} windows, "
+                         f"got {length}, {n_windows}")
+    tiles = -(-length // KEY_TILE)
+
+    def smem(r):
+        slots = tiles if r == "resident" else _K_STAGES_STREAMED
+        return slots, (_Q_BYTES + (slots + _V_STAGES) * _TILE_BYTES
+                       + _W_BYTES * bool(sublayer) + _EXTRA_BYTES)
+
+    if route is None:
+        route = "resident" if smem("resident")[1] <= BLOCK_SMEM_LIMIT else "streamed"
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    slots, nbytes = smem(route)
+    if nbytes > BLOCK_SMEM_LIMIT:
+        raise ValueError(f"the {route} route needs {nbytes} bytes of shared memory at "
+                         f"L = {length} (at most {BLOCK_SMEM_LIMIT})")
+    return AttentionPlan(route, slots, nbytes, (-(-length // BLOCK_ROWS), n_windows))
+
+
 def check_kernel_inputs(tokens, tensors, ffn_dim=None, f32=()):
     """Raise ValueError for inputs the CUDA kernels do not take: tensors on
     one device, tokens (B', L, 128) with L <= 1024 and B' <= 65535 (the
@@ -274,7 +333,8 @@ def _run(fn, device, *args):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
-def _launch_attention(q, k, v, mask, *, shift_windows=None):
+def _launch_attention(q, k, v, mask, *, shift_windows=None, route=None):
+    """B2a's kernel; ``route`` forces a bf16 route (attention_plan's)."""
     q, k, v = (t.contiguous() for t in (q, k, v))
     if mask is not None:
         mask = mask.contiguous()
@@ -285,20 +345,31 @@ def _launch_attention(q, k, v, mask, *, shift_windows=None):
         mode, geom = 1, shift_windows
     elif mask is not None:
         mode, n_mask = 2, mask.shape[0]
+    args = [bp, length, mode, n_mask, *geom, 1.0 / math.sqrt(c)]
     bf16 = q.dtype == torch.bfloat16
-    fn = _kernel("win_attention", "window_attention_forward" + "_bf16" * bf16,
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    if bf16:
+        plan = attention_plan(length, bp, route=route)
+        fn = _kernel("win_attention", "window_attention_forward_bf16",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        args.append(ROUTES.index(plan.route))
+    else:
+        fn = _kernel("win_attention", "window_attention_forward",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
     _run(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         None if mask is None else mask.data_ptr(), out.data_ptr(),
-         bp, length, mode, n_mask, *geom, 1.0 / math.sqrt(c))
+         None if mask is None else mask.data_ptr(), out.data_ptr(), *args)
     window_attention_fused.launches += 1
-    window_attention_fused.bf16_launches += bf16
+    if bf16:
+        window_attention_fused.bf16_launches += 1
+        window_attention_fused.bf16_routes[plan.route] += 1
     return out
 
 
 def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
-                     shift_windows=None, add_residual=False):
+                     shift_windows=None, add_residual=False, route=None):
+    """B2b's kernels; ``route`` forces a bf16 route (attention_plan's)."""
     tensors = [t.contiguous() for t in (x_src, x_tgt, w_q, w_kv, w_merge, norm_scale,
                                         norm_bias)]
     check_kernel_inputs(tensors[0], tensors[1:5], f32=tensors[5:])
@@ -306,16 +377,18 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
     bp, length, c = x_src.shape
     geom = (0, 0, 0) if shift_windows is None else shift_windows
     if x_src.dtype == torch.bfloat16:
+        plan = attention_plan(length, bp, sublayer=True, route=route)
         fn = _kernel("win_sublayer", "window_sublayer_forward_bf16",
                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_void_p])
-        qkv = torch.empty(bp, length, 3 * c, dtype=x_src.dtype, device=x_src.device)
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        kv = torch.empty(bp, length, 2 * c, dtype=x_src.dtype, device=x_src.device)
         out = torch.empty_like(x_src)
-        _run(fn, x_src.device, *(t.data_ptr() for t in tensors), qkv.data_ptr(),
+        _run(fn, x_src.device, *(t.data_ptr() for t in tensors), kv.data_ptr(),
              out.data_ptr(), bp, length, int(shift_windows is not None), *geom,
-             int(add_residual), 1.0 / math.sqrt(c))
+             int(add_residual), 1.0 / math.sqrt(c), ROUTES.index(plan.route))
         window_sublayer_fused.launches += 1
         window_sublayer_fused.bf16_launches += 1
+        window_sublayer_fused.bf16_routes[plan.route] += 1
         return out
     fn = _kernel("win_sublayer", "window_sublayer_forward",
                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
@@ -447,7 +520,10 @@ def ffn_fused(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False
 window_attention_fused.launches = 0
 window_sublayer_fused.launches = 0
 ffn_fused.launches = 0
-# The launches of each op's bf16 kernel (counted in .launches too).
+# The launches of each op's bf16 kernel (counted in .launches too), and
+# B2a's and B2b's by route (attention_plan's).
 window_attention_fused.bf16_launches = 0
 window_sublayer_fused.bf16_launches = 0
 ffn_fused.bf16_launches = 0
+window_attention_fused.bf16_routes = dict.fromkeys(ROUTES, 0)
+window_sublayer_fused.bf16_routes = dict.fromkeys(ROUTES, 0)

@@ -20,7 +20,9 @@ zero and clamped displacements) and an in-image one, and B2a
 (``window_attention_fused``, the shift mask), B2b
 (``window_sublayer_fused``: cross-attention, and self-attention with the
 shift mask and the residual) and B2c (``ffn_fused``, F = 1024, the
-residual) at the fused route's 1080p shape (256, 448, 128), B1
+residual) at the fused route's 1080p shape (256, 448, 128), B2a and B2b
+in bf16 (the shift mask; cross, and self with the shift and the residual)
+at the bf16 recipe's three shapes (``B2_BF16_SHAPES``), B1
 (``local_correlation_with_flow``, r = 4) at the 1080p matcher shape (2,
 128, 224, 128) on a smooth and a mixed flow and on the flow the served
 frame's GRU loop gives it (``--served``: full-width DMSCT with seeded
@@ -48,6 +50,10 @@ from pathlib import Path
 import torch
 
 PACKAGE = "color_transfer_tpu_torch"
+# B2a and B2b in bf16 at the bf16 recipe's shapes: the served 1080p shape and
+# the training shape's two scales, with their shift geometry.
+B2_BF16_SHAPES = (((256, 448, 128), (8, 16, 28)), ((3072, 120, 128), (8, 8, 15)),
+                  ((96, 480, 128), (2, 16, 30)))
 
 
 def rename_package(src, dest):
@@ -200,7 +206,19 @@ def cases(device, small, served=False):
     w0, w2 = randn(2 * c, f, scale=(2 * c) ** -0.5), randn(f, c, scale=f**-0.5)
     yield (f"ffn {(bp, length, c)} F={f}", lambda ops:
            ops.win_attention.ffn_fused(x, y, w0, w2, *norm, add_residual=True))
-    del x, y, z, weights, norm, w0, w2
+    del x, y, z, w0, w2
+    bf = torch.bfloat16
+    wb = [w.to(bf) for w in weights]
+    for shape, geom in ([((8, 35, 128), (2, 5, 7))] if small else B2_BF16_SHAPES):
+        xb, yb, zb = (randn(*shape).to(bf) for _ in range(3))
+        yield (f"window_attention bf16 shift {shape}", lambda ops, a=(xb, yb, zb), s=geom:
+               ops.win_attention.window_attention_fused(*a, shift_windows=s))
+        yield (f"window_sublayer bf16 cross {shape}", lambda ops, a=(xb, yb):
+               ops.win_attention.window_sublayer_fused(*a, *wb, *norm))
+        yield (f"window_sublayer bf16 self shift residual {shape}", lambda ops, a=(xb, xb), s=geom:
+               ops.win_attention.window_sublayer_fused(*a, *wb, *norm, shift_windows=s,
+                                                       add_residual=True))
+    del xb, yb, zb, weights, wb, norm
 
     corr_shapes = ((2, 12, 20, 32), (3, 8, 16, 32)) if small else (
         (2, 128, 224, 128), (24, 64, 120, 128))

@@ -38,8 +38,12 @@ B1_ULPS, B2A_ULPS, B2B_ULPS, B2C_ULPS = 1 / 64, 1, 1, 2
 BF = torch.bfloat16
 C = 128
 # (windows, L) with their swin geometry (k, hs, ws): two window rows of
-# 4x6, ragged 5x7 windows, and many 2x3 windows.
-SHAPES = [((8, 24), (2, 4, 6)), ((16, 35), (2, 5, 7)), ((128, 6), (8, 2, 3))]
+# 4x6, ragged 5x7 windows, many 2x3 windows, and the card's bf16 B2a and
+# B2b routes' edge cases: a ragged L of 200 (a partial 64-key tile and a
+# partial 128-row block) and L = 1024 (the streamed route, K not resident)
+# with few windows.
+SHAPES = [((8, 24), (2, 4, 6)), ((16, 35), (2, 5, 7)), ((128, 6), (8, 2, 3)),
+          ((4, 200), (2, 10, 20)), ((4, 1024), (2, 32, 32))]
 
 
 def _ulps(got, want):
@@ -180,3 +184,39 @@ def test_bf16_kernel_inputs_checked():
         tw.check_kernel_inputs(x, [x.float()])
     with pytest.raises(ValueError):
         tw.check_kernel_inputs(x.half(), [x.half()])
+
+
+@pytest.mark.parametrize("sublayer,resident_to", [(False, 640), (True, 512)])
+def test_attention_plan_routes(sublayer, resident_to):
+    """The bf16 B2a / B2b route plan: the window's K resident in shared
+    memory up to L = 640 (B2a) or 512 (B2b, whose block also holds a 32 KB
+    weight), which covers the served L = 448 and the training L = 480 and
+    120; streamed beyond, up to 1024. Every L fits a block's 232,448 bytes;
+    the grid is (query blocks of 128 rows, windows)."""
+    for length in range(1, tw._MAX_L + 1):
+        plan = tw.attention_plan(length, 7, sublayer=sublayer)
+        assert plan.route == ("resident" if length <= resident_to else "streamed")
+        assert plan.smem <= tw.BLOCK_SMEM_LIMIT == 232448
+        assert plan.k_slots == (-(-length // 64) if plan.route == "resident" else 4)
+        assert plan.grid == (-(-length // 128), 7)
+        # the streamed route fits every L; the resident one raises past its L
+        streamed = tw.attention_plan(length, 7, sublayer=sublayer, route="streamed")
+        assert streamed.smem <= tw.BLOCK_SMEM_LIMIT and streamed.k_slots == 4
+        if length > resident_to:
+            with pytest.raises(ValueError, match="resident"):
+                tw.attention_plan(length, 7, sublayer=sublayer, route="resident")
+    for length in (448, 480, 120):
+        assert tw.attention_plan(length, 256, sublayer=sublayer).route == "resident"
+    # the byte count: query tile, K slots and the two V stages of 16 KB, B2b's
+    # weight, 3 KB of labels, barriers and alignment
+    assert tw.attention_plan(448, 256, sublayer=sublayer).smem == (
+        32768 + (7 + 2) * 16384 + 32768 * sublayer + 3072)
+    assert tw.attention_plan(448, 256).grid == (4, 256)
+    for bad in ((-1, 1), (1025, 1), (64, -1), (64, 65536)):
+        with pytest.raises(ValueError):
+            tw.attention_plan(*bad, sublayer=sublayer)
+    # empty inputs launch nothing (the launcher returns at once): a plan, no error
+    assert tw.attention_plan(0, 4, sublayer=sublayer).grid == (0, 4)
+    assert tw.attention_plan(64, 0, sublayer=sublayer).grid == (1, 0)
+    with pytest.raises(ValueError, match="route"):
+        tw.attention_plan(64, 1, route="cached")

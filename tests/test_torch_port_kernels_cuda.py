@@ -844,42 +844,99 @@ def test_local_corr_bf16(gen, shape, r, kind):
     assert _bf16_ulps(got, want) <= 1 / 64
 
 
+# The bf16 recipe's shapes, a streamed L (1024, and 1000 ragged), ragged Ls
+# (200, 35, 91) and L = 1. B2a and B2b run on every route their plan allows
+# (ops/win_attention.py::attention_plan: the resident one where it fits, the
+# streamed one always); the routes do the same arithmetic: bit-equal.
 B2_BF16_SHAPES = [((256, 448, 128), (8, 16, 28)), ((96, 480, 128), (2, 16, 30)),
                   ((3072, 120, 128), (8, 8, 15)), ((8, 35, 128), (2, 5, 7)),
-                  ((4, 1000, 128), (2, 20, 50)), ((12, 91, 128), (2, 7, 13))]
+                  ((4, 1000, 128), (2, 20, 50)), ((12, 91, 128), (2, 7, 13)),
+                  ((16, 1024, 128), (2, 32, 32)), ((64, 200, 128), (2, 10, 20)),
+                  ((4, 1, 128), (2, 1, 1))]
+
+
+def _routes(shape, sublayer):
+    plan = wn.attention_plan(shape[1], shape[0], sublayer=sublayer)
+    return ["resident", "streamed"] if plan.route == "resident" else ["streamed"]
 
 
 @pytest.mark.parametrize("mode", ["none", "shift", "mask"])
 @pytest.mark.parametrize("shape,geom", B2_BF16_SHAPES)
 def test_window_attention_bf16(gen, shape, geom, mode):
+    """B2a in bf16 on each route its plan allows, held to the plain version;
+    two runs and the routes bit-equal; launches counted by route."""
     q, k, v = (_randn(gen, *shape).to(torch.bfloat16) for _ in range(3))
-    kwargs = {"shift": {"shift_windows": geom},
-              "mask": {"mask": wn.geometry_mask(*geom, device="cuda")}}.get(mode, {})
+    mask = wn.geometry_mask(*geom, device="cuda") if mode == "mask" else None
+    geom = geom if mode == "shift" else None
+    kwargs = {} if mask is None else {"mask": mask}
+    routes = _routes(shape, False)
     before = wn.window_attention_fused.bf16_launches
+    by_route = dict(wn.window_attention_fused.bf16_routes)
     with torch.no_grad():
-        got = wn.window_attention_fused(q, k, v, **kwargs)
-        again = wn.window_attention_fused(q, k, v, **kwargs)
-        want = wn.window_attention_plain(q, k, v, **kwargs)
-    assert wn.window_attention_fused.bf16_launches == before + 2
+        got = wn.window_attention_fused(q, k, v, shift_windows=geom, **kwargs)
+        again = wn.window_attention_fused(q, k, v, shift_windows=geom, **kwargs)
+        forced = [wn._launch_attention(q, k, v, mask, shift_windows=geom, route=r)
+                  for r in routes]
+        want = wn.window_attention_plain(q, k, v, shift_windows=geom, **kwargs)
+    assert wn.window_attention_fused.bf16_launches == before + 2 + len(routes)
+    plan = wn.attention_plan(shape[1], shape[0]).route
+    assert {r: n - by_route[r] for r, n in wn.window_attention_fused.bf16_routes.items()} == {
+        r: 2 * (r == plan) + (r in routes) for r in wn.ROUTES}
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert all(torch.equal(got, f) for f in forced)
     assert _bf16_ulps(got, want) <= 2
 
 
 @pytest.mark.parametrize("self_attn", [True, False])
 @pytest.mark.parametrize("shape,geom", B2_BF16_SHAPES)
 def test_window_sublayer_bf16(gen, shape, geom, self_attn):
+    """B2b in bf16 (self: the shift and the residual; cross: neither) on each
+    route its plan allows, as test_window_attention_bf16."""
     xs = _randn(gen, *shape).to(torch.bfloat16)
     xt = xs if self_attn else _randn(gen, *shape).to(torch.bfloat16)
     w = [t.to(torch.bfloat16) if t.ndim == 2 else t for t in _sublayer_weights(gen, shape[-1])]
     kwargs = {"shift_windows": geom, "add_residual": True} if self_attn else {}
+    routes = _routes(shape, True)
     before = wn.window_sublayer_fused.bf16_launches
+    by_route = dict(wn.window_sublayer_fused.bf16_routes)
     with torch.no_grad():
         got = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
         again = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
+        forced = [wn._launch_sublayer(xs, xt, *w, route=r, **kwargs) for r in routes]
         want = wn.window_sublayer_plain(xs, xt, *w, **kwargs)
-    assert wn.window_sublayer_fused.bf16_launches == before + 2
+    assert wn.window_sublayer_fused.bf16_launches == before + 2 + len(routes)
+    plan = wn.attention_plan(shape[1], shape[0], sublayer=True).route
+    assert {r: n - by_route[r] for r, n in wn.window_sublayer_fused.bf16_routes.items()} == {
+        r: 2 * (r == plan) + (r in routes) for r in wn.ROUTES}
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert all(torch.equal(got, f) for f in forced)
     assert _bf16_ulps(got, want) <= 2
+
+
+def test_attention_plan_matches_the_library(gen):
+    """attention_plan's shared memory is the kernel library's sum
+    (win_common.cuh::attention_smem_bf16) for every L and route; a route
+    that does not fit raises, on the plan and in the launcher (no
+    fallback)."""
+    import ctypes
+
+    smem = wn._kernel("win_attention", "window_attention_bf16_smem", [ctypes.c_int] * 3)
+    for length in range(1, wn._MAX_L + 1):
+        for sub in (False, True):
+            for route in wn.ROUTES:
+                lib = smem(wn.ROUTES.index(route), length, int(sub))
+                if lib > wn.BLOCK_SMEM_LIMIT:
+                    with pytest.raises(ValueError):
+                        wn.attention_plan(length, 1, sublayer=sub, route=route)
+                else:
+                    assert wn.attention_plan(length, 1, sublayer=sub, route=route).smem == lib
+    q = _randn(gen, 2, 1024, 128).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="resident"):
+        wn._launch_attention(q, q, q, None, route="resident")
+    w = [t.to(torch.bfloat16) if t.ndim == 2 else t for t in _sublayer_weights(gen, 128)]
+    x = _randn(gen, 2, 600, 128).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="resident"):
+        wn._launch_sublayer(x, x, *w, route="resident")
 
 
 @pytest.mark.parametrize("shape,f", [((256, 448, 128), 1024), ((3072, 120, 128), 1024),

@@ -171,12 +171,18 @@ fallback):
                 stage against the port's CPU run of the recipe (bf16 lines in
                 ulps); the bf16 kernels against their plain versions in bf16
                 ulps (B1 at the served and the training shapes on the smooth,
-                mixed and served flows; B2a in its three mask modes, B2b self
+                mixed and served flows and at radii 0-4, its routes
+                tile_boxes'; B2a in its three mask modes, B2b self
                 and cross at the 1080p and the training shapes, a streamed L
                 of 1024 and a ragged L of 200, on each route the plan allows,
                 the routes bit-equal and both launched; B2c at the 1080p and
-                the training shapes), each timed beside its plain version,
-                its bound and (B2a) SDPA in bf16; the drift gate for all
+                the training shapes, ragged token counts and F = 64, 512,
+                ffn_plan's shared memory the library's for every F), two
+                runs bit-equal, each timed beside its plain version,
+                its bound and (B2a) SDPA in bf16; B2c's bound is the largest
+                of its tensor floor, its GELU's issue (the SASS's
+                instructions an element) and its weights' L2 reads (at the
+                rate the library's L2 probe measures); the drift gate for all
                 six recipes (one f32 run shared; a near-miss again at seeds 1
                 and 2); three train steps at
                 configs/dmsct.yaml's full width in bf16c and bf16 (finite
@@ -3452,6 +3458,9 @@ BF16_STAGE_ULPS = {"matcher.backbone": 4, "matcher.transformer": 6,
 B2_BF16_SHAPES = (((256, 448, 128), (8, 16, 28)), ((3072, 120, 128), (8, 8, 15)),
                   ((96, 480, 128), (2, 16, 30)))
 B2_BF16_EDGES = (((16, 1024, 128), (2, 32, 32)), ((64, 200, 128), (2, 10, 20)))
+# B2c bf16 at ragged token counts (a partial 128-token block; a single
+# block) and F = 64 and 512 besides the path's 1024.
+FFN_BF16_EDGES = (((3, 37, 128), 64), ((64, 200, 128), 512), ((4, 1, 128), 1024))
 # A gate failure "by a margin under 2x the line": every worst delta within
 # twice its line.
 NEAR_MISS = 2.0
@@ -3620,6 +3629,71 @@ def serve_bf16(f32):
     return kept
 
 
+def _gelu_instructions():
+    """B2c bf16's GELU in instructions an element, counted in the built
+    library's SASS (cuobjdump -sass): gelu_probe_kernel<true> takes a pair
+    of h values through the FFN's gelu_pair, <false> the same loads and
+    store around one instruction, so the pair costs the difference plus
+    that one. NOPs (padding) are not counted."""
+    from color_transfer_tpu_torch.ops import _build
+
+    lib, _ = _build.build("win_ffn")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass):
+        m = re.match(r"\S*gelu_probe_kernelILb([01])E", fn)
+        if m:
+            counts[m.group(1)] = sum(1 for line in fn.splitlines()
+                                     if re.match(r"\s*/\*[0-9a-f]{4}\*/", line) and "NOP" not in line)
+    return (counts["1"] - counts["0"] + 1) / 2
+
+
+def _l2_bytes_per_s(nbytes):
+    """The L2 rate a stream of ``nbytes`` re-read by every SM can have: the
+    FFN library's l2_probe_kernel, every SM's block reading the whole of a
+    buffer of that size (resident in L2 after the first pass) 20 times
+    through ld.global.cg, 16-byte loads, four in flight a thread."""
+    from color_transfer_tpu_torch.ops import win_attention as wn
+
+    fn = wn._kernel("win_ffn", "ffn_l2_probe", [ctypes.c_void_p] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p] * 2)
+    src = torch.zeros(nbytes // 16, 4, dtype=torch.int32, device="cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks, reps = torch.cuda.get_device_properties(0).multi_processor_count, 20
+
+    def run():
+        err = fn(src.data_ptr(), src.shape[0], reps, blocks, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ffn_l2_probe: CUDA error {err}")
+
+    ms = _time_ms(run, iters=10)
+    return blocks * reps * nbytes / (ms * 1e-3)
+
+
+def _ffn_bf16_floors(tokens, c, ffn):
+    """B2c bf16's three floors at ``tokens`` tokens: the GELU's issue on the
+    FP32 and integer pipes (its SASS instructions an element x the
+    elements, over the SMs' 128 lanes at the card's largest SM clock), the
+    weights' L2 reads (once per 128-token block, at the rate
+    _l2_bytes_per_s measures for a buffer of the weights' size) and,
+    beside them in the row, the products' tensor floor."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    per_element = _gelu_instructions()
+    elements = tokens * ffn
+    l2_bytes = -(-tokens // 128) * 3 * c * ffn * 2
+    l2_rate = _l2_bytes_per_s(3 * c * ffn * 2)
+    return {"gelu_instructions_per_element": per_element, "sms": sms, "sm_clock_mhz": mhz,
+            "gelu_alu_ms": elements * per_element / (sms * 128 * mhz * 1e6) * 1e3,
+            "l2_weight_bytes": l2_bytes, "l2_bytes_per_s": l2_rate,
+            "l2_ms": l2_bytes / l2_rate * 1e3}
+
+
 def check_bf16_kernels(g, kept):
     """The bf16 kernels against their plain versions at the bf16 path's
     shapes, in bf16 ulps: B1 at the served (2, 128, 224, 128) shape on the
@@ -3689,6 +3763,23 @@ def check_bf16_kernels(g, kept):
         del f0, f1
     b1_row["launches"] = kept["counts"]["local_correlation_with_flow"]
     rows.append(b1_row)
+    # B1 bf16 at every radius on a step flow (the per-pixel route from r = 2
+    # on), the served width.
+    report = []
+    for r in range(lc.MAX_RADIUS + 1):
+        b, h, w, c = 2, 40, 72, 128
+        f0 = torch.randn(b, h, w, c, generator=g).cuda().to(bf)
+        f1 = torch.randn(b, h, w, c, generator=g).cuda().to(bf)
+        flow = _step_flow(g, b, h, w, "cuda")
+        with torch.no_grad():
+            got, routes = lc._launch(f0, f1, flow, r, routes=True)
+            want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
+        staged = lc.tile_boxes(flow, r, lc.launch_plan(c, r, 2))["staged"]
+        err = _bf16_ulps(got, want)
+        report.append(f"r={r} {err:.2e} (staged {float(staged.float().mean()):.2f})")
+        if not torch.equal(routes.bool(), staged) or not np.isfinite(err) or err > B1_BF16_ULPS:
+            raise AssertionError(f"B1 bf16 at r = {r}: {err} ulps, or a route is not tile_boxes'")
+    _log(f"B1 bf16 by radius, step flow (2, 40, 72, 128), max|d| in ulps: " + ", ".join(report))
 
     c = 128
     weights = [(torch.randn(*s, generator=g) / s[0] ** 0.5).cuda().to(bf)
@@ -3783,6 +3874,27 @@ def check_bf16_kernels(g, kept):
                 + f"; SDPA in bf16 with the tiled mask {sdpa_ms:.4f}")
             del tiled
         del x, y, v, mask
+    lib_smem = wn._kernel("win_ffn", "ffn_bf16_smem", [])()
+    for f in range(64, 2049, 64):  # the plan states the library's shared memory
+        if wn.ffn_plan(1, f).smem != lib_smem:
+            raise AssertionError(f"ffn_plan(F = {f}): {wn.ffn_plan(1, f).smem} bytes, "
+                                 f"the library {lib_smem}")
+    report = []
+    for shape, f in FFN_BF16_EDGES:
+        x, y = (torch.randn(*shape, generator=g).cuda().to(bf) for _ in range(2))
+        fw0 = (torch.randn(2 * c, f, generator=g) / (2 * c) ** 0.5).cuda().to(bf)
+        fw2 = (torch.randn(f, c, generator=g) / f**0.5).cuda().to(bf)
+        with torch.no_grad():
+            got = wn.ffn_fused(x, y, fw0, fw2, *norm, add_residual=True)
+            again = wn.ffn_fused(x, y, fw0, fw2, *norm, add_residual=True)
+            want = wn.ffn_plain(x, y, fw0, fw2, *norm, add_residual=True)
+        err = _bf16_ulps(got, want)
+        report.append(f"{shape} F={f} {err:.2f}")
+        if not torch.equal(got, again) or not np.isfinite(err) or err > B2_BF16_ULPS:
+            raise AssertionError(f"B2c bf16 at {shape}, F = {f}: {err} ulps, or two runs differ")
+    _log(f"B2c bf16 edges, max|d| in ulps (line {B2_BF16_ULPS}), two runs bit-equal: "
+         + ", ".join(report) + f"; ffn_plan's shared memory is the library's ({lib_smem} "
+         "bytes) for F = 64 ... 2048")
     routes = {fn.__name__: {r: n - before[fn.__name__][r] for r, n in fn.bf16_routes.items()}
               for fn in (wn.window_attention_fused, wn.window_sublayer_fused)}
     _log(f"B2 bf16 launches by route in these checks: {routes}")
@@ -3807,6 +3919,21 @@ def check_bf16_kernels(g, kept):
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "launches": kept["counts"][name.split()[0]]}
         rows.append(_with_bound(row, io, {"bf16": ops}, lib))
+    # B2c bf16's bound: the largest of its three floors.
+    row = rows[-1]
+    floors = _ffn_bf16_floors(bp * length, c, B2_FFN)
+    floors["tensor_ms"], floors["hbm_ms"] = bound(0, {"bf16": ffn})[0], bound(io, {})[0]
+    largest = max(("tensor_ms", "operations"), ("gelu_alu_ms", "operations"),
+                  ("l2_ms", "bytes"), ("hbm_ms", "bytes"), key=lambda k: floors[k[0]])
+    row["bound_ms"], row["bound_by"], row["floors"] = floors[largest[0]], largest[1], floors
+    _log(f"ffn_fused bf16 floors: tensor {floors['tensor_ms']:.4f} ms (90.2 GFLOP at 989 "
+         f"TFLOP/s), GELU {floors['gelu_alu_ms']:.4f} ms ({floors['gelu_instructions_per_element']} "
+         f"SASS instructions an element x {bp * length * B2_FFN} elements over "
+         f"{floors['sms']} SMs x 128 lanes at {floors['sm_clock_mhz']:.0f} MHz), L2 "
+         f"{floors['l2_ms']:.4f} ms ({floors['l2_weight_bytes']} bytes of weights at "
+         f"{floors['l2_bytes_per_s'] / 1e12:.2f} TB/s, the L2 probe's rate), HBM "
+         f"{floors['hbm_ms']:.4f} ms: bound {row['bound_ms']:.4f} ms ({largest[0]}), "
+         f"kernel {row['ms']:.4f} ms")
     return rows
 
 

@@ -1,7 +1,8 @@
 // Hopper's asynchronous pieces, shared by the kernels that use them
 // (resb_chain.cu's C = 64 conv, the bf16 window attention in win_common.cuh,
-// win_attention.cu and win_sublayer.cu): wgmma (warpgroup MMA) descriptors
-// and issue helpers, mbarriers, TMA tile loads and the host-side tensor map.
+// win_attention.cu and win_sublayer.cu, the bf16 FFN in win_ffn.cu): wgmma
+// (warpgroup MMA) descriptors and issue helpers, mbarriers, TMA tile loads
+// and stores and the host-side tensor map.
 //
 // Shared-memory operands use the 128-byte swizzle: a tile is stored as rows
 // of 128 bytes (64 bf16), 16-byte chunk c of the row at shared address a
@@ -77,6 +78,23 @@ __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint32_t a_lo, ui
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a_lo), "r"(b_lo), "r"(accumulate), "r"(kDescHi));
+}
+
+// d (64 x 64) (+)= a (64 x 16, K-major in shared memory) . b (16 x 64, MN-major
+// in shared memory: one 64-column part, so no LBO).
+__device__ __forceinline__ void wgmma_64x64x16_tb(float (&d)[32], uint32_t a_lo, uint32_t b_lo,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %34, 0;\n"
+      "mov.b64 da, {%32, %35};\nmov.b64 db, {%33, %35};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

@@ -55,11 +55,17 @@
 // variant, which rounds both features to bf16 and forms bf16 x bf16 -> f32
 // products, exact, summed in f32): the same kernel, templated on the
 // feature type. Every 16-byte vector the kernel moves holds 8 bf16
-// channels instead of 4 floats, converted to f32 as it is read and
-// multiplied with f32 FMAs; a staged slice is still 128 bytes a position,
-// now 64 channels, so a stage holds the same box for twice the channels
-// and the f32 route's budget and layout carry over unchanged. The epilogue
-// and the output are f32.
+// channels instead of 4 floats. The staged route converts them to f32 as
+// it reads them and multiplies with f32 FMAs; a staged slice is still 128
+// bytes a position, now 64 channels, so a stage holds the same box for
+// twice the channels and the f32 route's budget and layout carry over
+// unchanged. The per-pixel route takes its dots on the tensor cores
+// (mma.sync.m16n8k16, 16 taps a step with eight 16-byte loads a lane in
+// flight, nothing converted; below): its first version, the f32 loop on
+// bf16 vectors, moved half the bytes in the same 13 dependent steps a
+// pixel, each with half the loads in flight and f0 converted again every
+// tap, and was slower than f32 (0.360 against 0.308 ms on a mixed flow).
+// The epilogue and the output are f32.
 //
 // Measured (an H100 80GB HBM3 at 700 W, at (2, 128, 224, 128), r = 4): a
 // smooth flow stages every tile, 0.17 ms, about twice what its shared-memory
@@ -69,6 +75,7 @@
 // ~6.3 TB/s: 0.22 ms.
 
 #include <climits>
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -117,6 +124,19 @@ __device__ __forceinline__ float dot_vec(const float (&a)[Vec<T>::kN], const uin
 #pragma unroll
   for (int i = 0; i < Vec<T>::kN; ++i) acc = fmaf(a[i], b[i], acc);
   return acc;
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col), exact
+// products summed in f32: mma.sync.m16n8k16 (PTX ISA fragments, lane =
+// 4 g + t4: a0 row g, k 2t4 ..; a1 row g + 8; a2, a3 the same at k 2t4 + 8
+// ..; b0 column g, k 2t4 ..; b1 k 2t4 + 8 ..; d0, d1 row g, columns 2t4,
+// + 1; d2, d3 row g + 8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 template <typename T>
@@ -337,6 +357,84 @@ __global__ void __launch_bounds__(kMaxTilePx * (R + 1), 2) local_corr_kernel(Arg
         v = bilinear(dots + px * K * K, K, ii, t - ii * M, s_wx[px], s_wy[px]) / a.sqrt_c;
       }
       a.out[(frame + static_cast<size_t>(y) * a.w + x) * (M * M) + t] = v;
+    }
+    return;
+  }
+
+  if constexpr (Vec<T>::kN == 8) {
+    // Per-pixel route, bf16: one warp a pixel, its dots on the tensor
+    // cores, 16 taps a step. Lane (g, t4) loads taps t0 + g and t0 + g + 8,
+    // vectors t4, t4 + 4, ..., as rows g and g + 8 of the A operand of
+    // mma.sync.m16n8k16 (a vector's words 0, 1 one k-step's a0 / a2, words
+    // 2, 3 the next one's): the channels are permuted alike in A and B, so
+    // each k-step sums 16 of the pixel's channels, and a lane has eight
+    // 16-byte loads in flight, as on the f32 route, for 16 taps where that
+    // route has 8. B is f0's same words in every column, so every column of
+    // D holds the same 16 dots (seven are thrown away: the tensor cores are
+    // not what bounds this). No element is converted to f32.
+    float* dots = reinterpret_cast<float*>(smem4) + warp * K * K;
+    const int nwarps = nthreads >> 5;
+    const int nvec = a.c / kCh;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int px = warp; px < npx; px += nwarps) {
+      const int y = ty0 + px / a.tile_w;
+      const int x = tx0 + px % a.tile_w;
+      const int state = s_state[px];
+      if (state == 0) continue;
+      const size_t p = frame + static_cast<size_t>(y) * a.w + x;
+      float* o = a.out + p * (M * M);
+      if (state == 1) {
+        for (int t = lane; t < M * M; t += 32) o[t] = 0.f;
+        continue;
+      }
+      const uint4* f0v = reinterpret_cast<const uint4*>(a.f0 + p * a.c);
+      const int sx = s_sx[px], sy = s_sy[px];
+      // Tap `tap`'s vectors of f1, or null outside the image or past the taps.
+      auto tap_row = [&](int tap) -> const uint4* {
+        const int i = tap / K;
+        const int xx = sx + tap - i * K;
+        const int yy = sy + i;
+        if (tap >= K * K || yy < 0 || yy >= a.h || xx < 0 || xx >= a.w) return nullptr;
+        return reinterpret_cast<const uint4*>(
+            a.f1 + (frame + static_cast<size_t>(yy) * a.w + xx) * a.c);
+      };
+      uint4 fb[4];  // f0's vectors t4 + 4 i: the B fragments of the first 16 vectors
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fb[i] = t4 + 4 * i < nvec ? f0v[t4 + 4 * i] : zero;
+      for (int t0 = 0; t0 < K * K; t0 += 16) {
+        const uint4* q0 = tap_row(t0 + g);
+        const uint4* q1 = tap_row(t0 + g + 8);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int m0 = 0; m0 < 8; m0 += 4) {  // vectors t4 + 4 m, 16 at a time (C <= 256)
+          if (4 * m0 >= nvec) break;
+          uint4 ra[4], rb[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int v = t4 + 4 * (m0 + i);
+            ra[i] = q0 != nullptr && v < nvec ? q0[v] : zero;
+            rb[i] = q1 != nullptr && v < nvec ? q1[v] : zero;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int v = t4 + 4 * (m0 + i);
+            const uint4 b = m0 == 0 ? fb[i] : (v < nvec ? f0v[v] : zero);
+            mma_bf16(d, ra[i].x, rb[i].x, ra[i].y, rb[i].y, b.x, b.y);
+            mma_bf16(d, ra[i].z, rb[i].z, ra[i].w, rb[i].w, b.z, b.w);
+          }
+        }
+        if (t4 == 0) {  // column 0: d0 is tap t0 + g's dot, d2 tap t0 + g + 8's
+          if (t0 + g < K * K) dots[t0 + g] = d[0];
+          if (t0 + g + 8 < K * K) dots[t0 + g + 8] = d[2];
+        }
+      }
+      __syncwarp();
+      for (int t = lane; t < M * M; t += 32) {
+        const int ii = t / M;
+        o[t] = bilinear(dots, K, ii, t - ii * M, s_wx[px], s_wy[px]) / a.sqrt_c;
+      }
+      __syncwarp();  // the dots are read before the next pixel's overwrite them
     }
     return;
   }

@@ -1,7 +1,7 @@
 // Pieces shared by the matcher transformer's kernels: win_attention.cu (B2a),
 // win_sublayer.cu (B2b) and win_ffn.cu (B2c). Tokens 128 channels wide
 // (GMFlow's d_model). The f32 kernels' pieces come first; the bf16 ones
-// (the bfloat16 recipe: B2c's mma.sync pieces, then B2a's and B2b's wgmma
+// (the bfloat16 recipe: rounding, LayerNorm, then B2a's and B2b's wgmma
 // attention core) are in the last two sections of this file. f32 operands:
 // Every product runs on the tensor cores in
 // 3xTF32 (mma.sync.m16n8k8), f32's accuracy: the attention core (attend)
@@ -762,50 +762,20 @@ __device__ __forceinline__ void store_acc(float* dst, long long ld, const float 
 // round where the JAX package's kernel bodies round
 // (color_transfer_tpu/ops/win_attention.py): a product's operands are bf16,
 // its products exact and its sums f32 (bf16 x bf16 -> f32 on the MXU), and
-// its result is rounded to bf16 where the TPU kernel casts it. B2c's
-// products (win_ffn.cu) are each one mma.sync.m16n8k16.row.col.f32.bf16.bf16
-// .f32, the pieces below; B2a's and B2b's run on wgmma (the last section of
-// this file). Fragments (PTX ISA, m16n8k16, lane = 4 g + t4):
+// its result is rounded to bf16 where the TPU kernel casts it. Every bf16
+// product (B2a, B2b here, B2c in win_ffn.cu) runs on wgmma. Per warp,
+// wgmma's accumulator layout is mma.sync.m16n8k16's (PTX ISA, lane = 4 g +
+// t4):
+//   C (16 x 8 a tile, f32): c0, c1 (row g, columns 2t4, 2t4 + 1), c2, c3
+//     (row g + 8);
 //   A (16 x 16, row): a0 (row g, k 2t4, 2t4 + 1), a1 (row g + 8, same k),
-//     a2 (row g, k 2t4 + 8, + 9), a3 (row g + 8, k 2t4 + 8, + 9);
-//   B (16 x 8, col): b0 (k 2t4, 2t4 + 1; column g), b1 (k 2t4 + 8, + 9);
-//   C (16 x 8, f32): c0, c1 (row g, columns 2t4, 2t4 + 1), c2, c3 (row g + 8).
-// Two n-tiles of an accumulator (16 columns) rounded to bf16 and packed in
-// pairs are the A fragment of a k-step whose k runs over those columns
-// (gelu(h) before h W2; and, in wgmma's register-A form, whose layout per
-// warp is this one, P before P.V and the message before the merge): no
-// permutation, no shared memory. Operands in shared memory are read with
-// ldmatrix: A tiles without .trans, the weights (input-major, K x N
-// row-major) with .trans. Tiles of 128 bf16 channels use a row stride of
-// 136 (kBS, 272 bytes): the eight 16-byte rows an 8 x 8 matrix reads fall in
-// distinct bank groups.
-
-constexpr int kBS = kC + 8;  // bf16 row stride of a 128-wide tile in shared memory
+//     a2 (row g, k 2t4 + 8, + 9), a3 (row g + 8, k 2t4 + 8, + 9).
+// So two n-tiles of an accumulator (16 columns) rounded to bf16 and packed
+// in pairs are the register A fragment of a k-step whose k runs over those
+// columns (P before P.V, the message before the merge, gelu(h) before h
+// W2): no permutation, no shared memory.
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
-// row l & 7 of matrix l >> 3; r[m] is this lane's part of matrix m (row g,
-// columns 2t4, 2t4 + 1; with .trans, rows 2t4, 2t4 + 1 of column g).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
 
 // Two floats rounded to bf16 (to nearest, ties to even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -819,74 +789,6 @@ __device__ __forceinline__ float round_bf16(float x) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
-}
-
-__device__ __forceinline__ void cp_async16b(void* dst, const void* src, bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-// Rows of `cols` bf16 (a multiple of 8; src + r * ld, 16-byte aligned rows)
-// into dst (row stride ds), zeros from row `valid` on; cp.async by the
-// block's `nthreads` threads, no commit.
-__device__ __forceinline__ void stage_bf16(bf16* dst, int ds, const bf16* src, long long ld,
-                                           int rows, int cols, int valid, int nthreads) {
-  const int per_row = cols / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += nthreads) {
-    const int r = i / per_row, c = (i - r * per_row) * 8;
-    cp_async16b(dst + r * ds + c, src + (r < valid ? r : 0) * ld + c, r < valid);
-  }
-}
-
-// acc (16 rows x 2 NP n-tiles: columns n0 .. n0 + 16 NP - 1) += A . W over
-// 16 KS channels: A's rows at `a` (this warp's first row, row stride lda),
-// W (K x N, input-major) at `w` (its row k0, column n0; row stride ldw),
-// both in shared memory.
-template <int KS, int NP>
-__device__ __forceinline__ void warp_gemm_bf16(float (&acc)[2 * NP][4], const bf16* a, int lda,
-                                               const bf16* w, int ldw) {
-  const int lane = threadIdx.x & 31;
-  const bf16* ap = a + (lane & 15) * lda + (lane >> 4) * 8;
-  const bf16* wp = w + (lane & 15) * ldw + (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t af[4];
-    ldsm_x4(af, ap + 16 * ks);
-#pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, wp + 16 * ks * ldw + 16 * np);
-      mma_bf16(acc[2 * np], af, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], af, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 rows x 2 NP n-tiles) += P . W for one k-step whose A fragment pa
-// is in registers: W's 16 rows at `w` (row stride ldw, column n0).
-template <int NP>
-__device__ __forceinline__ void warp_step_bf16(float (&acc)[2 * NP][4], const uint32_t (&pa)[4],
-                                               const bf16* w, int ldw) {
-  const int lane = threadIdx.x & 31;
-  const bf16* wp = w + (lane & 15) * ldw + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-    uint32_t b[4];
-    ldsm_x4_t(b, wp + 16 * np);
-    mma_bf16(acc[2 * np], pa, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], pa, b[2], b[3]);
-  }
-}
-
-// The A fragment of k-step ks from accumulator n-tiles 2 ks and 2 ks + 1,
-// rounded to bf16.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(uint32_t (&pa)[4], const float (&acc)[NT][4], int ks) {
-  pa[0] = pack_bf16(acc[2 * ks][0], acc[2 * ks][1]);
-  pa[1] = pack_bf16(acc[2 * ks][2], acc[2 * ks][3]);
-  pa[2] = pack_bf16(acc[2 * ks + 1][0], acc[2 * ks + 1][1]);
-  pa[3] = pack_bf16(acc[2 * ks + 1][2], acc[2 * ks + 1][3]);
 }
 
 // Per row of this warp (g, g + 8), LayerNorm of y (16 n-tiles of f32 values,
@@ -930,15 +832,6 @@ __device__ __forceinline__ void layer_norm_bf16(float (&y)[16][4], const float* 
       store(r, j, c, pack_bf16(a, b));
     }
   }
-}
-
-// layer_norm_bf16 stored as bf16 pairs at out (row stride 128).
-__device__ __forceinline__ void layer_norm_store_bf16(float (&y)[16][4], const float* scale,
-                                                      const float* bias, const bf16* res,
-                                                      bf16* out, int r0, int valid) {
-  layer_norm_bf16(y, scale, bias, res, r0, valid, [&](int r, int, int c, uint32_t v) {
-    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(r) * kC + c) = v;
-  });
 }
 
 // ---- bf16 attention (B2a, B2b): wgmma, a TMA ring, the window's K resident ----
@@ -1183,8 +1076,7 @@ __device__ __forceinline__ void store_rows_bf16(const AttnSmemA& sm, const CUten
 
 // A warpgroup's 64 x 128 accumulator rounded to bf16 as the A fragments of
 // a product over its 128 columns (a[ks]: columns 16 ks .., n-tiles 2 ks and
-// 2 ks + 1): per warp, wgmma's accumulator layout is mma.sync's, so this is
-// acc_to_a's packing.
+// 2 ks + 1): per warp, wgmma's accumulator layout is mma.sync's.
 __device__ __forceinline__ void acc_to_a_bf16(const float (&acc)[64], uint32_t (&a)[8][4]) {
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks)

@@ -35,11 +35,11 @@ before LayerNorm, LayerNorm's output, the residual sum); the scores,
 softmax and LayerNorm statistics are f32, and B2c's GELU is the TPU
 kernel's own (the Abramowitz & Stegun erf of ``_gelu_exact_kernel``, in f32
 on the rounded input, rounded after). The plain versions state that with
-f32 matmuls of bf16-valued operands (``_mm``). The bf16 CUDA kernels of
-B2a and B2b run wgmma with TMA-fed rings (csrc/win_common.cuh's last
-section) on one of two routes that ``attention_plan`` chooses from L: the
-window's K resident in shared memory, or streamed; B2c's runs one bf16
-mma.sync a product.
+f32 matmuls of bf16-valued operands (``_mm``). The bf16 CUDA kernels run
+wgmma with TMA-fed rings: B2a and B2b (csrc/win_common.cuh's last section)
+on one of two routes that ``attention_plan`` chooses from L, the window's K
+resident in shared memory or streamed; B2c (csrc/win_ffn.cu) with its
+weights through a ring of F chunks, as ``ffn_plan`` sizes it.
 
 ``window_attention_fused``, ``window_sublayer_fused`` and ``ffn_fused`` route
 by device: a CPU tensor takes the plain version; a CUDA tensor launches the
@@ -89,6 +89,15 @@ _K_STAGES_STREAMED = 4
 _EXTRA_BYTES = 3072
 BLOCK_SMEM_LIMIT = 232448
 ROUTES = ("resident", "streamed")
+# The bf16 FFN's block (csrc/win_ffn.cu): 128 tokens, whose [x_src | x_msg]
+# tile (64 KB) stays; F in chunks of 64 columns through a ring of three
+# 48 KB slots (W0[:, chunk] and W2[chunk, :]); barriers, the slots' counts
+# and alignment.
+FFN_ROWS, FFN_CHUNK, FFN_SLOTS = 128, 64, 3
+_FFN_X_BYTES = FFN_ROWS * 2 * _KERNEL_C * 2
+_FFN_SLOT_BYTES = 3 * _KERNEL_C * FFN_CHUNK * 2
+_FFN_EXTRA_BYTES = 1024 + 8 * (1 + FFN_SLOTS) + 4 * FFN_SLOTS
+_MAX_FFN_TOKENS = 2**31 - 1 - FFN_ROWS  # the kernel's int row coordinates
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +293,32 @@ def attention_plan(length, n_windows, sublayer=False, route=None):
     return AttentionPlan(route, slots, nbytes, (-(-length // BLOCK_ROWS), n_windows))
 
 
+FfnPlan = namedtuple("FfnPlan", "rows chunk slots smem grid")
+
+
+def ffn_plan(n_tokens, ffn_dim):
+    """The bf16 FFN kernel's launch (B2c) for ``n_tokens`` tokens and F =
+    ``ffn_dim``: tokens a block, F columns a chunk, ring slots, the shared
+    memory a block asks for in bytes (the sum csrc/win_ffn.cu's
+    ffn_bf16_smem returns) and the grid (blocks).
+
+    A block takes 128 tokens (the last one ragged: rows past the tokens read
+    as zeros and are not stored); F runs in chunks of 64 columns, each
+    chunk's W0[:, chunk] and W2[chunk, :] one 48 KB slot of a three-slot
+    ring, so a block's shared memory is the same for every F: 214,072 bytes
+    with the 64 KB token tile, one block an SM. Clusters of two blocks
+    sharing each slot's load (half the weights' L2 reads) were measured
+    slower on the H100 and are not used (csrc/win_ffn.cu). F must be a
+    positive multiple of 64 and the tokens at most 2^31 - 129; anything
+    else raises ValueError."""
+    if ffn_dim <= 0 or ffn_dim % FFN_CHUNK:
+        raise ValueError(f"F must be a positive multiple of {FFN_CHUNK}, got {ffn_dim}")
+    if not 0 <= n_tokens <= _MAX_FFN_TOKENS:
+        raise ValueError(f"0 to {_MAX_FFN_TOKENS} tokens, got {n_tokens}")
+    smem = _FFN_X_BYTES + FFN_SLOTS * _FFN_SLOT_BYTES + _FFN_EXTRA_BYTES
+    return FfnPlan(FFN_ROWS, FFN_CHUNK, FFN_SLOTS, smem, -(-n_tokens // FFN_ROWS))
+
+
 def check_kernel_inputs(tokens, tensors, ffn_dim=None, f32=()):
     """Raise ValueError for inputs the CUDA kernels do not take: tensors on
     one device, tokens (B', L, 128) with L <= 1024 and B' <= 65535 (the
@@ -408,13 +443,17 @@ def _launch_ffn(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=Fal
     tensors = [t.contiguous() for t in (x_src, x_msg, w0, w2, norm_scale, norm_bias)]
     check_kernel_inputs(tensors[0], tensors[1:4], ffn_dim=w0.shape[1], f32=tensors[4:])
     x_src = tensors[0]
+    n_tokens = x_src.numel() // x_src.shape[-1]
     if x_src.dtype == torch.bfloat16:
+        ffn_plan(n_tokens, w0.shape[1])  # raises for what the kernel does not take
+        if any(t.data_ptr() % 16 for t in tensors[:4]):  # the tensor maps' rule
+            raise ValueError("the bf16 FFN takes 16-byte aligned tokens and weights")
         fn = _kernel("win_ffn", "ffn_forward_bf16",
                      [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                               ctypes.c_void_p])
         out = torch.empty_like(x_src)
-        _run(fn, x_src.device, *(t.data_ptr() for t in tensors), out.data_ptr(),
-             x_src.numel() // x_src.shape[-1], w0.shape[1], int(add_residual))
+        _run(fn, x_src.device, *(t.data_ptr() for t in tensors), out.data_ptr(), n_tokens,
+             w0.shape[1], int(add_residual))
         ffn_fused.launches += 1
         ffn_fused.bf16_launches += 1
         return out
@@ -426,8 +465,7 @@ def _launch_ffn(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=Fal
                          dtype=torch.int32, device=x_src.device)
     out = torch.empty_like(x_src)
     _run(fn, x_src.device, *(t.data_ptr() for t in tensors),
-         packed.data_ptr(), out.data_ptr(),
-         x_src.numel() // x_src.shape[-1], w0.shape[1], int(add_residual))
+         packed.data_ptr(), out.data_ptr(), n_tokens, w0.shape[1], int(add_residual))
     ffn_fused.launches += 1
     return out
 

@@ -20,14 +20,16 @@ zero and clamped displacements) and an in-image one, and B2a
 (``window_attention_fused``, the shift mask), B2b
 (``window_sublayer_fused``: cross-attention, and self-attention with the
 shift mask and the residual) and B2c (``ffn_fused``, F = 1024, the
-residual) at the fused route's 1080p shape (256, 448, 128), B2a and B2b
-in bf16 (the shift mask; cross, and self with the shift and the residual)
-at the bf16 recipe's three shapes (``B2_BF16_SHAPES``), B1
-(``local_correlation_with_flow``, r = 4) at the 1080p matcher shape (2,
-128, 224, 128) on a smooth and a mixed flow and on the flow the served
-frame's GRU loop gives it (``--served``: full-width DMSCT with seeded
-random weights serves one synthetic 1080p pair first, and its first B1
-call's arguments are kept), and at the training shape (24, 64, 120, 128),
+residual) at the fused route's 1080p shape (256, 448, 128), B2a, B2b and
+B2c in bf16 (the shift mask; cross, and self with the shift and the
+residual; F = 1024 with the residual) at the bf16 recipe's three shapes
+(``B2_BF16_SHAPES``), B1 (``local_correlation_with_flow``, r = 4, f32 and
+``local_corr bf16``) at the 1080p matcher shape (2, 128, 224, 128) on a
+smooth and a mixed flow and on the flow the served frame's GRU loop gives
+it (``--served``: full-width DMSCT with seeded random weights serves one
+synthetic 1080p pair first, in f32 and in the ``bf16`` recipe, and each
+one's first B1 call's arguments are kept), and at the training shape (24,
+64, 120, 128),
 and B4 (``regrain_sweeps``) at the six levels of an 8-frame 1080p chunk,
 through their public wrappers, CUDA events after warm-up, and prints one
 JSON line per case with both sides' times in the order run. ``--only
@@ -37,6 +39,7 @@ tiny shapes through the plain versions (a rehearsal: no device numbers).
 
 import argparse
 import importlib
+import itertools
 import json
 import re
 import shutil
@@ -115,18 +118,20 @@ def _mixed_flow(g, b, h, w):
     return torch.where(kind == 0, frac, torch.where(kind == 1, 0.0 * frac, far))
 
 
-def served_b1_args(device, small=False):
+def served_b1_args(device, small=False, recipe=None):
     """The arguments of the first B1 call when full-width DMSCT (seeded
-    random weights) serves one synthetic 1080p pair (``small``: a 64x96
-    pair through a one-layer matcher)."""
+    random weights; ``recipe``: one of tools/deep_gate.py's, e.g. "bf16",
+    whose correlation is bf16) serves one synthetic 1080p pair (``small``: a
+    64x96 pair through a one-layer matcher)."""
     import numpy as np
 
     from color_transfer_tpu_torch.methods.video import color_transfer_between_videos
     from color_transfer_tpu_torch.models import gmflow
-    from color_transfer_tpu_torch.run.modules import DMSCTModule
+    from color_transfer_tpu_torch.tools import deep_gate
 
     h, w = (64, 96) if small else (1080, 1920)
-    module = DMSCTModule(matcher_num_layers=1, matcher_num_reg_refine=1) if small else DMSCTModule()
+    kwargs = {"matcher_num_layers": 1, "matcher_num_reg_refine": 1} if small else {}
+    module = deep_gate.build("dmsct", recipe or "", kwargs)
     variables = module.init_eval_variables(seed=0, device=device)
     low = np.random.default_rng(0).uniform(0, 1, (1, 3, 34, 60)).astype(np.float32)
     scene = torch.nn.functional.interpolate(torch.from_numpy(low), size=(h, w + 16),
@@ -138,8 +143,9 @@ def served_b1_args(device, small=False):
     call = gmflow.local_correlation_with_flow
 
     def keep(f0, f1, flow, local_radius, **kw):
-        if not kept:
-            kept.extend(t.clone() for t in (f0, f1, flow))
+        if not kept:  # the features as the kernel takes them (the recipe's correlation type)
+            dtype = kw.get("corr_dtype", torch.float32)
+            kept.extend(t.clone() for t in (f0.to(dtype), f1.to(dtype), flow))
         return call(f0, f1, flow, local_radius, **kw)
 
     gmflow.local_correlation_with_flow = keep
@@ -218,7 +224,13 @@ def cases(device, small, served=False):
         yield (f"window_sublayer bf16 self shift residual {shape}", lambda ops, a=(xb, xb), s=geom:
                ops.win_attention.window_sublayer_fused(*a, *wb, *norm, shift_windows=s,
                                                        add_residual=True))
-    del xb, yb, zb, weights, wb, norm
+    w0b, w2b = (randn(2 * c, f, scale=(2 * c) ** -0.5).to(bf),
+                randn(f, c, scale=f**-0.5).to(bf))
+    for shape, _ in ([((8, 35, 128), None)] if small else B2_BF16_SHAPES):
+        xb, yb = (randn(*shape).to(bf) for _ in range(2))
+        yield (f"ffn bf16 {shape} F={f}", lambda ops, a=(xb, yb):
+               ops.win_attention.ffn_fused(*a, w0b, w2b, *norm, add_residual=True))
+    del xb, yb, zb, weights, wb, norm, w0b, w2b
 
     corr_shapes = ((2, 12, 20, 32), (3, 8, 16, 32)) if small else (
         (2, 128, 224, 128), (24, 64, 120, 128))
@@ -226,13 +238,15 @@ def cases(device, small, served=False):
         f0, f1 = randn(*shape), randn(*shape)
         flows = [("smooth", _smooth_flow(*shape[:3]).to(device)),
                  ("mixed", _mixed_flow(g, *shape[:3]).to(device))]
-        for kind, flow in flows:
-            yield (f"local_corr {shape} r=4 {kind} flow", lambda ops, a=f0, b=f1, fl=flow:
-                   ops.local_corr.local_correlation_with_flow(a, b, fl, 4))
-    if served:
-        f0, f1, flow = served_b1_args(device, small)
-        yield (f"local_corr {tuple(f0.shape)} r=4 served flow", lambda ops:
-               ops.local_corr.local_correlation_with_flow(f0, f1, flow, 4))
+        for (kind, flow), dtype in itertools.product(flows, (torch.float32, bf)):
+            name = "local_corr" if dtype == torch.float32 else "local_corr bf16"
+            yield (f"{name} {shape} r=4 {kind} flow", lambda ops, a=f0, b=f1, fl=flow, dt=dtype:
+                   ops.local_corr.local_correlation_with_flow(a, b, fl, 4, corr_dtype=dt))
+    if served:  # the f32 recipe's flow, and the bf16 recipe's (its features bf16)
+        for recipe, name in ((None, "local_corr"), ("bf16", "local_corr bf16")):
+            f0, f1, flow = served_b1_args(device, small, recipe)
+            yield (f"{name} {tuple(f0.shape)} r=4 served flow", lambda ops, a=(f0, f1, flow):
+                   ops.local_corr.local_correlation_with_flow(*a, 4, corr_dtype=a[0].dtype))
     del f0, f1, flows
 
     levels = ((32, 48, 4), (16, 24, 16), (8, 12, 32)) if small else (

@@ -186,6 +186,39 @@ def test_bf16_kernel_inputs_checked():
         tw.check_kernel_inputs(x.half(), [x.half()])
 
 
+@pytest.mark.parametrize("tokens", [0, 1, 127, 128, 129, 256 * 448, 3072 * 120, 2**31 - 129])
+def test_ffn_plan(tokens):
+    """The bf16 B2c launch plan: 128 tokens a block (the grid rounds up),
+    F in 64-column chunks through a ring of three 48 KB slots, so a block's
+    shared memory is the same for every F multiple of 64 up to 2048 and
+    within a block's 232,448 bytes: the 64 KB token tile, the ring, four
+    8-byte barriers, three 4-byte slot counts and 1 KB for alignment. An F
+    that is not a positive multiple of 64, and token counts past the
+    kernel's int rows, raise."""
+    for f in range(64, 2049, 64):
+        plan = tw.ffn_plan(tokens, f)
+        assert (plan.rows, plan.chunk, plan.slots) == (128, 64, 3)
+        assert plan.smem == 65536 + 3 * 49152 + 8 * 4 + 4 * 3 + 1024 <= tw.BLOCK_SMEM_LIMIT
+        assert plan.grid == -(-tokens // 128)
+    for bad in (0, -64, 32, 100, 1000):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            tw.ffn_plan(tokens, bad)
+    with pytest.raises(ValueError, match="tokens"):
+        tw.ffn_plan(tokens + 2**31, 64)
+
+
+def test_ffn_variants_apply_to_the_source():
+    """tools/ffn_variants.py edits csrc/win_ffn.cu's own lines: every
+    variant still finds them (a kernel edit that moves them fails here, not
+    on the card)."""
+    from color_transfer_tpu_torch.tools import ffn_variants as fv
+
+    base = fv.variant_source([])
+    for name, edits in fv.VARIANTS.items():
+        src = fv.variant_source(edits)
+        assert (src == base) == (not edits), name
+
+
 @pytest.mark.parametrize("sublayer,resident_to", [(False, 640), (True, 512)])
 def test_attention_plan_routes(sublayer, resident_to):
     """The bf16 B2a / B2b route plan: the window's K resident in shared

@@ -816,23 +816,24 @@ def _bf16_ulps(got, want):
     return float((got - want).abs().max()) / 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
-@pytest.mark.parametrize("shape,r", [((2, 128, 224, 128), 4), ((1, 13, 37, 16), 1),
-                                     ((3, 20, 24, 256), 4)])
-@pytest.mark.parametrize("kind", ["mixed", "smooth"])
+@pytest.mark.parametrize("shape,r", [((2, 128, 224, 128), 4), ((24, 64, 120, 128), 4),
+                                     ((1, 13, 37, 16), 1), ((3, 20, 24, 256), 4),
+                                     ((2, 24, 33, 72), 2)])
+@pytest.mark.parametrize("kind", ["mixed", "smooth", "rough", "step", "clamped"])
 def test_local_corr_bf16(gen, shape, r, kind):
-    """B1's bf16 instantiation (corr_dtype=bfloat16) on both routes: held to
-    the plain version, the routes to tile_boxes, two runs bit-equal, its
-    launch counted as bf16."""
+    """B1's bf16 instantiation (corr_dtype=bfloat16) on both routes (the
+    per-pixel one on the tensor cores, C from 16 to 256 channels, 72 a
+    ragged count of 16-byte vectors a lane): held to the plain version, the
+    routes to tile_boxes, two runs bit-equal, its launch counted as bf16.
+    The rough flow (sub-pixel and x40 displacements) sends most tiles to
+    the per-pixel route."""
     b, h, w, c = shape
     f0, f1 = (_randn(gen, *shape).to(torch.bfloat16) for _ in range(2))
-    if kind == "mixed":
+    if kind == "rough":
         flow = _randn(gen, b, h, w, 2, scale=3.0)
         flow = torch.where(_randn(gen, b, h, w, 1) > 0.5, flow * 40, flow).contiguous()
     else:
-        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
-                                torch.arange(w, dtype=torch.float32), indexing="ij")
-        flow = torch.stack([2.5 + 0.2 * torch.sin(yy / 5.0), -1.5 + 0.1 * xx / w], -1)
-        flow = flow[None].repeat(b, 1, 1, 1).cuda().contiguous()
+        flow = _b1_flow(gen, kind, b, h, w).contiguous()
     before = lc.local_correlation_with_flow.bf16_launches
     with torch.no_grad():
         got = lc.local_correlation_with_flow(f0, f1, flow, r, corr_dtype=torch.bfloat16)
@@ -840,7 +841,30 @@ def test_local_corr_bf16(gen, shape, r, kind):
         want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
     assert lc.local_correlation_with_flow.bf16_launches == before + 2
     assert got.dtype == torch.float32 and torch.equal(got, again)
-    assert torch.equal(routes.bool(), lc.tile_boxes(flow, r, lc.launch_plan(c, r, 2))["staged"])
+    staged = lc.tile_boxes(flow, r, lc.launch_plan(c, r, 2))["staged"]
+    assert torch.equal(routes.bool(), staged)
+    if kind in ("mixed", "rough") and r == 4:
+        assert not bool(staged.all())
+    if kind == "clamped":  # no live pixel: zeros, as the plain version's
+        assert not bool(got.any()) and not bool(want.any())
+    else:
+        assert _bf16_ulps(got, want) <= 1 / 64
+
+
+@pytest.mark.parametrize("r", [0, 1, 2, 3, 4])
+def test_local_corr_bf16_radii(gen, r):
+    """Every instantiated radius in bf16, at the served width C = 128, on a
+    step flow (both routes from r = 2 on)."""
+    b, h, w, c = 2, 19, 45, 128
+    f0, f1 = (_randn(gen, b, h, w, c).to(torch.bfloat16) for _ in range(2))
+    flow = _b1_flow(gen, "step", b, h, w).contiguous()
+    with torch.no_grad():
+        got, routes = lc._launch(f0, f1, flow, r, routes=True)
+        want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
+    staged = lc.tile_boxes(flow, r, lc.launch_plan(c, r, 2))["staged"]
+    assert torch.equal(routes.bool(), staged)
+    if r >= 2:  # smaller windows' boxes all fit
+        assert not bool(staged.all())
     assert _bf16_ulps(got, want) <= 1 / 64
 
 
@@ -939,9 +963,19 @@ def test_attention_plan_matches_the_library(gen):
         wn._launch_sublayer(x, x, *w, route="resident")
 
 
-@pytest.mark.parametrize("shape,f", [((256, 448, 128), 1024), ((3072, 120, 128), 1024),
-                                     ((3, 37, 128), 64), ((8, 35, 128), 1024)])
-def test_ffn_bf16(gen, shape, f):
+# B2c bf16: the bf16 recipe's shapes, ragged token counts (a partial
+# 128-token block; (3, 37) and (4, 1) a single block) and F = 64, 512, 1024,
+# 2048.
+FFN_BF16_CASES = [((256, 448, 128), 1024), ((3072, 120, 128), 1024), ((96, 480, 128), 1024),
+                  ((3, 37, 128), 64), ((8, 35, 128), 1024), ((64, 200, 128), 512),
+                  ((4, 1, 128), 1024), ((5, 77, 128), 2048)]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape,f", FFN_BF16_CASES)
+def test_ffn_bf16(gen, shape, f, residual):
+    """B2c in bf16 held to the plain version at 2 ulps; two runs
+    bit-equal (the same sums in the same order)."""
     c = shape[-1]
     bf = torch.bfloat16
     xs, xm = _randn(gen, *shape).to(bf), _randn(gen, *shape).to(bf)
@@ -950,12 +984,75 @@ def test_ffn_bf16(gen, shape, f):
     ns, nb = 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1)
     before = wn.ffn_fused.bf16_launches
     with torch.no_grad():
-        got = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
-        again = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
-        want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=True)
+        got = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=residual)
+        again = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=residual)
+        want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=residual)
     assert wn.ffn_fused.bf16_launches == before + 2
     assert got.dtype == bf and torch.equal(got, again)
     assert _bf16_ulps(got, want) <= 2
+
+
+def test_ffn_plan_matches_the_library(gen):
+    """ffn_plan's shared memory is the kernel library's (ffn_bf16_smem) at
+    every F tried; an F that is not a multiple of 64 raises on the plan and
+    in the launcher (no fallback)."""
+    smem = wn._kernel("win_ffn", "ffn_bf16_smem", [])()
+    for f in range(64, 2049, 64):
+        assert wn.ffn_plan(1000, f).smem == smem <= wn.BLOCK_SMEM_LIMIT
+    x = _randn(gen, 2, 35, 128).to(torch.bfloat16)
+    w0 = _randn(gen, 256, 96).to(torch.bfloat16)
+    w2 = _randn(gen, 96, 128).to(torch.bfloat16)
+    ns, nb = _randn(gen, 128), _randn(gen, 128)
+    before = wn.ffn_fused.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        wn.ffn_fused(x, x, w0, w2, ns, nb)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        wn.ffn_plan(70, 96)
+    assert wn.ffn_fused.launches == before
+
+
+def _ffn_probe(symbol, argtypes):
+    """A probe of csrc/win_ffn.cu: its pointer arguments, then the stream."""
+    import ctypes
+
+    return wn._kernel("win_ffn", symbol, [ctypes.c_void_p] * (argtypes + 1))
+
+
+def test_wgmma_64x64_mn_major_b(gen):
+    """hopper.cuh's wgmma_64x64x16_tb (B2c bf16's first product): A K-major
+    and B MN-major in shared memory under the 128-byte swizzle, against
+    torch.matmul (exact bf16 products, f32 sums in another order)."""
+    a = _randn(gen, 64, 16).bfloat16()
+    b = _randn(gen, 16, 64).bfloat16()
+    d = torch.full((64, 64), float("nan"), device="cuda")
+    fn = _ffn_probe("ffn_wgmma_probe", 3)
+    assert fn(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert float((d - a.float() @ b.float()).abs().max()) <= 1e-5
+
+
+def test_ffn_gelu_against_plain(gen):
+    """B2c bf16's GELU (gelu_pair: h rounded to bf16, the A&S erf with
+    __frcp_rn in place of the division, rounded) against the plain
+    version's gelu_as on the card, over h values in [-8, 8]: a value within
+    an f32 rounding of a bf16 boundary may round the other way (the plain
+    version's ops round one by one, the kernel's contract into FMAs), so
+    within one bf16 ulp of each value, and nearly all equal."""
+    n = 1 << 16
+    x = (torch.rand(n, 2, generator=gen) * 16 - 8).cuda()
+    y = torch.empty(2 * n, dtype=torch.int32, device="cuda")
+    import ctypes
+
+    fn = wn._kernel("win_ffn", "ffn_gelu_probe",
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    assert fn(x.data_ptr(), y.data_ptr(), n, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    got = y[:n].view(torch.bfloat16).reshape(n, 2).float()
+    want = wn.gelu_as(x.bfloat16()).float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs().clamp(min=2.0**-126))[1] - 8)
+    assert bool(((got - want).abs() <= ulp).all())
+    assert float((got == want).float().mean()) >= 0.999
 
 
 def test_bf16_tokens_need_bf16_weights(gen):

@@ -512,15 +512,20 @@ def test_kernel_ab_times_two_copies_side_by_side(tmp_path):
     rows = kernel_ab.run(other, torch.device("cpu"), small=True, iters=1)
     # B5: 2 modes x 2 dtypes; B6: 3 chains x 2 batches; B7: 4 levels x 2
     # flows; B2a, B2b (cross; self with the shift and the residual) and B2c;
-    # B2a and B2b in bf16 (one shape; three at full size); B1: 2 shapes x 2
-    # flows; B4: 3 levels (six at full size).
-    assert len(rows) == 4 + 6 + 8 + 4 + 3 + 4 + 3
+    # B2a, B2b and B2c in bf16 (one shape; three at full size); B1: 2 shapes
+    # x 2 flows in f32 and bf16; B4: 3 levels (six at full size).
+    assert len(rows) == 4 + 6 + 8 + 4 + 4 + 8 + 3
     assert [r["case"] for r in kernel_ab.run(other, torch.device("cpu"), small=True, iters=1,
                                              only="^window")] == [
         r["case"] for r in rows[18:21] + rows[22:25]]
     assert rows[21]["case"].startswith("ffn ")
-    assert all(" bf16 " in r["case"] for r in rows[22:25])
-    assert [r["case"].split()[0] for r in rows[25:]] == ["local_corr"] * 4 + ["regrain_sweeps"] * 3
+    assert all(" bf16 " in r["case"] for r in rows[22:26])
+    assert rows[25]["case"].startswith("ffn bf16 ")
+    assert [r["case"].split()[0] for r in rows[26:]] == ["local_corr"] * 8 + ["regrain_sweeps"] * 3
+    assert [" bf16 " in r["case"] for r in rows[26:34]] == [False, True] * 4
+    assert [r["case"] for r in kernel_ab.run(other, torch.device("cpu"), small=True, iters=1,
+                                             only="ffn bf16|local_corr bf16")] == [
+        r["case"] for r in rows[25:34] if " bf16 " in r["case"]]
     for row in rows:
         assert row["order"] == ["other", "tree", "tree", "other"]
         assert len(row["ms"]) == 4 and all(t > 0 for t in row["ms"])

@@ -109,8 +109,15 @@ fallback):
                 step; each f32 conv's cuDNN time at the recipe's shape; the
                 two matchers on one batch (the loss 1e-5 relative, each
                 gradient rtol 2e-4 atol 1e-5, JAX's lines); the step at (2,
-                32, 64) against float64 (phase 7's rule); ``predict`` from
-                the best checkpoint.
+                32, 64) against float64 (phase 7's rule); then the bf16
+                recipe's step at the same width and batch with both
+                matchers, its bf16 convs through cuDNN and through ATen:
+                warm ms/step beside f32's, peak memory, finite losses, f32
+                parameters that all moved, the step at (2, 32, 64) against
+                the port's CPU bf16 step stage by stage in bf16 ulps
+                (DC_BF16_ULPS; the module's route must meet them), and a
+                short ``fit --model.compute_dtype bfloat16`` through the
+                CLI; ``predict`` from the best checkpoint.
   9. test     — the paper's evaluation through ``test``: the five classical
                 methods (configs/others.yaml) and DMSCT (configs/dmsct.yaml,
                 random init) on a synthetic 1080p set (one Test/ pair, 31
@@ -156,8 +163,18 @@ fallback):
                 8-frame 1080p chunk over ["cuda:0", "cuda:0"], bit-equal to
                 one device with exact launches; tools/postprocess.py on a
                 synthetic 1080p raw sample (three mp4v videos), the card's
-                PNGs within 1 LSB of the CPU's. One card with two ranks
-                checks correctness; it is no scaling figure.
+                PNGs within 1 LSB of the CPU's. Then the sharded paths
+                (two gloo ranks on the one card, ``--sp-worker`` under
+                torchrun): full-width DCMCS3DI evaluated with image rows
+                over the ranks on two 544x960 pairs, against world 1's
+                ``eval_forward`` (2e-5), ms/frame, peak memory and halo
+                bytes a rank; the matcher's tensor parallelism (full-width
+                GMFlow at the 1080p matcher size, 512x896) against world 1
+                (flow 5e-3, transformer features 1e-4 of scale); the
+                transformer's three attention routes (6 layers, d_model
+                128) on (2, 128, 224, 128) features, card against CPU. One
+                card with two ranks checks correctness; it is no scaling
+                figure.
  13. bf16      — runs last: DMSCT's bf16 recipes (tools/deep_gate.py's JAX
                 names). Full-width DMSCT serves phase 4's two 1080p pairs on
                 its weights in bf16, bf16-nofuse, bf16m, bf16c and
@@ -192,8 +209,12 @@ Phases 7 and 10 also hold every distinct f32 conv of their recipe's train
 step, at the recipe's shape, to float64 (tools/conv_grads.py) and time the
 step with the backward through cuDNN and through ATen.
 ``python3 chip_smoke.py --scaling`` (several cards, not part of the
-one-card run) times the NCCL fit over every card against one card and
-serving split over every card against one card.
+one-card run) times the NCCL fit over every card against one card, serving
+split over every card against one card, the row-sharded DCMCS3DI evaluation
+of a 1080p frame over every card (ms/frame, each card's peak memory beside
+the 63.7 GB one card would need, halo traffic; against the one-card kernel
+route, reported) and the matcher's tensor parallelism over every card
+against one card.
 The line before the last is a JSON object with per-kernel results (each
 kernel's time, its plain version's, a library call's where one computes
 the same function, and its bound on the card: the larger of its bytes over
@@ -2320,7 +2341,7 @@ def _fit_dcmcs3di(root, data, fused):
     val = [r["Validation PSNR/dataloader_idx_0"] for r in records
            if "Validation PSNR/dataloader_idx_0" in r]
     _log(f"dcmcs3di train ({label}): validation PSNR by epoch {[round(v, 4) for v in val]}")
-    return module, state, held["batch"], held["seed"], log_dir
+    return module, state, held["batch"], held["seed"], log_dir, sum(warm) / len(warm)
 
 
 def _dc_profile(module, state, batch, seed):
@@ -2481,6 +2502,186 @@ def check_dc_train_small():
                              "than the rule allows")
 
 
+# Phase 10's bf16 block: DCMCS3DI's bf16 training recipe (the extraction and
+# transfer convs in bf16; the matcher, the losses and the parameters f32).
+# Its step on the card against the port's CPU run of the same bf16 step at
+# DC_SMALL, full width, with the target given, in bf16 ulps of each value's
+# magnitude (cuDNN's or ATen's bf16 sums against oneDNN's, in other orders:
+# a rounding flips by an ulp and the next conv carries it, through 37 convs
+# in the extraction): the extraction's and the transfer net's outputs (the
+# CPU's input fed) and each conv weight's gradient (measured on the first
+# card run, cuDNN: 2.5, 1.0, 1.8 ulps); the loss relative (2e-6). A bias's
+# gradient sums its output gradient over every pixel (8192 here) and
+# cancels to a few times less than its terms, so ulps of its own magnitude
+# read the terms' flips hundreds of times over (337 ulps on that run): it
+# is held by rule C3 instead: the card's distance from the CPU's bf16 step at
+# most DC_BF16_BIAS_C3 times the CPU's f32 step's (measured: 1.00 on cuDNN,
+# 1.02 on ATen: at random init a bias's gradient is as much the bf16
+# roundings of its terms on one platform as against f32).
+DC_BF16_ULPS = {"extraction": 8, "transfer": 4, "weight grads": 8}
+DC_BF16_LOSS_RTOL, DC_BF16_BIAS_C3 = 1e-4, 2.0
+DC_BF16_STEPS = 3
+
+
+def _dc_bf16_module(route, fused=True, **kw):
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    module = DCMCS3DIModule(compute_dtype="bfloat16", fused_attention=fused, **kw)
+    module.reduced_cudnn = route == "cudnn"
+    return module
+
+
+def _dc_bf16_step(device, batch, target, route, dtype="bfloat16"):
+    """One full-width train step of the bf16 recipe (``dtype`` None: the
+    f32 recipe; chunked matcher, seed-0 variables) with the target given ->
+    (loss, {name: gradient on the CPU})."""
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    module = DCMCS3DIModule(compute_dtype=dtype)
+    module.reduced_cudnn = route == "cudnn"
+    b = {k: v.to(device) for k, v in batch.items()}
+    state = module.init_state(0, b, num_train_steps=10)
+    module.synthesize_targets = lambda bb, gen, tt=target.to(device): {**bb, "target": tt}
+    grads = {}
+    apply_gradients = module.apply_gradients
+
+    def record(st):
+        grads.update({k: v.grad.detach().float().cpu() for k, v in st.variables.items()})
+        apply_gradients(st)
+
+    module.apply_gradients = record
+    _, logs = module.train_step(state, b, seed=0, metrics=False)
+    return float(logs["Training Total Loss"]), grads
+
+
+def check_dc_bf16_small(route):
+    """The bf16 step's stages on the card against the CPU at DC_SMALL ->
+    the worst error over its line per stage (<= 1 passes)."""
+    from color_transfer_tpu_torch.core.precision import full_f32, reduced_conv_route
+
+    n, h, w = DC_SMALL
+    t, r = _classical_clip(n, h, w, seed=5)
+    target = (t ** 1.2 * 0.9 + 0.04).clamp(0, 1)
+    module = _dc_bf16_module(route)
+    variables = module.init_eval_variables(0, device="cpu")
+    model = module.model
+    worst = {}
+    g = torch.Generator().manual_seed(6)
+    stage_inputs = {"extraction": torch.rand(2 * n, h, w, 3, generator=g),
+                    "transfer": torch.rand(n, h, w, 2 * CHANNELS + 1, generator=g)}
+    with torch.no_grad(), full_f32(), reduced_conv_route(module.reduced_cudnn):
+        for stage, x in stage_inputs.items():
+            outs = {}
+            for device in ("cpu", "cuda"):
+                sub = {k: v.to(device) for k, v in variables.items()}
+                outs[device] = getattr(_load(model, sub), stage)(x.to(device)).float().cpu()
+            worst[stage] = _bf16_ulps(outs["cuda"], outs["cpu"]) / DC_BF16_ULPS[stage]
+    batch = {"gt": t, "reference": r}
+    loss_cpu, g_cpu = _dc_bf16_step("cpu", batch, target, route)
+    loss_card, g_card = _dc_bf16_step("cuda", batch, target, route)
+    _, g_f32 = _dc_bf16_step("cpu", batch, target, route, dtype=None)
+    worst["loss"] = abs(loss_card - loss_cpu) / abs(loss_cpu) / DC_BF16_LOSS_RTOL
+    weights = [k for k in g_cpu if not k.endswith("bias")]
+    worst["weight grads"] = max(_bf16_ulps(g_card[k], g_cpu[k])
+                                for k in weights) / DC_BF16_ULPS["weight grads"]
+    worst["bias grads (C3)"] = max(
+        float((g_card[k] - g_cpu[k]).abs().max()) / float((g_f32[k] - g_cpu[k]).abs().max())
+        for k in g_cpu if k.endswith("bias")) / DC_BF16_BIAS_C3
+    return worst, (loss_card, loss_cpu)
+
+
+def _load(model, variables):
+    """``model`` on the variables' device holding ``variables``."""
+    model = model.to(next(iter(variables.values())).device)
+    model.load_state_dict(variables, strict=True)
+    return model
+
+
+def _dc_bf16_timed(batch, route, fused):
+    """DC_BF16_STEPS bf16 steps on one recipe batch (the first warms up) ->
+    (warm ms/step, peak GiB, losses, moved parameters, f32 parameters)."""
+    module = _dc_bf16_module(route, fused=fused)
+    state = module.init_state(0, batch, num_train_steps=10)
+    start = {k: v.detach().clone() for k, v in state.variables.items()}
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for step in range(DC_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logs = module.train_step(state, batch, step, metrics=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["Training Total Loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(not torch.equal(v.detach(), start[k]) for k, v in state.variables.items())
+    f32 = all(v.dtype == torch.float32 for v in state.variables.values())
+    return sum(ms[1:]) / (len(ms) - 1), peak, losses, moved, len(start), f32
+
+
+def _fit_dcmcs3di_bf16(root, data):
+    """``fit --config configs/dcmcs3di.yaml --model.compute_dtype bfloat16``
+    through the CLI, one epoch (2 steps): rc 0, finite losses, f32 variables
+    in the checkpoint, the recipe in its hparams."""
+    from color_transfer_tpu_torch.run import cli
+    from color_transfer_tpu_torch.run.checkpoint import load_checkpoint
+
+    log_dir = root / "dc_bf16_fit"
+    t0 = time.perf_counter()
+    rc = cli.main(["fit", "--config", "configs/dcmcs3di.yaml", "--data.data_dir", str(data),
+                   "--data.image_repeats", "1", "--trainer.max_epochs", "1",
+                   "--model.compute_dtype", "bfloat16", "--log_dir", str(log_dir)])
+    secs = time.perf_counter() - t0
+    records = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["Training Total Loss"] for r in records if "Training Total Loss" in r]
+    meta = json.loads((log_dir / "checkpoints" / "last" / "meta.json").read_text())
+    (ckpt, _) = load_checkpoint(log_dir / "checkpoints" / "last")
+    dtypes = {str(v.dtype) for v in ckpt["variables"].values()}
+    _log(f"dcmcs3di bf16 fit through the CLI ({secs:.1f} s): rc {rc}, losses {losses}, "
+         f"hparams compute_dtype {meta['hparams']['compute_dtype']}, checkpoint dtypes {dtypes}")
+    if (rc != 0 or not losses or not all(np.isfinite(losses)) or dtypes != {"torch.float32"}
+            or meta["hparams"]["compute_dtype"] != "bfloat16"):
+        raise AssertionError("dcmcs3di bf16: fit through the CLI failed")
+
+
+def train_dcmcs3di_bf16(root, data, f32_ms):
+    """Phase 10's bf16 block: the bf16 step at configs/dcmcs3di.yaml's full
+    width (batch 8, 160x320) with both matchers, its bf16 convs through
+    cuDNN and through ATen: warm ms/step beside f32's, peak memory, finite
+    losses, f32 parameters that all moved; the step's stages against the
+    CPU on each route (the module's route must meet its lines); a short fit
+    through the CLI."""
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    t_block = time.perf_counter()
+    chosen = "cudnn" if DCMCS3DIModule.reduced_cudnn else "aten"
+    g = torch.Generator().manual_seed(7)
+    gt = torch.rand(DC_BATCH, *DC_CROP, 3, generator=g).cuda()
+    batch = {"gt": gt, "reference": (torch.roll(gt, 8, dims=2) * 0.9 + 0.05).clamp(0, 1)}
+    for route in ("cudnn", "aten"):
+        for fused in ((True, False) if route == "cudnn" else (True,)):
+            ms, peak, losses, moved, n, f32 = _dc_bf16_timed(batch, route, fused)
+            label = "chunked" if fused else "materialised"
+            _log(f"dcmcs3di bf16 train ({label} matcher, bf16 convs on {route}): "
+                 f"{DC_BATCH} x {DC_CROP[0]}x{DC_CROP[1]}, warm {ms:.1f} ms/step (f32 on "
+                 f"this card: {f32_ms[fused]:.1f}), peak {peak:.2f} GiB, losses "
+                 f"{', '.join(f'{v:.5f}' for v in losses)}, {moved}/{n} parameters moved, "
+                 f"all f32 {f32}")
+            if not all(np.isfinite(losses)) or moved != n or not f32:
+                raise AssertionError(f"dcmcs3di bf16 train ({label}, {route}) failed")
+            torch.cuda.empty_cache()
+        worst, (loss_card, loss_cpu) = check_dc_bf16_small(route)
+        _log(f"dcmcs3di bf16 step {DC_SMALL} full width, bf16 convs on {route}, card against "
+             f"CPU: loss {loss_card:.8f} / {loss_cpu:.8f}; worst error / line: "
+             + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+             + f" (lines {DC_BF16_ULPS} ulps, loss {DC_BF16_LOSS_RTOL}, biases C3 "
+             f"{DC_BF16_BIAS_C3})")
+        if route == chosen and max(worst.values()) > 1.0:
+            raise AssertionError(f"dcmcs3di bf16 step on {route} (the module's route) "
+                                 "disagrees with the CPU")
+    _fit_dcmcs3di_bf16(root, data)
+    _log(f"dcmcs3di bf16 block (module route {chosen}): {time.perf_counter() - t_block:.1f} s")
+
+
 def train_dcmcs3di(root):
     """Phase 10: `fit` of configs/dcmcs3di.yaml at its full width through the
     CLI, once with each training matcher; checked and measured. Returns the
@@ -2493,7 +2694,8 @@ def train_dcmcs3di(root):
     data = root / "dc_data"
     _write_dataset(data, splits=(("Train", 16), ("Validation", 4)))
     fitted = {fused: _fit_dcmcs3di(root, data, fused) for fused in (True, False)}
-    module, state, batch, seed, log_dir = fitted[True]
+    f32_ms = {fused: fitted[fused][5] for fused in fitted}
+    module, state, batch, seed, log_dir, _ = fitted[True]
     del fitted[False]
     _dc_profile(module, state, batch, seed)
     del module, state
@@ -2503,6 +2705,7 @@ def train_dcmcs3di(root):
     torch.cuda.empty_cache()
     check_dc_train_small()
     check_conv_grads("dcmcs3di")
+    train_dcmcs3di_bf16(root, data, f32_ms)
     best = log_dir / "checkpoints" / "best"
     pair = root / "dc_pair"
     pair.mkdir()
@@ -3363,8 +3566,300 @@ def data_parallel(smi):
         _dp_serving()
         torch.cuda.empty_cache()
         _dp_postprocess(root)
+    torch.cuda.empty_cache()
+    sharded_paths(smi)
     _log(f"dp: phase {time.perf_counter() - t0:.1f} s on {smi} (one card, two ranks: "
          f"correctness, not scaling)")
+
+
+# Phase 12's sharded paths (one card, two gloo ranks) and their --scaling
+# cells. The row-sharded DCMCS3DI evaluation at full width on 544x960 pairs
+# made as phase 9's, against the world-1 ``eval_forward``: 2e-5 (JAX's line,
+# tests/test_row_sharded.py: the halo convs sum in another order). The
+# matcher's tensor parallelism at the served 1080p matcher size (full-width
+# GMFlow at 512x896) against world 1: the transformer at each of its two
+# scales on world 1's inputs fed in, within 1e-4 of max(1, max|ref|) (f32,
+# the row-parallel products summed in another order); end to end the flow
+# within 5e-3 (JAX's line, tests/test_tensor_parallel.py), where the
+# random-init matcher lets it (its GRU loop and the second scale's warp
+# amplify a rounding: reported beside the line, held by the fed-in stages).
+# The transformer's three attention routes (6 layers,
+# d_model 128) on 1/4-scale features (2, 128, 224, 128), 8 splits, the card
+# against the CPU: 1e-4 of scale (STAGE_RTOL).
+SP_FRAMES, SP_ATOL = 2, 2e-5
+TP_FLOW_LINE, TP_FEATURE_RTOL = 5e-3, 1e-4
+ATTN_SHAPE, ATTN_SPLITS = (2, 128, 224, 128), 8
+SP_TIMED, TP_TIMED = 2, 1
+
+
+def _sp_pairs(hw, frames):
+    """``frames`` seeded stereo pairs at ``hw`` (CPU, float32)."""
+    pairs = [_stereo_pair(np.random.default_rng(7 + i), *hw) for i in range(frames)]
+    t, r = (torch.from_numpy(np.stack([p[j] for p in pairs])).float() for j in (0, 1))
+    return t.contiguous(), r.contiguous()
+
+
+def _tp_model(device):
+    """Full-width GMFlow (6 layers, 6 refinements) on seeded weights and a
+    hook that keeps its transformer's inputs and outputs at each scale."""
+    from color_transfer_tpu_torch.models.gmflow import GMFlow
+    from color_transfer_tpu_torch.run.modules import random_state_dict
+
+    model = GMFlow().eval().to(device)
+    calls = []
+    model.transformer.register_forward_hook(lambda m, a, o: calls.append((a, o)))
+    variables = {k: v.to(device) for k, v in random_state_dict(model, seed=0).items()}
+    return model, variables, calls
+
+
+def _tp_forward(model, variables, pair, calls):
+    """The matcher's flow and its transformer's calls [(inputs, outputs)]."""
+    from color_transfer_tpu_torch.core.precision import full_f32_inference
+    from color_transfer_tpu_torch.core.resize import derive_matcher_size
+
+    calls.clear()
+    with full_f32_inference():
+        out = torch.func.functional_call(
+            model, variables, (pair[0] * 255.0, pair[1] * 255.0),
+            {"inference_size": derive_matcher_size(*pair[0].shape[1:3])}, strict=True)
+    return out["flow"], [([x.cpu() if torch.is_tensor(x) else x for x in a],
+                          [y.cpu() for y in o]) for a, o in calls]
+
+
+def _tp_nudged(model, variables, pair, flow1, rel):
+    """World 1 with every transformer output moved by ``rel`` of its scale
+    (a seeded sign pattern): the flow's worst |d| / (line + line |ref|)
+    against the plain world-1 flow, the amplification a TP rounding meets."""
+    g = torch.Generator().manual_seed(3)
+
+    def nudge(m, a, o):
+        return tuple(y + rel * float(y.abs().max()) * torch.sign(
+            torch.randn(y.shape, generator=g)).to(y.device) for y in o)
+
+    handle = model.transformer.register_forward_hook(nudge)
+    try:
+        flow, _ = _tp_forward(model, variables, pair, [])
+    finally:
+        handle.remove()
+    return float(((flow.cpu() - flow1).abs() / (TP_FLOW_LINE + TP_FLOW_LINE * flow1.abs())).max())
+
+
+def _tp_fed(model, variables, calls, device):
+    """The transformer alone on each scale's recorded inputs -> its outputs."""
+    from color_transfer_tpu_torch.core.precision import full_f32_inference
+
+    sub = {k[len("transformer."):]: v for k, v in variables.items()
+           if k.startswith("transformer.")}
+    outs = []
+    with full_f32_inference():
+        for args, _ in calls:
+            args = [x.to(device) if torch.is_tensor(x) else x for x in args]
+            o = torch.func.functional_call(model.transformer, sub, tuple(args), strict=True)
+            outs.append([y.cpu() for y in o])
+    return outs
+
+
+def _timed_ms(fn, reps, barrier=None, warm=True):
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def sp_worker(out, backend, hw, frames, fed):
+    """One rank of the sharded paths (under torchrun): the row-sharded
+    DCMCS3DI evaluation over every rank, then the matcher with its
+    transformer's weights sharded over every rank; each timed, the rank's
+    results saved under ``out``."""
+    import torch.distributed as dist
+
+    from color_transfer_tpu_torch.parallel import multihost
+    from color_transfer_tpu_torch.parallel import row_attention_sp as sp
+    from color_transfer_tpu_torch.parallel import tensor_parallel as tp
+    from color_transfer_tpu_torch.parallel.mesh import process_mesh
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, hw, frames = Path(out), tuple(int(v) for v in hw.split("x")), int(frames)
+    rank, world = multihost.initialize_distributed(
+        backend=backend, device="cuda:0" if backend == "gloo" else None, timeout=600)
+    device = torch.device("cuda", torch.cuda.current_device())
+    record = {"rank": rank, "world": world, "backend": backend, "device": str(device)}
+
+    module = DCMCS3DIModule()
+    variables = module.init_eval_variables(0, device=device)
+    t, r = (x.to(device) for x in _sp_pairs(hw, frames))
+    mesh = process_mesh((1, world), ("data", "seq"))
+    torch.cuda.reset_peak_memory_stats()
+    before = sp.halo_bytes
+    rows, ms = _timed_ms(lambda: sp.sharded_eval_forward(
+        module, variables, {"target": t, "reference": r}, mesh), SP_TIMED, dist.barrier)
+    record["rows"] = {"ms_frame": [v / frames for v in ms],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "halo_bytes_frame": (sp.halo_bytes - before) / (SP_TIMED + 1) / frames}
+    torch.save(rows.cpu(), out / f"rows{rank}.pt")
+    del module, variables, rows
+    torch.cuda.empty_cache()
+
+    model, sd, calls = _tp_model(device)
+    axis = process_mesh((1, world), ("data", "model"))["model"]
+    sharded = tp.shard_matcher_state(sd, axis)
+    pair = (t[:1], r[:1])
+    torch.cuda.reset_peak_memory_stats()
+    with tp.tensor_parallel(axis):
+        # Two ranks on one card over gloo (through the host): correctness,
+        # so one call, not warmed; NCCL over several cards is warmed.
+        (flow, _), ms = _timed_ms(lambda: _tp_forward(model, sharded, pair, calls),
+                                  TP_TIMED, dist.barrier, warm=backend != "gloo")
+        fed_out = _tp_fed(model, sharded, torch.load(fed), device)
+    record["tp"] = {"ms_frame": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.save({"flow": flow.cpu(), "fed": fed_out}, out / f"tp{rank}.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _sp_run(root, label, nproc, backend, hw, frames, fed):
+    """``torchrun --nproc_per_node nproc`` of ``sp_worker`` -> the ranks'
+    records, row-sharded outputs and TP results."""
+    import os
+    import signal
+
+    out = root / label
+    out.mkdir()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           str(Path(__file__).resolve()), "--sp-worker", str(out), backend,
+           f"{hw[0]}x{hw[1]}", str(frames), str(fed)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:  # timed out: stop torchrun and its ranks
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        _log(text[-8000:])
+        raise AssertionError(f"sharded paths: {label} exited {proc.returncode}")
+    records = [json.loads((out / f"rank{r}.json").read_text()) for r in range(nproc)]
+    rows = [torch.load(out / f"rows{r}.pt") for r in range(nproc)]
+    tps = [torch.load(out / f"tp{r}.pt") for r in range(nproc)]
+    _log(f"sharded paths {label}: {nproc} ranks ({backend}) in {time.perf_counter() - t0:.1f} s")
+    return records, rows, tps
+
+
+def _hold_tp(label, tps, flow1, calls1):
+    """The TP ranks against world 1 -> (the fed-in transformer's worst
+    error over its line, ranks bit-equal); the end-to-end flow reported."""
+    fed, flow = [], 0.0
+    for rank in tps:
+        flow = max(flow, float(((rank["flow"] - flow1).abs()
+                                / (TP_FLOW_LINE + TP_FLOW_LINE * flow1.abs())).max()))
+        for scale, (got, (_, want)) in enumerate(zip(rank["fed"], calls1)):
+            err = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                      for g, w in zip(got, want))
+            fed.append((scale, err))
+    worst = max(err for _, err in fed) / TP_FEATURE_RTOL
+    equal = all(torch.equal(r["flow"], tps[0]["flow"]) for r in tps)
+    _log(f"{label}: the transformer on world 1's inputs, by scale: " + ", ".join(
+        f"scale {s} {e:.2e}" for s, e in fed) + f" of scale (line {TP_FEATURE_RTOL}); end to "
+        f"end the flow's worst |d| / ({TP_FLOW_LINE} + {TP_FLOW_LINE} |ref|) {flow:.3f} "
+        f"(reported: the random-init matcher amplifies); |flow| up to "
+        f"{float(flow1.abs().max()):.1f} px; ranks bit-equal {equal}")
+    return worst, equal
+
+
+def _attn_types():
+    """The transformer's three routes on the card against the CPU."""
+    from color_transfer_tpu_torch.core.precision import full_f32_inference
+    from color_transfer_tpu_torch.models.gmflow import ATTN_TYPES, FeatureTransformer
+    from color_transfer_tpu_torch.run.modules import random_state_dict
+
+    model = FeatureTransformer(6, 128).eval()
+    model.load_state_dict(random_state_dict(model, seed=1))
+    g = torch.Generator().manual_seed(8)
+    f0, f1 = (torch.randn(*ATTN_SHAPE, generator=g) for _ in range(2))
+    for attn_type in ATTN_TYPES:
+        outs, ms = {}, None
+        for device in ("cpu", "cuda"):
+            model.to(device)
+            with full_f32_inference():
+                if device == "cuda":
+                    outs[device], times = _timed_ms(
+                        lambda: model(f0.cuda(), f1.cuda(), ATTN_SPLITS, attn_type), 3)
+                    ms = min(times)
+                else:
+                    outs[device] = model(f0, f1, ATTN_SPLITS, attn_type)
+        err = max(float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+                  for a, b in zip(outs["cuda"], outs["cpu"]))
+        _log(f"transformer attn_type {attn_type} {ATTN_SHAPE}, {ATTN_SPLITS} splits: card "
+             f"{ms:.2f} ms, card against CPU {err:.2e} of scale (line {STAGE_RTOL})")
+        if err > STAGE_RTOL:
+            raise AssertionError(f"transformer {attn_type}: the card disagrees with the CPU")
+    model.cpu()
+
+
+def sharded_paths(smi):
+    """Phase 12's sharded paths on the one card: the row-sharded DCMCS3DI
+    evaluation and the matcher's tensor parallelism at world 2 (gloo)
+    against world 1, and the transformer's attention routes."""
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    t0 = time.perf_counter()
+    module = DCMCS3DIModule()
+    variables = module.init_eval_variables(0, device="cuda")
+    t, r = (x.cuda() for x in _sp_pairs(EVAL_544, SP_FRAMES))
+    torch.cuda.reset_peak_memory_stats()
+    want, ms = _timed_ms(lambda: module.eval_forward(variables, {"target": t, "reference": r}),
+                         SP_TIMED)
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    want = want.cpu()
+    del module, variables
+    torch.cuda.empty_cache()
+    model, sd, calls = _tp_model("cuda")
+    (flow1, calls1), tp_ms = _timed_ms(lambda: _tp_forward(model, sd, (t[:1], r[:1]), calls),
+                                       TP_TIMED)
+    flow1 = flow1.cpu()
+    nudged = _tp_nudged(model, sd, (t[:1], r[:1]), flow1, 2e-6)
+    _log(f"matcher at 512x896, world 1 with its transformer's outputs moved by 2e-6 of their "
+         f"scale: the flow's worst |d| / ({TP_FLOW_LINE} + {TP_FLOW_LINE} |ref|) {nudged:.3f}")
+    del model, sd, t, r
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(calls1, Path(tmp) / "fed.pt")
+        records, rows, tps = _sp_run(Path(tmp), "gloo_world2", 2, "gloo", EVAL_544, SP_FRAMES,
+                                     Path(tmp) / "fed.pt")
+    worst = max(float((x - want).abs().max()) for x in rows)
+    equal = all(torch.equal(x, rows[0]) for x in rows)
+    _log(f"row-sharded dcmcs3di, full width, {SP_FRAMES} x {EVAL_544[0]}x{EVAL_544[1]}: world 1 "
+         f"{min(ms) / SP_FRAMES:.1f} ms/frame, peak {peak1:.2f} GiB; world 2 (gloo, one card) "
+         + "; ".join(f"rank {x['rank']} {min(x['rows']['ms_frame']):.1f} ms/frame, peak "
+                     f"{x['rows']['peak_gib']:.2f} GiB, halo {x['rows']['halo_bytes_frame'] / 2**20:.1f}"
+                     f" MiB a frame" for x in records)
+         + f"; against world 1 max|d| {worst:.2e} (line {SP_ATOL}); ranks bit-equal {equal}")
+    if worst > SP_ATOL or not equal:
+        raise AssertionError("row-sharded dcmcs3di disagrees with world 1")
+    _log(f"matcher TP at 1080p (512x896): world 1 {min(tp_ms):.1f} ms/frame; world 2 (gloo, "
+         f"one card) " + "; ".join(f"rank {x['rank']} {min(x['tp']['ms_frame']):.1f} ms/frame, "
+                                   f"peak {x['tp']['peak_gib']:.2f} GiB" for x in records))
+    tp_worst, tp_equal = _hold_tp("matcher TP world 2", tps, flow1, calls1)
+    if tp_worst > 1.0 or not tp_equal:
+        raise AssertionError("matcher TP disagrees with world 1")
+    _attn_types()
+    _log(f"sharded paths: {time.perf_counter() - t0:.1f} s on {smi}")
 
 
 def scaling():
@@ -3372,8 +3867,8 @@ def scaling():
     (not part of the one-card run): NCCL ``fit`` at world 1, at world 1 on
     one rank's share of the batch, and over every card; full-width DMSCT
     and two classical methods served on one card and split over every
-    card, in turns. Correctness is held as in phase 12; the times are
-    printed."""
+    card, in turns; the sharded cells (``sharded_scaling``). Correctness is
+    held as in phase 12; the times are printed."""
     smi = probe()
     cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     if len(cards) < 2:
@@ -3425,7 +3920,68 @@ def scaling():
         _log(f"scaling: {name} split bit-equal to one card {torch.equal(outs[0], outs[1])}")
         if not torch.equal(outs[0], outs[1]):
             raise AssertionError(f"scaling: {name} split serving")
+    del clips, t, r, tc, rc, kw, module
+    torch.cuda.empty_cache()
+    sharded_scaling(n)
     _log(f"scaling: {smi}, {n} cards")
+
+
+# The materialised DCMCS3DI evaluation of one 1080p frame needs ~63.7 GB of
+# cost and attention volumes on one card (PERF.md); rows over the cards
+# divide that.
+ONE_CARD_1080P_GB = 63.7
+
+
+def sharded_scaling(n):
+    """--scaling's sharded cells: the row-sharded DCMCS3DI evaluation of a
+    1080p frame over ``n`` cards (NCCL): ms/frame, each card's peak memory
+    and halo traffic, the ranks bit-equal, the output against the one-card
+    kernel route (B5, precise); the matcher's tensor parallelism at world
+    ``n`` against world 1 at the 1080p matcher size."""
+    from color_transfer_tpu_torch.core.precision import full_f32_inference
+    from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
+
+    t0 = time.perf_counter()
+    model, sd, calls = _tp_model("cuda:0")
+    t, r = _sp_pairs((HEIGHT, WIDTH), 1)
+    (flow1, calls1), tp_ms = _timed_ms(
+        lambda: _tp_forward(model, sd, (t.cuda(), r.cuda()), calls), SP_TIMED)
+    flow1 = flow1.cpu()
+    del model, sd
+    module = DCMCS3DIModule()
+    variables = module.init_eval_variables(0, device="cuda:0")
+    with full_f32_inference():
+        kernel_route, _ = torch.func.functional_call(
+            module.model, variables, (t.cuda(), r.cuda()),
+            {"inference": True, "use_kernels": True, "precise": True}, strict=True)
+    kernel_route = kernel_route.cpu()
+    del module, variables
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(calls1, Path(tmp) / "fed.pt")
+        records, rows, tps = _sp_run(Path(tmp), f"nccl_world{n}", n, "nccl", (HEIGHT, WIDTH), 1,
+                                     Path(tmp) / "fed.pt")
+    out = rows[0]
+    equal = all(torch.equal(x, out) for x in rows)
+    _log(f"scaling: row-sharded dcmcs3di 1080p over {n} cards (NCCL): " + "; ".join(
+        f"card {x['device']} {min(x['rows']['ms_frame']):.1f} ms/frame (runs "
+        f"{', '.join(f'{v:.1f}' for v in x['rows']['ms_frame'])}), peak "
+        f"{x['rows']['peak_gib']:.2f} GiB ({x['rows']['peak_gib'] * 2**30 / 1e9:.1f} GB against "
+        f"{ONE_CARD_1080P_GB} GB on one card), halo all-reduces "
+        f"{x['rows']['halo_bytes_frame'] / 2**20:.1f} MiB a frame" for x in records)
+        + f"; ranks bit-equal {equal}; output finite {bool(torch.isfinite(out).all())} in "
+        f"[{float(out.min()):.4f}, {float(out.max()):.4f}]; against the one-card kernel route "
+        f"(B5, precise) max|d| {float((out - kernel_route).abs().max()):.2e} (reported)")
+    if not equal or not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("scaling: the row-sharded 1080p evaluation")
+    _log(f"scaling: matcher TP at the 1080p matcher size: world 1 (cuda:0) "
+         f"{min(tp_ms):.1f} ms/frame; world {n} " + "; ".join(
+             f"card {x['device']} {min(x['tp']['ms_frame']):.1f} ms/frame, peak "
+             f"{x['tp']['peak_gib']:.2f} GiB" for x in records))
+    tp_worst, tp_equal = _hold_tp(f"scaling: matcher TP world {n}", tps, flow1, calls1)
+    if tp_worst > 1.0 or not tp_equal:
+        raise AssertionError("scaling: matcher TP disagrees with world 1")
+    _log(f"scaling: sharded cells {time.perf_counter() - t0:.1f} s")
 
 
 # Phase 13: DMSCT's bf16 recipes (the JAX gate's names). Served at 1080p:
@@ -4086,6 +4642,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 12, started by torchrun
         sys.exit(dp_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--sp-worker"]:  # one rank of the sharded paths, by torchrun
+        sys.exit(sp_worker(*sys.argv[2:7]))
     if sys.argv[1:] == ["--scaling"]:
         sys.exit(scaling())
     sys.exit(main())

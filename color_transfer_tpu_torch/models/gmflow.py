@@ -57,6 +57,7 @@ from color_transfer_tpu_torch.models.layers import (
     reduced_dtype,
     widen,
 )
+from color_transfer_tpu_torch.models.gmflow_extras import full_attention_1d, swin_attention_1d
 from color_transfer_tpu_torch.ops.local_corr import local_correlation_with_flow
 from color_transfer_tpu_torch.ops.win_attention import (
     eligible,
@@ -67,6 +68,8 @@ from color_transfer_tpu_torch.ops.win_attention import (
     window_attention_plain,
     window_sublayer_fused,
 )
+from color_transfer_tpu_torch.parallel.mesh import axis_stack, axis_sum
+from color_transfer_tpu_torch.parallel.tensor_parallel import current_axis
 
 
 def _nchw(x):
@@ -230,6 +233,51 @@ def shift_window_mask(h, w, k, device=None):
     return torch.where(win[:, None, :] != win[:, :, None], -100.0, 0.0)
 
 
+def swin_attention(q, k, v, num_splits, with_shift, h, w):
+    """Split-window attention with the optional swin shift on (B, H*W, C)
+    tokens (the JAX package's ``swin_attention``; the token-major routes'
+    self-attention). ``v`` may hold fewer channels than q and k (a
+    tensor-parallel slice)."""
+    if num_splits <= 1:
+        return window_attention_plain(q, k, v)
+    b = q.shape[0]
+    hs, ws = h // num_splits, w // num_splits
+
+    def windows(x):
+        x = x.reshape(b, h, w, x.shape[-1])
+        if with_shift:
+            x = torch.roll(x, (-(hs // 2), -(ws // 2)), dims=(1, 2))
+        return split_windows(x, num_splits).reshape(-1, hs * ws, x.shape[-1])
+
+    mask = shift_window_mask(h, w, num_splits, q.device) if with_shift else None
+    out = window_attention_plain(windows(q), windows(k), windows(v), mask)
+    out = merge_windows(out.reshape(-1, hs, ws, out.shape[-1]), num_splits)
+    if with_shift:
+        out = torch.roll(out, (hs // 2, ws // 2), dims=(1, 2))
+    return out.reshape(b, h * w, -1)
+
+
+def _gather_features(x, axis):
+    """Every rank's feature slice of ``x`` joined in rank order: the whole
+    features (column-parallel outputs gathered)."""
+    stacked = axis_stack(x, axis).movedim(0, -2)
+    return stacked.reshape(*x.shape[:-1], -1)
+
+
+def _row_dense(lin, x, dtype, axis):
+    """``dense_in`` of a row-parallel layer: this rank's slice of the
+    product summed over the tensor-parallel ``axis`` (None: the whole
+    product). In a reduced dtype the bf16 operands' products are summed in
+    f32 and the sum rounded once, as the unsharded product rounds."""
+    if axis is None:
+        return dense_in(lin, x, dtype)
+    dtype = reduced_dtype(dtype)
+    if dtype is None:
+        return axis_sum(F.linear(x, lin.weight), axis)
+    partial = F.linear(x.to(dtype).float(), lin.weight.to(dtype).float())
+    return axis_sum(partial, axis).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Feature transformer
 # ---------------------------------------------------------------------------
@@ -252,7 +300,14 @@ class TransformerLayer(nn.Module):
     ``dtype=``; None is float32): the products' operands cast to it and
     their outputs in it, LayerNorm's statistics f32 and its output in it.
     On the fused route the weights are cast to it and the LayerNorm
-    parameters stay f32, as the JAX package passes them."""
+    parameters stay f32, as the JAX package passes them.
+
+    Inside ``parallel.tensor_parallel.tensor_parallel(axis)`` the layer
+    holds this rank's slices of q/k/v, ``mlp.0`` (output features) and
+    ``merge``, ``mlp.2`` (input features): it gathers q and k, attends with
+    its slice of v, and sums the row-parallel products over the axis. The
+    fused ops take whole weight matrices, so "auto" runs unfused there and
+    True raises."""
 
     def __init__(self, d_model=128, no_ffn=False, ffn_dim_expansion=4,
                  fused_attention="auto", dtype=None):
@@ -281,17 +336,25 @@ class TransformerLayer(nn.Module):
             self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
 
     def forward(self, source, target, mask=None, *, shift_windows=None,
-                windowed=False):
+                windowed=False, attend=None):
         """``mask``: the (k*k, L, L) shift mask or None; ``shift_windows``:
         the same mask as its geometry (k, hs, ws), which the fused ops read;
-        ``windowed``: the tokens are split into more than one window."""
+        ``windowed``: the tokens are split into more than one window;
+        ``attend``: the attention core on (q, k, v) of token-major tokens
+        (FeatureTransformer's routes other than window-major swin), which
+        runs unfused."""
         dt = self.dtype
         if dt is not None:
             source, target = source.to(dt), target.to(dt)
+        tp = current_axis()
         fused = self.fused_attention
+        if tp is not None and fused is True:
+            raise ValueError(
+                "fused_attention=True under tensor parallelism: the fused window "
+                "kernels take whole weight matrices (parallel/tensor_parallel.py)")
         if fused == "auto":
-            fused = source.dtype == torch.bfloat16
-        fused = fused and windowed
+            fused = source.dtype == torch.bfloat16 and tp is None
+        fused = fused and windowed and attend is None
         d = self.merge.weight.shape[0]
         tokens = (*source.shape[:-1], d)
         same_width = source.shape[-1] == d
@@ -317,20 +380,24 @@ class TransformerLayer(nn.Module):
             q = dense_in(self.q_proj, source, dt)
             k = dense_in(self.k_proj, target, dt)
             v = dense_in(self.v_proj, target, dt)
-            if fused and eligible(q.shape, q.dtype):
+            if tp is not None:  # one head: the scores need the whole q and k
+                q, k = _gather_features(q, tp), _gather_features(k, tp)
+            if attend is not None:
+                message = attend(q, k, v)
+            elif fused and eligible(q.shape, q.dtype):
                 message = window_attention_fused(q, k, v, shift_windows=shift_windows)
             else:
                 # The (k*k, L, L) mask repeats over the window batch; the
                 # JAX package's _attention (f32 scores and softmax).
                 message = window_attention_plain(q, k, v, mask)
-            message = norm(self.norm1, dense_in(self.merge, message, dt))
+            message = norm(self.norm1, _row_dense(self.merge, message, dt, tp))
         if not self.no_ffn:
             w0, w2 = self.mlp[0].weight, self.mlp[2].weight
             if fused and same_width and ffn_eligible(tokens, source.dtype, w0.shape[0]):
                 return ffn_fused(source, message, weight(w0), weight(w2), self.norm2.weight,
                                  self.norm2.bias, add_residual=True)
             message = dense_in(self.mlp[0], torch.cat([source, message], dim=-1), dt)
-            message = dense_in(self.mlp[2], _gelu(message), dt)
+            message = _row_dense(self.mlp[2], _gelu(message), dt, tp)
             message = norm(self.norm2, message)
         return source + message
 
@@ -347,10 +414,12 @@ class TransformerBlock(nn.Module):
                                                fused_attention, dtype)
 
     def forward(self, source, target, mask=None, *, shift_windows=None,
-                windowed=False):
+                windowed=False, attends=(None, None)):
+        """``attends``: the self- and the cross-attention's cores on the
+        token-major routes (TransformerLayer's ``attend``)."""
         route = {"shift_windows": shift_windows, "windowed": windowed}
-        source = self.self_attn(source, source, mask, **route)
-        return self.cross_attn_ffn(source, target, mask, **route)
+        source = self.self_attn(source, source, mask, **route, attend=attends[0])
+        return self.cross_attn_ffn(source, target, mask, **route, attend=attends[1])
 
 
 def _swap_halves(x):
@@ -358,12 +427,23 @@ def _swap_halves(x):
     return torch.cat([half1, half0], dim=0)
 
 
+ATTN_TYPES = ("swin", "self_swin2d_cross_1d", "self_swin2d_cross_swin1d")
+
+
 class FeatureTransformer(nn.Module):
-    """TransformerBlocks over the [f0|f1] / [f1|f0] siamese batch, swin
-    windows, run window-major: tokens stay in (2B*k*k, hs*ws, C) windows;
-    odd (shifted) layers roll the image by half a window before and after.
-    The cross-attention target is a batch-half swap of the source.
-    ``dtype``: the features are cast to it and the layers compute in it."""
+    """TransformerBlocks over the [f0|f1] / [f1|f0] siamese batch. The
+    cross-attention target is a batch-half swap of the source. ``dtype``:
+    the features are cast to it and the layers compute in it.
+
+    ``attn_type`` routes the attention as the JAX package does (reference
+    unimatch/transformer.py:65-138): "swin" (the flow task) runs
+    window-major: tokens stay in (2B*k*k, hs*ws, C) windows and odd
+    (shifted) layers roll the image by half a window before and after. The
+    stereo types run token-major on (2B, H*W, C): self-attention in 2D
+    shifted windows (``swin_attention``), cross-attention along the rows,
+    over the whole row ("self_swin2d_cross_1d") or in 1D shifted windows
+    ("self_swin2d_cross_swin1d"; the whole row at one split); these run
+    unfused."""
 
     def __init__(self, num_layers=6, d_model=128, ffn_dim_expansion=4,
                  fused_attention="auto", dtype=None):
@@ -374,10 +454,14 @@ class FeatureTransformer(nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, feature0, feature1, attn_num_splits):
+    def forward(self, feature0, feature1, attn_num_splits, attn_type="swin"):
         """(B, H, W, C) x2 -> (B, H, W, C) x2."""
+        if attn_type not in ATTN_TYPES:
+            raise ValueError(f"unknown attn_type {attn_type!r}")
         if self.dtype is not None:
             feature0, feature1 = feature0.to(self.dtype), feature1.to(self.dtype)
+        if attn_type != "swin":
+            return self._token_major(feature0, feature1, attn_num_splits, attn_type)
         b, h, w, c = feature0.shape
         k = attn_num_splits
         hs, ws = h // k, w // k
@@ -405,6 +489,24 @@ class FeatureTransformer(nn.Module):
                                         dims=(1, 2)))
         f0, f1 = from_win(src).chunk(2, dim=0)
         return f0, f1
+
+    def _token_major(self, feature0, feature1, k, attn_type):
+        b, h, w, c = feature0.shape
+        src = torch.cat([feature0.reshape(b, h * w, c), feature1.reshape(b, h * w, c)])
+        for i, layer in enumerate(self.layers):
+            shift = k > 1 and i % 2 == 1
+
+            def self_attend(q, kk, v, shift=shift):
+                return swin_attention(q, kk, v, k, shift, h, w)
+
+            def cross_attend(q, kk, v, shift=shift):
+                if attn_type == "self_swin2d_cross_swin1d" and k > 1:
+                    return swin_attention_1d(q, kk, v, k, shift, h, w)
+                return full_attention_1d(q, kk, v, h, w)
+
+            src = layer(src, _swap_halves(src), attends=(self_attend, cross_attend))
+        f0, f1 = src.chunk(2, dim=0)
+        return f0.reshape(b, h, w, c), f1.reshape(b, h, w, c)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from color_transfer_tpu_torch.core.precision import (
+    current_reduced_route,
+    reduced_conv_route,
+    routed_conv2d,
+)
+from color_transfer_tpu_torch.parallel.row_attention_sp import conv2d_rows, current_row_shard
+
 
 def init_uniform_(conv, generator):
     """The JAX package's init (torch's Conv2d default): kernel and bias both
@@ -45,12 +52,23 @@ class Conv(nn.Conv2d):
 def conv(x, weight, bias, padding, compute_dtype=None):
     """``Conv.forward`` on explicit weights: NHWC ``x``, an OIHW ``weight``.
     Without a compute dtype the conv runs in the weights' dtype (float32; a
-    float64 reference run passes float64 weights)."""
+    float64 reference run passes float64 weights). Inside
+    ``parallel.row_attention_sp.row_shard`` ``x`` holds this rank's rows of
+    the image and the conv takes its row halos from the neighbours; a
+    reduced-precision conv takes ``core.precision.reduced_conv_route``'s
+    backend."""
     x = x.permute(0, 3, 1, 2)
+    rows = current_row_shard()
     if compute_dtype in (None, torch.float32):
-        return F.conv2d(x.to(weight.dtype), weight, bias, padding=padding).permute(0, 2, 3, 1)
+        x = x.to(weight.dtype)
+        if rows is None:
+            return F.conv2d(x, weight, bias, padding=padding).permute(0, 2, 3, 1)
+        y = conv2d_rows(x, weight, padding, rows)
+        return (y + bias[:, None, None]).permute(0, 2, 3, 1)
     cd = compute_dtype
-    y = F.conv2d(x.to(cd), weight.to(cd), None, padding=padding)
+    x, weight = x.to(cd), weight.to(cd)
+    y = (routed_conv2d(x, weight, padding) if rows is None
+         else conv2d_rows(x, weight, padding, rows))
     return (y + bias.to(cd)[:, None, None]).permute(0, 2, 3, 1)
 
 
@@ -121,12 +139,16 @@ class ResB(nn.Module):
         """``forward`` under torch.utils.checkpoint: the backward recomputes
         the block instead of keeping its inner activation. The weights go in
         as explicit inputs, so the recompute uses this call's tensors
-        (``torch.func.functional_call`` swaps them in only for the call)."""
+        (``torch.func.functional_call`` swaps them in only for the call), and
+        so does the reduced convs' route: the recompute runs on autograd's
+        thread, outside this call's context."""
         c0, c1 = self.body[0], self.body[2]
+        route = current_reduced_route()
 
         def run(x, w0, b0, w1, b1):
-            y = leaky_relu(conv(x, w0, b0, c0.padding, c0.compute_dtype))
-            return x + conv(y, w1, b1, c1.padding, c1.compute_dtype)
+            with reduced_conv_route(route):
+                y = leaky_relu(conv(x, w0, b0, c0.padding, c0.compute_dtype))
+                return x + conv(y, w1, b1, c1.padding, c1.compute_dtype)
 
         return checkpoint(run, x, c0.weight, c0.bias, c1.weight, c1.bias,
                           use_reentrant=False)

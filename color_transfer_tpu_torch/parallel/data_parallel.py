@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from color_transfer_tpu_torch.parallel.mesh import Axis, axis_stack
 from color_transfer_tpu_torch.parallel.multihost import rank_world
 
 BUCKET_BYTES = 25 * 2**20  # gradients all-reduced per call (DDP's default bucket)
@@ -70,29 +71,12 @@ def step_shard(rows):
         _SHARD.reset(token)
 
 
-class _AllReduce(torch.autograd.Function):
-    """A summing all-reduce whose backward all-reduces the gradient (the
-    rule of torch.distributed.nn.functional.all_reduce, kept here: torch
-    marks that module deprecated)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _AllReduce.apply(grad)
-
-
 def gather_rows(x):
     """Every rank's ``x`` stacked on a new leading axis (world, ...), autograd
     aware (the backward sums each slot's gradients over the ranks and hands
     this rank its own)."""
     rank, world = rank_world()
-    buf = torch.stack([x if r == rank else torch.zeros_like(x) for r in range(world)])
-    return _AllReduce.apply(buf)
+    return axis_stack(x, Axis(None, rank, world))
 
 
 def batch_moments(x, dims):

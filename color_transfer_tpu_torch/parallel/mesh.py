@@ -8,8 +8,17 @@ into one piece per listed device, ``replicate`` copies variables to each
 device once, and the caller launches every piece before it reads any
 result, so the cards overlap. A list may name one device twice (two pieces
 on one card, or ``["cpu", "cpu"]``): the split then runs on one device.
+
+``process_mesh`` lays the ranks of a process group out as a JAX mesh (one
+process a device): the row-sharded evaluation (``row_attention_sp``) and the
+matcher's tensor parallelism (``tensor_parallel``) take their groups from
+it.
 """
 
+import math
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 
@@ -64,3 +73,89 @@ def replicate(variables, devices):
             copies[device] = {k: v.to(device) for k, v in variables.items()}
         out.append(copies[device])
     return out
+
+
+class Axis(NamedTuple):
+    """One mesh axis as this process sees it: the process group of the
+    ranks that differ from it only along the axis (None without a process
+    group), this rank's index along it and its size."""
+
+    group: object
+    index: int
+    size: int
+
+
+def process_mesh(shape=None, axis_names=("data",)):
+    """The process group as a mesh (the JAX ``create_mesh(shape,
+    axis_names)`` over processes instead of devices) -> {axis name: Axis};
+    rank r sits at the row-major position of r in ``shape``. Every rank
+    calls it with the same arguments, as ``torch.distributed.new_group``
+    requires. ``shape`` defaults to (world, 1, ...). Without a process
+    group the mesh has one rank and no groups."""
+    import torch.distributed as dist
+
+    from color_transfer_tpu_torch.parallel.multihost import rank_world
+
+    rank, world = rank_world()
+    if shape is None:
+        shape = (world,) + (1,) * (len(axis_names) - 1)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} does not name its axes {axis_names}")
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} needs {math.prod(shape)} ranks, the "
+                         f"process group has {world}")
+    position = np.unravel_index(rank, shape)
+    mesh = {}
+    for axis, name in enumerate(axis_names):
+        group = None
+        if dist.is_initialized():
+            # Every rank creates every group of the axis, in one order.
+            for other in np.ndindex(*(s for i, s in enumerate(shape) if i != axis)):
+                ranks = [int(np.ravel_multi_index(
+                    other[:axis] + (j,) + other[axis:], shape)) for j in range(shape[axis])]
+                made = dist.new_group(ranks)
+                if rank in ranks:
+                    group = made
+        mesh[name] = Axis(group, int(position[axis]), shape[axis])
+    return mesh
+
+
+class _AxisAllReduce(torch.autograd.Function):
+    """A summing all-reduce over one mesh axis's group (None: every rank)
+    whose backward all-reduces the gradient (the rule of
+    torch.distributed.nn.functional.all_reduce, kept here: torch marks that
+    module deprecated)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AxisAllReduce.apply(grad, ctx.group), None
+
+
+def axis_sum(x, axis):
+    """The sum of every rank's ``x`` along a mesh ``Axis`` (x itself on an
+    axis of one rank). Autograd aware."""
+    if axis.size == 1:
+        return x
+    return _AxisAllReduce.apply(x, axis.group)
+
+
+def axis_stack(x, axis):
+    """Every rank's ``x`` along a mesh ``Axis``, stacked on a new leading
+    axis (size, ...): each rank writes its own slot of a zero buffer and
+    the buffers are summed, so the ranks stay bit-equal (gloo has no
+    all_gather for CUDA tensors)."""
+    if axis.size == 1:
+        return x[None]
+    buf = torch.stack([x if i == axis.index else torch.zeros_like(x)
+                       for i in range(axis.size)])
+    return axis_sum(buf, axis)

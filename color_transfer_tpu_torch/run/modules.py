@@ -36,7 +36,12 @@ import torch
 
 from color_transfer_tpu_torch import methods
 from color_transfer_tpu_torch import metrics as M
-from color_transfer_tpu_torch.core.precision import conv_route, full_f32, full_f32_inference
+from color_transfer_tpu_torch.core.precision import (
+    conv_route,
+    full_f32,
+    full_f32_inference,
+    reduced_conv_route,
+)
 from color_transfer_tpu_torch.data.distortions import distort_batch
 from color_transfer_tpu_torch.methods.iterative import random_rotations
 from color_transfer_tpu_torch.methods.video import resolve_device
@@ -363,8 +368,9 @@ class DCMCS3DIModule:
     PAM losses (reference methods/dcmcs3di.py:68-92, :146-147).
 
     ``compute_dtype`` None is the float32 recipe; "bfloat16" runs the
-    extraction and transfer convs in bf16 with the matcher in float32, for
-    evaluation and serving only. ``fused_attention`` trains through the
+    extraction and transfer convs in bf16 with the matcher, the losses and
+    the parameters in float32 (JAX's mixed-precision recipe), in training,
+    evaluation and serving. ``fused_attention`` trains through the
     chunked matcher (``attention_chunk`` rows a step; the default, as in the
     JAX package), else through the materialised one: the same loss values
     and gradients. ``remat_convs`` recomputes the ResB stacks in the
@@ -377,6 +383,13 @@ class DCMCS3DIModule:
     # ATen's every gradient under 0.05 of it, for 27-38% of a step
     # (tools/conv_grads.py; chip_smoke.py phase 10; PERF.md).
     backward_cudnn = False
+    # The bf16 recipe's bf16 convs (the extraction and transfer stacks),
+    # forward and backward, through cuDNN; its f32 convs (the matcher head,
+    # q/k/v) keep the two routes above. At the recipe's shape cuDNN's bf16
+    # step takes 319 ms against ATen's 631 (chunked matcher), and both keep
+    # the card's step within its lines of the CPU's (chip_smoke.py phase
+    # 10, PERF.md).
+    reduced_cudnn = True
     # Bucketed evaluation may pass the true width (run/bucketing.py).
     supports_valid_w = True
 
@@ -441,17 +454,13 @@ class DCMCS3DIModule:
     def train_step(self, state, batch, seed, metrics=True):
         """One Adam update on ``batch`` ({'gt', 'reference'} (B, H, W, 3) on
         the state's device): distort the gt into the target (a CPU generator
-        seeded with ``seed``), forward and backward with the convs through
-        ATen (``backward_cudnn``), losses, step; TF32 off. Returns (state, logs) under the JAX
+        seeded with ``seed``), forward and backward with the f32 convs
+        through ATen (``backward_cudnn``) and the bf16 recipe's bf16 convs on
+        ``reduced_cudnn``'s route, losses, step; TF32 off. Returns (state, logs) under the JAX
         package's names; the quality metrics only when ``metrics``. Under a
         process group ``batch`` is this rank's rows of the global batch."""
-        if self.model.compute_dtype is not None:
-            raise NotImplementedError(
-                f"DCMCS3DI training in {self.model.compute_dtype}: only float32 "
-                "trains; a bf16 training recipe needs its own gate on the card "
-                "first (ROADMAP.md, section A)"
-            )
-        with full_f32(), step_shard(batch["gt"].shape[0]) as shard:
+        with (full_f32(), reduced_conv_route(self.reduced_cudnn),
+              step_shard(batch["gt"].shape[0]) as shard):
             batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
             # The forward's convs run through ATen, not cuDNN: with cuDNN's
             # f32 forward algorithms the step's gradients lie up to 1.5e-4 of

@@ -332,7 +332,8 @@ def test_train_step_matches_jax(params, state_dict, batch, fused):
 
 def test_module_keywords_and_registry(batch):
     """Every keyword of JAX's module and of configs/dcmcs3di.yaml; the
-    class paths; bf16 trains nowhere (a gate first)."""
+    class paths; the bf16 recipe trains: a finite loss, f32 variables that
+    moved (its parity: test_torch_port_dcmcs3di_bf16_train.py)."""
     module = build_module("methods.dcmcs3di.DCMCS3DI", dict(
         KW, learning_rate=2e-4, heavy_metrics=False, fused_attention=False,
         attention_chunk=3, compute_dtype=None, remat_convs=True))
@@ -345,8 +346,12 @@ def test_module_keywords_and_registry(batch):
     group = state.optimizer.param_groups[0]
     assert group["lr"] == 2e-4 and group["betas"] == (0.9, 0.999) and group["eps"] == 1e-8
     bf16 = DCMCS3DIModule(**KW, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bf16.train_step(bf16.init_state(0, _t(batch)), _t(batch), seed=0)
+    state = bf16.init_state(0, _t(batch))
+    before = {k: v.detach().clone() for k, v in state.variables.items()}
+    state, logs = bf16.train_step(state, _t(batch), seed=0)
+    assert np.isfinite(float(logs["Training Total Loss"]))
+    assert all(v.dtype == torch.float32 for v in state.variables.values())
+    assert any(not torch.equal(v.detach(), before[k]) for k, v in state.variables.items())
 
 
 def test_train_step_forward_leaves_cudnn(batch, monkeypatch):

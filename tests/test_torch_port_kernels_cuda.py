@@ -24,7 +24,10 @@ is 3xTF32 MMAs (f32's error scale), against cuBLAS's f32 products; sums in
 another order. Data parallelism on the card: serving split over
 ["cuda:0", "cuda:0"] bit-equal to the one-device call; two gloo ranks'
 collectives on CUDA tensors (the zero-buffer gather, its gradient, the
-global BatchNorm moments), exactly.
+global BatchNorm moments), exactly. The row-sharded evaluation's halo
+conv (two gloo ranks, 8 rows each) against the unsharded conv: f32 1e-5
+of scale, bf16 one ulp. DCMCS3DI's bf16 train step, the card against the
+CPU stage by stage on each conv route (chip_smoke.py's DC_BF16_ULPS).
 """
 
 import math
@@ -1068,3 +1071,79 @@ def test_bf16_tokens_need_bf16_weights(gen):
         lc.local_correlation_with_flow(f, f, _randn(gen, 1, 4, 6, 2), 1,
                                        corr_dtype=torch.bfloat16)
     assert wn.window_sublayer_fused.launches == before
+
+
+# -- the row-sharded evaluation's halo conv and DCMCS3DI's bf16 train step ----------
+
+_HALO_CUDA = """
+import sys, torch
+from color_transfer_tpu_torch.models.layers import conv
+from color_transfer_tpu_torch.parallel import multihost
+from color_transfer_tpu_torch.parallel.mesh import process_mesh
+from color_transfer_tpu_torch.parallel.row_attention_sp import row_shard
+rank = int(sys.argv[1])
+multihost.initialize_distributed(sys.argv[2], 2, rank, backend="gloo", device="cuda:0",
+                                 timeout=60)
+torch.backends.cudnn.allow_tf32 = False
+g = torch.Generator().manual_seed(0)
+x = torch.randn(2, 16, 24, 8, generator=g).cuda()
+w, b = torch.randn(8, 8, 3, 3, generator=g).cuda(), torch.randn(8, generator=g).cuda()
+mesh = process_mesh((1, 2), ("data", "seq"))
+with torch.no_grad():
+    for dtype in (None, torch.bfloat16):
+        want = conv(x, w, b, (1, 1), dtype)[:, rank * 8:(rank + 1) * 8].float()
+        with row_shard(mesh["seq"]):
+            got = conv(x[:, rank * 8:(rank + 1) * 8], w, b, (1, 1), dtype).float()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        line = 1e-5 if dtype is None else 2.0 ** -8
+        assert err <= line, (dtype, err)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+print(f"OK rank {rank}")
+"""
+
+
+def test_halo_conv_against_the_unsharded_conv(gen, tmp_path):
+    """Two gloo ranks on the one card, each holding 8 of 16 image rows: a
+    3x3 conv with its halo rows from the other rank equals the unsharded
+    conv's rows (f32 1e-5 of scale: the conv on 10 rows against 16 may pick
+    another algorithm; bf16 one ulp of scale)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "halo_cuda.py"
+    script.write_text(_HALO_CUDA)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), f"127.0.0.1:{port}"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"OK rank {r}" in out, out[-3000:]
+
+
+@pytest.mark.parametrize("route", ["cudnn", "aten"])
+def test_dcmcs3di_bf16_step_stages_on_the_card(gen, route):
+    """DCMCS3DI's bf16 train step at full width on (2, 32, 64), the card
+    against the port's CPU run, stage by stage, in bf16 ulps
+    (chip_smoke.py::check_dc_bf16_small and its DC_BF16_ULPS lines), with
+    its bf16 convs on each route."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    worst, _ = smoke.check_dc_bf16_small(route)
+    assert max(worst.values()) <= 1.0, worst

@@ -4,7 +4,8 @@ color_transfer_tpu/parallel — start-up's no-op and guard, the rows each
 process loads, and real two-process ``gloo`` train steps.
 
 Two worker processes (torch only) each take their 4 rows of an 8-row
-global batch and one DMSCT and three DCMCS3DI train steps; the same steps
+global batch and two DMSCT and four DCMCS3DI train steps (one of them in
+the bf16 recipe); the same steps
 run here at world 1 on the whole batch, and JAX's steps on its 8-device CPU
 mesh on shared weights. DMSCT's matcher output is fed (random init makes
 the matcher chaotic; test_torch_port_train.py). The "drawn" steps draw the
@@ -156,11 +157,13 @@ _STEPS = textwrap.dedent('''
             module.model.matcher.register_forward_hook(lambda m, a, o: fed)
             out[name] = _step(module, dm["variables"], dm, rows, fixed=fixed)
         dc = inputs["dcmcs3di"]
-        for name, fused, fixed in (("dcmcs3di drawn chunked", True, False),
-                                   ("dcmcs3di drawn materialised", False, False),
-                                   ("dcmcs3di fixed chunked", True, True)):
+        for name, fused, fixed, dtype in (
+                ("dcmcs3di drawn chunked", True, False, None),
+                ("dcmcs3di drawn materialised", False, False, None),
+                ("dcmcs3di fixed chunked", True, True, None),
+                ("dcmcs3di bf16 drawn chunked", True, False, "bfloat16")):
             module = DCMCS3DIModule(**dc["kw"], heavy_metrics=False, fused_attention=fused,
-                                    attention_chunk=4)
+                                    attention_chunk=4, compute_dtype=dtype)
             out[name] = _step(module, dc["variables"], dc, rows, fixed=fixed)
         return out
 
@@ -323,7 +326,8 @@ def _names(name):
 
 
 CASES = ["dmsct drawn", "dmsct fixed", "dcmcs3di drawn chunked",
-         "dcmcs3di drawn materialised", "dcmcs3di fixed chunked"]
+         "dcmcs3di drawn materialised", "dcmcs3di fixed chunked",
+         "dcmcs3di bf16 drawn chunked"]
 
 
 @pytest.mark.parametrize("name", CASES)

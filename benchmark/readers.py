@@ -1,0 +1,23 @@
+"""What several per-layer metrics read alike: a metric file under
+``metrics/`` names its own layer and takes one of these."""
+
+from benchmark.peaks import PEAK_OPS_PER_S
+
+
+def idle_pct(run):
+    """The device's idle share of the traced window, in percent: 1 - busy /
+    window, busy being the union of the device intervals the profiler
+    recorded (kernels, copies, memsets)."""
+    return 100.0 * (1.0 - run.digest["busy_s"] / run.digest["window_s"])
+
+
+def mfu_pct(run):
+    """Model FLOPs utilisation of the whole step, in percent: the
+    configuration's FLOPs a frame or a training step (stored in its file:
+    ``torch.utils.flop_counter`` over the plain reference at the cell's shape,
+    recounted by a test; a training step counts its forward and backward, no
+    recomputation; a cell without a count fails) times
+    the window's rate, over the data-sheet float32 peak of the chips used
+    (67 TFLOP/s each, the recipe's precision with TF32 off)."""
+    rate = run.units / run.window_s
+    return 100.0 * run.flops_per_unit * rate / (PEAK_OPS_PER_S["f32"] * run.chips)

@@ -792,23 +792,46 @@ def _wrappers():
             win_attention.ffn_fused)
 
 
+# Each wrapper's counters (utils/profiling.py) are named after its kernel's
+# source: "<kernel>.launches", B7's "<kernel>.vector_launches" (its vector
+# path), "<kernel>.bf16_launches" (a bf16 instantiation), B2a's and B2b's
+# "<kernel>.bf16_route.<route>".
+_KERNELS = {"local_correlation_with_flow": "local_corr", "resb_chain": "resb_chain",
+            "row_attention_warp": "row_attention", "transport_apply": "idt_apply",
+            "regrain_sweeps": "regrain_stencil", "warp_adjoint": "warp_adjoint",
+            "window_attention_fused": "win_attention", "window_sublayer_fused": "win_sublayer",
+            "ffn_fused": "win_ffn"}
+_BF16 = ("local_correlation_with_flow", "window_attention_fused", "window_sublayer_fused",
+         "ffn_fused")
+_COUNTED = {}  # each counter's total at the last _reset_launches
+
+
+def _total(name):
+    from color_transfer_tpu_torch.utils.profiling import counter
+
+    return counter(name)
+
+
 def _reset_launches():
-    for fn in _wrappers():
-        fn.launches = 0
-        if hasattr(fn, "vector_launches"):  # B7's launches on its vector path
-            fn.vector_launches = 0
-        if hasattr(fn, "bf16_launches"):  # the launches of a bf16 instantiation
-            fn.bf16_launches = 0
-        if hasattr(fn, "bf16_routes"):  # B2a's and B2b's bf16 launches by route
-            fn.bf16_routes = dict.fromkeys(fn.bf16_routes, 0)
+    from color_transfer_tpu_torch.ops.win_attention import ROUTES
+
+    kinds = ("launches", "vector_launches", "bf16_launches",
+             *(f"bf16_route.{r}" for r in ROUTES))
+    _COUNTED.update({f"{k}.{kind}": _total(f"{k}.{kind}")
+                     for k in _KERNELS.values() for kind in kinds})
+
+
+def _count(name):
+    """The counter's count since the last _reset_launches."""
+    return _total(name) - _COUNTED.get(name, 0)
 
 
 def _bf16_launches():
-    return {fn.__name__: fn.bf16_launches for fn in _wrappers() if hasattr(fn, "bf16_launches")}
+    return {fn: _count(f"{_KERNELS[fn]}.bf16_launches") for fn in _BF16}
 
 
 def _launches():
-    return {fn.__name__: fn.launches for fn in _wrappers()}
+    return {fn.__name__: _count(f"{_KERNELS[fn.__name__]}.launches") for fn in _wrappers()}
 
 
 def _dmsct_pairs():
@@ -1471,11 +1494,11 @@ def check_warp_adjoint(g):
         gr = torch.randn(*shape, generator=g).cuda()
         for kind in kinds if shape in B7_SHAPES else ("mixed",):
             flow = _b7_flow(g, kind, b, h, w)
-            vec_before = wa.warp_adjoint.vector_launches
+            vec_before = _total("warp_adjoint.vector_launches")
             got = wa.warp_adjoint(gr, flow)
             want = wa.warp_adjoint_plain(gr, flow)
             torch.cuda.synchronize()
-            if wa.warp_adjoint.vector_launches - vec_before != int(c % 4 == 0):
+            if _total("warp_adjoint.vector_launches") - vec_before != int(c % 4 == 0):
                 raise AssertionError(f"warp_adjoint {shape}: the wrong path ran")
             err = float((got - want).abs().max())
             scale = max(1.0, float(want.abs().max()))
@@ -1622,9 +1645,7 @@ def train(rows):
              f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}, launches {counts}")
         if len(steps) != 4 or b7 != 4 * len(steps):
             raise AssertionError(f"B7 launched {b7} times in {len(steps)} steps, expected 4 per step")
-        from color_transfer_tpu_torch.ops.warp_adjoint import warp_adjoint
-
-        b7_vector = warp_adjoint.vector_launches
+        b7_vector = _count("warp_adjoint.vector_launches")
         _log(f"train: B7 launches on the vector path (16-byte reductions) {b7_vector} of {b7}")
         if b7_vector != b7:
             raise AssertionError("a training level took B7's scalar path")
@@ -1708,7 +1729,7 @@ def train_profile(module, state, batch, seed):
     step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    before = wa.warp_adjoint.launches
+    before = _total("warp_adjoint.launches")
     spans = _stage_ms(module.model, step, stages=("matcher", "encoder", "decoder", "head"),
                       functions=(("step", module, "train_step"),
                                  ("targets", module, "synthesize_targets"),
@@ -1716,7 +1737,7 @@ def train_profile(module, state, batch, seed):
                                  ("optimizer", module, "apply_gradients"),
                                  ("B7", "color_transfer_tpu_torch.core.sampling",
                                   "warp_adjoint")))
-    if wa.warp_adjoint.launches - before != 4:
+    if _total("warp_adjoint.launches") - before != 4:
         raise AssertionError("the profiled step did not launch B7 four times")
     corrector = spans["forward+loss"] - spans["matcher"]
     backward = spans["step"] - spans["targets"] - spans["forward+loss"] - spans["optimizer"]
@@ -2802,14 +2823,26 @@ def _eval_method(label, argv, items, expect):
     item a loader: the set-up's wall time, host syncs an item and the busy
     share (the profiled run, set-up included). ``expect``: {wrapper name:
     launches an item}. Returns the results."""
+    from color_transfer_tpu_torch.utils import profiling
+
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    results, trainer, wall = _run_test(argv)
+    profiling.clear()
+    profiling.enable()
+    try:
+        results, _, wall = _run_test(argv)
+    finally:
+        profiling.disable()
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = _launches()
     want = {name: expect.get(name, 0) * items for name in counts}
-    spans = {k: sum(v) / len(v) for k, v in trainer.test_spans.items()}
-    counted = {k: len(v) for k, v in trainer.test_spans.items()}
+    by_item = {}
+    for rec in profiling.records():
+        if rec.name.startswith("test."):
+            by_item.setdefault(rec.name.removeprefix("test."), []).append(rec.device_ms)
+    profiling.clear()
+    spans = {k: sum(v) / len(v) for k, v in by_item.items()}
+    counted = {k: len(v) for k, v in by_item.items()}
     if set(counted.values()) != {items} or len(counted) != 3:
         raise AssertionError(f"{label}: spans an item {counted}")
     fixed, wall0, _ = _counted([*argv, "--max_batches", "0"])
@@ -3281,7 +3314,6 @@ def dp_worker(out, argv):
 
     import torch.distributed as dist
 
-    from color_transfer_tpu_torch.ops.warp_adjoint import warp_adjoint
     from color_transfer_tpu_torch.run import cli, modules
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3298,7 +3330,8 @@ def dp_worker(out, argv):
         torch.cuda.synchronize()
         steps.append({"ms": (time.perf_counter() - t0) * 1e3, "rows": batch["gt"].shape[0],
                       "loss": float(result[1]["Training Total Loss"]),
-                      "launches": _launches(), "b7_vector": warp_adjoint.vector_launches})
+                      "launches": _launches(),
+                      "b7_vector": _count("warp_adjoint.vector_launches")})
         held["state"] = state
         return result
 
@@ -4130,7 +4163,7 @@ def serve_bf16(f32):
                 want[name] = want_bf16[name] = n * FRAMES
         from color_transfer_tpu_torch.ops import win_attention as wn
 
-        routes = dict(wn.window_sublayer_fused.bf16_routes)
+        routes = {r: _count(f"win_sublayer.bf16_route.{r}") for r in wn.ROUTES}
         _log(f"bf16 serve {recipe}: output {tuple(out.shape)}, launches {counts}, of them bf16 "
              f"{bf16}; B2b bf16 by route {routes}")
         if sum(routes.values()) != bf16["window_sublayer_fused"]:
@@ -4356,8 +4389,8 @@ def check_bf16_kernels(g, kept):
                         plan is None) != (lib > wn.BLOCK_SMEM_LIMIT):
                     raise AssertionError(f"attention_plan({length}, sublayer={sub}, {route}): "
                                          f"{plan} bytes, the library {lib}")
-    before = {fn.__name__: dict(fn.bf16_routes)
-              for fn in (wn.window_attention_fused, wn.window_sublayer_fused)}
+    b2 = ("win_attention", "win_sublayer")
+    before = {k: {r: _total(f"{k}.bf16_route.{r}") for r in wn.ROUTES} for k in b2}
     timed = {}
     for shape, geom in B2_BF16_SHAPES + B2_BF16_EDGES:
         x, y, v = (torch.randn(*shape, generator=g).cuda().to(bf) for _ in range(3))
@@ -4451,8 +4484,8 @@ def check_bf16_kernels(g, kept):
     _log(f"B2c bf16 edges, max|d| in ulps (line {B2_BF16_ULPS}), two runs bit-equal: "
          + ", ".join(report) + f"; ffn_plan's shared memory is the library's ({lib_smem} "
          "bytes) for F = 64 ... 2048")
-    routes = {fn.__name__: {r: n - before[fn.__name__][r] for r, n in fn.bf16_routes.items()}
-              for fn in (wn.window_attention_fused, wn.window_sublayer_fused)}
+    routes = {k: {r: _total(f"{k}.bf16_route.{r}") - before[k][r] for r in wn.ROUTES}
+              for k in b2}
     _log(f"B2 bf16 launches by route in these checks: {routes}")
     if not all(n > 0 for by in routes.values() for n in by.values()):
         raise AssertionError(f"B2 bf16: a route never launched: {routes}")

@@ -15,6 +15,8 @@ A deep method ("dcmcs3di", "dmsct") runs each piece through its module's
 ``eval_forward``.
 """
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -26,8 +28,10 @@ from color_transfer_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+from color_transfer_tpu_torch.utils import profiling
 
 DEEP_METHODS = ("dcmcs3di", "dmsct")
+_calls = itertools.count()  # the unit of each call's span
 
 
 def default_device():
@@ -107,56 +111,59 @@ def color_transfer_between_videos(target_frames, reference_frames,
     Returns (T, H, W, 3) corrected frames, a float32 tensor on the (first)
     device.
     """
-    deep = method in DEEP_METHODS
-    if deep and variables is not None and devices is None:
-        device = next(iter(variables.values())).device
-    devices = create_mesh([device] if devices is None and device is not None else devices)
-    n_dev = len(devices)
-    batch_size = batch_size or (1 if deep else 8) * n_dev
-    batch_size = max(batch_size - batch_size % n_dev, n_dev)
+    with profiling.annotate("video.call", unit=next(_calls)):
+        deep = method in DEEP_METHODS
+        if deep and variables is not None and devices is None:
+            device = next(iter(variables.values())).device
+        devices = create_mesh([device] if devices is None and device is not None else devices)
+        n_dev = len(devices)
+        batch_size = batch_size or (1 if deep else 8) * n_dev
+        batch_size = max(batch_size - batch_size % n_dev, n_dev)
 
-    def as_tensor(frames):
-        if isinstance(frames, np.ndarray):
-            frames = torch.from_numpy(frames)
-        return frames.to(dtype=torch.float32)
+        def as_tensor(frames):
+            if isinstance(frames, np.ndarray):
+                frames = torch.from_numpy(frames)
+            return frames.to(dtype=torch.float32)
 
-    r0 = None  # the fixed reference of global mode
-    if deep:
-        from color_transfer_tpu_torch.methods.gates import check_recipe
+        r0 = None  # the fixed reference of global mode
+        if deep:
+            from color_transfer_tpu_torch.methods.gates import check_recipe
 
-        check_recipe(method, module_kwargs, allow_ungated=allow_ungated)
-        module, variables = build_deep(method, module, variables, module_kwargs,
-                                       ckpt_path, devices[0])
-        replicas = replicate(variables, devices)
+            check_recipe(method, module_kwargs, allow_ungated=allow_ungated)
+            module, variables = build_deep(method, module, variables, module_kwargs,
+                                           ckpt_path, devices[0])
+            replicas = replicate(variables, devices)
 
-        def run(i, t, r):
-            return module.eval_forward(replicas[i], {"target": t, "reference": r})
-    else:
-        fn = methods.get_method(method)
-        batched = getattr(fn, "batched", None)
-        if not per_frame:
-            r0 = as_tensor(reference_frames[:1])
+            def run(i, t, r):
+                return module.eval_forward(replicas[i], {"target": t, "reference": r})
+        else:
+            fn = methods.get_method(method)
+            batched = getattr(fn, "batched", None)
+            if not per_frame:
+                r0 = as_tensor(reference_frames[:1])
 
-        def run(i, t, r):
-            with full_f32_inference():
-                if batched is not None:
-                    out = batched(t, r)
-                else:
-                    r = r.expand(t.shape[0], *r.shape[1:])
-                    out = torch.stack([fn(t[i], r[i]) for i in range(t.shape[0])])
-            return out.clamp(0.0, 1.0)
+            def run(i, t, r):
+                with full_f32_inference():
+                    if batched is not None:
+                        out = batched(t, r)
+                    else:
+                        r = r.expand(t.shape[0], *r.shape[1:])
+                        out = torch.stack([fn(t[i], r[i]) for i in range(t.shape[0])])
+                return out.clamp(0.0, 1.0)
 
-    outputs = []
-    for start in range(0, target_frames.shape[0], batch_size):
-        t, actual = pad_to_devices(as_tensor(target_frames[start:start + batch_size]), n_dev)
-        chunk = {"t": t}
-        if r0 is None:
-            chunk["r"] = pad_to_devices(
-                as_tensor(reference_frames[start:start + batch_size]), n_dev)[0]
-        pieces = shard_batch(chunk, devices)
-        # Every device's piece is launched before any result is read; in
-        # global mode every piece runs against reference frame 0.
-        outs = [run(i, p["t"], p["r"] if r0 is None else r0.to(devices[i]))
-                for i, p in enumerate(pieces)]
-        outputs.append(torch.cat([o.to(devices[0]) for o in outs], dim=0)[:actual])
-    return torch.cat(outputs, dim=0)
+        outputs = []
+        for start in range(0, target_frames.shape[0], batch_size):
+            with profiling.annotate("video.copy_in"):
+                t, actual = pad_to_devices(as_tensor(target_frames[start:start + batch_size]), n_dev)
+                chunk = {"t": t}
+                if r0 is None:
+                    chunk["r"] = pad_to_devices(
+                        as_tensor(reference_frames[start:start + batch_size]), n_dev)[0]
+                pieces = shard_batch(chunk, devices)
+            # Every device's piece is launched before any result is read; in
+            # global mode every piece runs against reference frame 0.
+            with profiling.annotate("video.forward"):
+                outs = [run(i, p["t"], p["r"] if r0 is None else r0.to(devices[i]))
+                        for i, p in enumerate(pieces)]
+            outputs.append(torch.cat([o.to(devices[0]) for o in outs], dim=0)[:actual])
+        return torch.cat(outputs, dim=0)

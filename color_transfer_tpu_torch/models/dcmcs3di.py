@@ -35,6 +35,7 @@ from color_transfer_tpu_torch.models.layers import Conv, ResB
 from color_transfer_tpu_torch.ops.conv_chain import resb_chain
 from color_transfer_tpu_torch.ops.parallax_train import chunked_parallax_train
 from color_transfer_tpu_torch.ops.row_attention import fused_parallax_inference
+from color_transfer_tpu_torch.utils import profiling
 
 
 def _chain_params(blocks):
@@ -125,7 +126,8 @@ class DCMCS3DI(nn.Module):
     def _extract(self, left, right):
         """Siamese extraction; features return to the matcher's dtype at its
         boundary."""
-        fea = self.extraction(torch.cat([left, right], dim=0))
+        with profiling.annotate("dcmcs3di.extraction"):
+            fea = self.extraction(torch.cat([left, right], dim=0))
         return fea.to(self._dtype()).chunk(2, dim=0)
 
     def forward(self, left, right, inference=False, use_kernels=False,
@@ -149,8 +151,9 @@ class DCMCS3DI(nn.Module):
             fused_extraction = (inference and use_kernels
                                 and self.compute_dtype == torch.bfloat16)
         if inference and fused_extraction:
-            fea_left, fea_right = self.extraction.fused(
-                torch.cat([left, right], dim=0)).chunk(2, dim=0)
+            with profiling.annotate("dcmcs3di.extraction"):
+                fea_left, fea_right = self.extraction.fused(
+                    torch.cat([left, right], dim=0)).chunk(2, dim=0)
         else:
             fea_left, fea_right = self._extract(left, right)
         transfer = self.transfer.fused if inference and fused_extraction else self.transfer
@@ -192,10 +195,10 @@ class DCMCS3DI(nn.Module):
         head = m.head(torch.cat([fea_left, fea_right], dim=0))
         q_l, q_r = m.query(head).chunk(2, dim=0)
         k_l, k_r = m.key(head).chunk(2, dim=0)
-        warped_v, mask_l, _, pam = chunked_parallax_train(
-            q_l, k_l, q_r, k_r, m.value(fea_right), left, right,
-            scale=1.0 / self.channels, chunk=chunk,
-        )
+        v_r = m.value(fea_right)
+        with profiling.annotate("dcmcs3di.matcher"):
+            warped_v, mask_l, _, pam = chunked_parallax_train(
+                q_l, k_l, q_r, k_r, v_r, left, right, scale=1.0 / self.channels, chunk=chunk)
         corrected = self.transfer(
             torch.cat([fea_left, warped_v, mask_l.to(fea_left.dtype)], dim=-1))
         return corrected.to(fea_left.dtype).clamp(0.0, 1.0), pam

@@ -44,6 +44,7 @@ from color_transfer_tpu_torch.models.gmflow import GMFlow
 from color_transfer_tpu_torch.models.layers import widen
 from color_transfer_tpu_torch.models.unet_decoder import SegmentationHead, UnetDecoder
 from color_transfer_tpu_torch.metrics.basic import ssim_loss
+from color_transfer_tpu_torch.utils import profiling
 
 
 def as_dtype(name):
@@ -87,7 +88,7 @@ class DMSCT(nn.Module):
         and drop-connect (masks from ``generator``)."""
         _, height, width, _ = target.shape
         matcher_size = derive_matcher_size(height, width)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.annotate("dmsct.matcher"):
             matcher_out = self.matcher(target * 255.0, reference * 255.0,
                                        inference_size=matcher_size)
         return self.correct(target, reference, matcher_out["flow"], matcher_out["fwd_occ"],
@@ -97,54 +98,55 @@ class DMSCT(nn.Module):
         """The corrector given the matcher's output: target/reference (B, H,
         W, 3) in [0, 1], flow (B, H, W, 2), fwd_occ (B, H, W, 1) -> the
         corrected target clipped to [0, 1]."""
-        _, height, width, _ = target.shape
+        with profiling.annotate("dmsct.correct"):
+            _, height, width, _ = target.shape
 
-        # Edge-pad to a multiple of 2^depth for the encoder.
-        factor = 2**self.encoder_depth
-        pad_h, pad_w = (-height) % factor, (-width) % factor
+            # Edge-pad to a multiple of 2^depth for the encoder.
+            factor = 2**self.encoder_depth
+            pad_h, pad_w = (-height) % factor, (-width) % factor
 
-        def pad(x):
-            if pad_h == 0 and pad_w == 0:
-                return x
-            return F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
-                         mode="replicate").permute(0, 2, 3, 1)
+            def pad(x):
+                if pad_h == 0 and pad_w == 0:
+                    return x
+                return F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h),
+                             mode="replicate").permute(0, 2, 3, 1)
 
-        flow = pad(flow)
-        not_occ = pad(1.0 - fwd_occ)
-        features_target = self.encoder(pad(target), train, generator)
-        features_reference = self.encoder(pad(reference), train, generator)
+            flow = pad(flow)
+            not_occ = pad(1.0 - fwd_occ)
+            features_target = self.encoder(pad(target), train, generator)
+            features_reference = self.encoder(pad(reference), train, generator)
 
-        features = []
-        for idx, (feat_t, feat_r) in enumerate(zip(features_target,
-                                                   features_reference)):
-            # The warp runs in f32; the decoder casts its inputs back to the
-            # corrector's dtype.
-            feat_t, feat_r = widen(feat_t), widen(feat_r)
-            flow_idx = upsample_flow_bilinear(flow, 2.0**-idx) if idx else flow
-            warped = flow_warp_batched(feat_r, flow_idx)
-            occ_idx = not_occ
-            if idx:
-                occ_idx = torch.movedim(
-                    resize_nearest(torch.movedim(not_occ, -1, 1),
-                                   flow_idx.shape[1:3]), 1, -1,
-                )
-            features.append(torch.cat([feat_t, warped, occ_idx], dim=-1))
+            features = []
+            for idx, (feat_t, feat_r) in enumerate(zip(features_target,
+                                                       features_reference)):
+                # The warp runs in f32; the decoder casts its inputs back to the
+                # corrector's dtype.
+                feat_t, feat_r = widen(feat_t), widen(feat_r)
+                flow_idx = upsample_flow_bilinear(flow, 2.0**-idx) if idx else flow
+                warped = flow_warp_batched(feat_r, flow_idx)
+                occ_idx = not_occ
+                if idx:
+                    occ_idx = torch.movedim(
+                        resize_nearest(torch.movedim(not_occ, -1, 1),
+                                       flow_idx.shape[1:3]), 1, -1,
+                    )
+                features.append(torch.cat([feat_t, warped, occ_idx], dim=-1))
 
-        if train:
-            # With TF32 off, cuDNN's choice for the decoder's first 3x3 conv
-            # at the training shape (batch 12, 256x480) is an FFT: decoder
-            # and head take 102.60 ms forward with cuDNN against 24.58 ms
-            # through ATen's im2col + GEMM. Their backward keeps cuDNN
-            # (run/modules.py): 31.81 ms against ATen's 66.47 (chip_smoke.py
-            # phase 7; NVIDIA H100 80GB HBM3, 700 W). Serving keeps cuDNN:
-            # the 1080p decoder takes 20 ms with it (phase 4). (cuDNN's TF32
-            # flag set by the context has no effect while it is off.)
-            with torch.backends.cudnn.flags(enabled=False):
+            if train:
+                # With TF32 off, cuDNN's choice for the decoder's first 3x3 conv
+                # at the training shape (batch 12, 256x480) is an FFT: decoder
+                # and head take 102.60 ms forward with cuDNN against 24.58 ms
+                # through ATen's im2col + GEMM. Their backward keeps cuDNN
+                # (run/modules.py): 31.81 ms against ATen's 66.47 (chip_smoke.py
+                # phase 7; NVIDIA H100 80GB HBM3, 700 W). Serving keeps cuDNN:
+                # the 1080p decoder takes 20 ms with it (phase 4). (cuDNN's TF32
+                # flag set by the context has no effect while it is off.)
+                with torch.backends.cudnn.flags(enabled=False):
+                    residual = self.head(self.decoder(*features))
+            else:
                 residual = self.head(self.decoder(*features))
-        else:
-            residual = self.head(self.decoder(*features))
-        corrected = target + widen(residual)[:, :height, :width, :]
-        return corrected.clamp(0.0, 1.0)
+            corrected = target + widen(residual)[:, :height, :width, :]
+            return corrected.clamp(0.0, 1.0)
 
 
 def compute_losses(result, gt):

@@ -70,6 +70,7 @@ from color_transfer_tpu_torch.ops.win_attention import (
 )
 from color_transfer_tpu_torch.parallel.mesh import axis_stack, axis_sum
 from color_transfer_tpu_torch.parallel.tensor_parallel import current_axis
+from color_transfer_tpu_torch.utils import profiling
 
 
 def _nchw(x):
@@ -748,7 +749,8 @@ class UniMatchFlow(nn.Module):
         self.refine = BasicUpdateBlock(81, _UPSAMPLE, 2)
 
     def extract_feature(self, img0, img1):
-        features = self.backbone(torch.cat([img0, img1], dim=0))[::-1]
+        with profiling.annotate("gmflow.backbone"):
+            features = self.backbone(torch.cat([img0, img1], dim=0))[::-1]
         f0 = [f.chunk(2, dim=0)[0] for f in features]  # low to high res
         f1 = [f.chunk(2, dim=0)[1] for f in features]
         return f0, f1
@@ -775,31 +777,33 @@ class UniMatchFlow(nn.Module):
         feature0, feature1 = feature_add_position(
             feature0, feature1, attn_splits, _CHANNELS
         )
-        feature0, feature1 = self.transformer(feature0, feature1, attn_splits)
-        if self.refine_dtype is not None:
-            # The selective recipe: the flow arithmetic downstream of the
-            # transformer in refine_dtype.
-            feature0, feature1, feature0_ori, feature1_ori = (
-                t.to(self.refine_dtype)
-                for t in (feature0, feature1, feature0_ori, feature1_ori))
+        with profiling.annotate("gmflow.transformer"):
+            feature0, feature1 = self.transformer(feature0, feature1, attn_splits)
+        with profiling.annotate("gmflow.match"):
+            if self.refine_dtype is not None:
+                # The selective recipe: the flow arithmetic downstream of the
+                # transformer in refine_dtype.
+                feature0, feature1, feature0_ori, feature1_ori = (
+                    t.to(self.refine_dtype)
+                    for t in (feature0, feature1, feature0_ori, feature1_ori))
 
-        corr_radius = _CORR_RADIUS[scale_idx]
-        if corr_radius == -1:
-            flow_pred = global_correlation_softmax(feature0, feature1, True)[0]
-        else:
-            flow_pred = local_correlation_softmax(
-                feature0, feature1, corr_radius
-            )[0]
-        flow = flow + flow_pred if flow is not None else flow_pred
+            corr_radius = _CORR_RADIUS[scale_idx]
+            if corr_radius == -1:
+                flow_pred = global_correlation_softmax(feature0, feature1, True)[0]
+            else:
+                flow_pred = local_correlation_softmax(
+                    feature0, feature1, corr_radius
+                )[0]
+            flow = flow + flow_pred if flow is not None else flow_pred
 
-        if scale_idx == 0:
-            feature0 = torch.cat([feature0, feature1], dim=0)
-        prop_radius = _PROP_RADIUS[scale_idx]
-        flow = self.feature_flow_attn(
-            feature0, flow, local_window_attn=prop_radius > 0,
-            local_window_radius=prop_radius,
-        )
-        return flow, feature0, feature0_ori, feature1_ori
+            if scale_idx == 0:
+                feature0 = torch.cat([feature0, feature1], dim=0)
+            prop_radius = _PROP_RADIUS[scale_idx]
+            flow = self.feature_flow_attn(
+                feature0, flow, local_window_attn=prop_radius > 0,
+                local_window_radius=prop_radius,
+            )
+            return flow, feature0, feature0_ori, feature1_ori
 
     def forward(self, img0, img1, num_reg_refine=6):
         """img0/img1: (B, H, W, 3) in [0, 255]. Returns the final flow
@@ -824,11 +828,12 @@ class UniMatchFlow(nn.Module):
         net0, inp = torch.tanh(net0), F.relu(inp)
         corr_dtype = self.refine_dtype if self.refine_dtype is not None else self.corr_dtype
         for _ in range(num_reg_refine):
-            correlation = local_correlation_with_flow(
-                feature0_ori, feature1_ori, flow, local_radius=4, corr_dtype=corr_dtype
-            )
-            _, up_mask, residual_flow = self.refine(net0, inp, correlation, flow)
-            flow = flow + residual_flow
+            with profiling.annotate("gmflow.refine"):
+                correlation = local_correlation_with_flow(
+                    feature0_ori, feature1_ori, flow, local_radius=4, corr_dtype=corr_dtype
+                )
+                _, up_mask, residual_flow = self.refine(net0, inp, correlation, flow)
+                flow = flow + residual_flow
         return upsample_flow_with_mask(flow, up_mask, _UPSAMPLE)
 
 

@@ -23,14 +23,17 @@ Two implementations of one function:
     float32, so the wrapper adds no pass of its own to the launches.
 
 ``resb_chain`` routes by device: a CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises. Its ``launches`` attribute counts
-kernel launches (one per conv).
+CUDA tensor launches the kernel or raises. The counter
+``resb_chain.launches`` (utils/profiling.py) counts kernel launches (one
+per conv).
 """
 
 import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from color_transfer_tpu_torch.utils import profiling
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/resb_chain.cu
 _MMA_SYNC_CODE = 2  # bf16 through the mma.sync kernel at C = 64 too (timing only)
@@ -166,7 +169,7 @@ def _launch(x, kernels, biases, cd, mma_sync=False):
                      b, h, w, c, int(relu), code, grid, stream)
             if err != 0:
                 raise RuntimeError(f"resb_conv3x3 launch failed: CUDA error {err}")
-            resb_chain.launches += 1
+            profiling.count("resb_chain.launches")
     return buffers["f32"] if widen else buffers["x"]
 
 
@@ -181,6 +184,3 @@ def resb_chain(x, kernels, biases, compute_dtype=torch.bfloat16):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return _launch(x, kernels, biases, compute_dtype)
-
-
-resb_chain.launches = 0

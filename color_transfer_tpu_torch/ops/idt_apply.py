@@ -14,13 +14,16 @@ Two implementations of one function:
 
 ``transport_apply`` routes by device: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (any 2 <= bins <= 256) or
-raises. Its ``launches`` attribute counts kernel launches.
+raises. The counter ``idt_apply.launches`` (utils/profiling.py) counts
+kernel launches.
 """
 
 import ctypes
 import math
 
 import torch
+
+from color_transfer_tpu_torch.utils import profiling
 
 MAX_BINS = 256  # csrc/idt_apply.cu kMaxBins
 
@@ -88,7 +91,7 @@ def _launch(x, grid_lo, step, fp, right_edge):
                  fp.shape[-1], stream)
     if err != 0:
         raise RuntimeError(f"idt_apply_forward launch failed: CUDA error {err}")
-    transport_apply.launches += 1
+    profiling.count("idt_apply.launches")
     return out
 
 
@@ -102,6 +105,3 @@ def transport_apply(x, grid_lo, step, fp, right_edge):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return _launch(x, grid_lo, step, fp, right_edge)
-
-
-transport_apply.launches = 0

@@ -25,9 +25,9 @@ bilinear epilogue and the output f32. The kernel has an instantiation for
 each.
 
 ``local_correlation_with_flow`` routes by device: a CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises. Its
-``launches`` attribute counts kernel launches, ``bf16_launches`` those of
-the bf16 instantiation.
+plain version; a CUDA tensor launches the kernel or raises. The counter
+``local_corr.launches`` (utils/profiling.py) counts kernel launches,
+``local_corr.bf16_launches`` those of the bf16 instantiation.
 """
 
 import ctypes
@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from color_transfer_tpu_torch.core.sampling import coords_grid
+from color_transfer_tpu_torch.utils import profiling
 
 # csrc/local_corr.cu's limits: radius 0-4 (one instantiation each), C a
 # multiple of 4 (f32) or 8 (bf16: a 16-byte vector) up to 256, slices of
@@ -279,8 +280,9 @@ def _launch(feature0, feature1, flow, local_radius, routes=False):
         )
     if err != 0:
         raise RuntimeError(f"local_corr_forward launch failed: CUDA error {err}")
-    local_correlation_with_flow.launches += 1
-    local_correlation_with_flow.bf16_launches += bf16
+    profiling.count("local_corr.launches")
+    if bf16:
+        profiling.count("local_corr.bf16_launches")
     return (out, tiles) if routes else out
 
 
@@ -302,7 +304,3 @@ def local_correlation_with_flow(feature0, feature1, flow, local_radius,
     if feature0.device.type != "cuda":
         raise ValueError(f"unsupported device {feature0.device}")
     return _launch(feature0, feature1, flow, local_radius)
-
-
-local_correlation_with_flow.launches = 0
-local_correlation_with_flow.bf16_launches = 0  # those of the bf16 instantiation

@@ -21,9 +21,10 @@ Two implementations of one function:
 
 ``regrain_sweeps`` routes by device: a CPU tensor takes the plain version;
 a CUDA tensor launches the kernel at every level size or raises. The TPU
-path's VMEM limit (``level_fits_vmem``) has no counterpart here. Its
-``launches`` attribute counts calls (one a level); a trapezoid call makes
-one device launch a pass (``LevelPlan.passes``).
+path's VMEM limit (``level_fits_vmem``) has no counterpart here. The
+counter ``regrain_stencil.launches`` (utils/profiling.py) counts calls (one
+a level); a trapezoid call makes one device launch a pass
+(``LevelPlan.passes``).
 """
 
 import ctypes
@@ -31,6 +32,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from color_transfer_tpu_torch.utils import profiling
 
 # csrc/regrain_stencil.cu's limits: a thread owns S rows (its strip) of
 # four adjacent columns, whose 32 S invariants sit in registers, so a block
@@ -236,7 +239,7 @@ def _launch(img_out, const, phis, inv_den, nbit, rho, plan=None):
                  plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"regrain_sweeps_forward launch failed: CUDA error {err}")
-    regrain_sweeps.launches += 1
+    profiling.count("regrain_stencil.launches")
     return bufs[(plan.passes - 1) % 2]
 
 
@@ -252,6 +255,3 @@ def regrain_sweeps(img_out, const, phis, inv_den, nbit, rho=0.2):
     if img_out.device.type != "cuda":
         raise ValueError(f"unsupported device {img_out.device}")
     return _launch(img_out, const, phis, inv_den, nbit, rho)
-
-
-regrain_sweeps.launches = 0

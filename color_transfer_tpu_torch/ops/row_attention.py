@@ -18,13 +18,15 @@ Two implementations of one function:
     column sums JAX discards; reached through ``_attend(colsum=False)``).
 
 ``row_attention_warp`` routes by device: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. Its ``launches``
-attribute counts kernel launches.
+version; a CUDA tensor launches the kernel or raises. The counter
+``row_attention.launches`` (utils/profiling.py) counts kernel launches.
 """
 
 import ctypes
 
 import torch
+
+from color_transfer_tpu_torch.utils import profiling
 
 _CHANNELS = (16, 32, 64)  # instantiated in csrc/row_attention.cu
 _MAX_W = 32768  # the row's colsum lives in the block's shared memory
@@ -143,7 +145,7 @@ def _launch(q, k, v, scale, precise, colsum=True, splits=None):
                  b * h, w, c, scale, int(precise), mode, splits, stream)
     if err != 0:
         raise RuntimeError(f"row_attention_forward launch failed: CUDA error {err}")
-    row_attention_warp.launches += 1
+    profiling.count("row_attention.launches")
     return out, sums
 
 
@@ -166,8 +168,6 @@ def row_attention_warp(q, k, v, scale, precise=False):
     hand-written kernel (csrc/row_attention.cu), with no fallback."""
     return _attend(q, k, v, scale, precise, colsum=True)
 
-
-row_attention_warp.launches = 0
 
 
 def fused_parallax_inference(q_l, k_r, v_r, q_r, k_l, scale, precise=False):

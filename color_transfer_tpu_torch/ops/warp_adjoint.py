@@ -15,17 +15,20 @@ Two implementations of one function:
     header says what bounds it and how it is laid out).
 
 ``warp_adjoint`` routes by device: a CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises. Its ``launches`` attribute counts
-kernel launches, ``vector_launches`` those that took the kernel's vector
-path (``vector_path``; the rest add channel by channel). Float atomics add
-in a varying order, so the kernel agrees with the plain version to
-rounding, not bit for bit.
+CUDA tensor launches the kernel or raises. The counter
+``warp_adjoint.launches`` (utils/profiling.py) counts kernel launches,
+``warp_adjoint.vector_launches`` those that took the kernel's vector path
+(``vector_path``; the rest add channel by channel). Float atomics add in a
+varying order, so the kernel agrees with the plain version to rounding, not
+bit for bit.
 """
 
 import ctypes
 import functools
 
 import torch
+
+from color_transfer_tpu_torch.utils import profiling
 
 
 def warp_corners(flow, h, w):
@@ -113,8 +116,9 @@ def _launch(g, flow):
                  stream)
     if err != 0:
         raise RuntimeError(f"warp_adjoint_forward launch failed: CUDA error {err}")
-    warp_adjoint.launches += 1
-    warp_adjoint.vector_launches += vec4
+    profiling.count("warp_adjoint.launches")
+    if vec4:
+        profiling.count("warp_adjoint.vector_launches")
     return padded[:, 2 : 2 + h, 2 : 2 + w]
 
 
@@ -129,7 +133,3 @@ def warp_adjoint(g, flow):
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
     return _launch(g, flow)
-
-
-warp_adjoint.launches = 0
-warp_adjoint.vector_launches = 0  # of those, the vector path's

@@ -46,12 +46,14 @@ by device: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel of its dtype or raises. Each is a torch.autograd.Function whose backward is
 autograd of the plain version, as JAX's custom VJPs run the XLA twins; the
 DMSCT matcher is frozen, so no path of the port needs it. Each counts its
-kernel launches in ``.launches``, one per call (a ``window_sublayer_fused``
-call is three CUDA kernels in f32: the weight packing, the k/v projection,
-then the rest; a ``ffn_fused`` call two: the packing, then the FFN; in bf16
-a sublayer call is two, the k/v projection, then the rest, and an FFN call
-one), its bf16 calls in ``.bf16_launches`` too, and B2a's and B2b's bf16
-calls by route in ``.bf16_routes``.
+calls in a counter of utils/profiling.py named after its kernel's source,
+``win_attention.launches``, ``win_sublayer.launches`` and
+``win_ffn.launches``, one per call (a ``window_sublayer_fused`` call is
+three CUDA kernels in f32: the weight packing, the k/v projection, then the
+rest; a ``ffn_fused`` call two: the packing, then the FFN; in bf16 a
+sublayer call is two, the k/v projection, then the rest, and an FFN call
+one), its bf16 calls in ``<kernel>.bf16_launches`` too, and B2a's and B2b's
+bf16 calls by route in ``<kernel>.bf16_route.<route>``.
 
 ``eligible`` and ``ffn_eligible`` are the JAX package's routing guards,
 copied so that the same layers take the fused route in both packages.
@@ -64,6 +66,8 @@ from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
+
+from color_transfer_tpu_torch.utils import profiling
 
 # The JAX package's routing rule: a layer takes the fused kernels when the
 # TPU kernel's VMEM working set fits 8 MiB (its _VMEM_CAP). This is JAX's
@@ -395,10 +399,10 @@ def _launch_attention(q, k, v, mask, *, shift_windows=None, route=None):
     out = torch.empty_like(q)
     _run(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          None if mask is None else mask.data_ptr(), out.data_ptr(), *args)
-    window_attention_fused.launches += 1
+    profiling.count("win_attention.launches")
     if bf16:
-        window_attention_fused.bf16_launches += 1
-        window_attention_fused.bf16_routes[plan.route] += 1
+        profiling.count("win_attention.bf16_launches")
+        profiling.count(f"win_attention.bf16_route.{plan.route}")
     return out
 
 
@@ -421,9 +425,9 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
         _run(fn, x_src.device, *(t.data_ptr() for t in tensors), kv.data_ptr(),
              out.data_ptr(), bp, length, int(shift_windows is not None), *geom,
              int(add_residual), 1.0 / math.sqrt(c), ROUTES.index(plan.route))
-        window_sublayer_fused.launches += 1
-        window_sublayer_fused.bf16_launches += 1
-        window_sublayer_fused.bf16_routes[plan.route] += 1
+        profiling.count("win_sublayer.launches")
+        profiling.count("win_sublayer.bf16_launches")
+        profiling.count(f"win_sublayer.bf16_route.{plan.route}")
         return out
     fn = _kernel("win_sublayer", "window_sublayer_forward",
                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
@@ -435,7 +439,7 @@ def _launch_sublayer(x_src, x_tgt, w_q, w_kv, w_merge, norm_scale, norm_bias, *,
     _run(fn, x_src.device, *(t.data_ptr() for t in tensors), packed.data_ptr(), kv.data_ptr(),
          out.data_ptr(), bp, length, int(shift_windows is not None), *geom, int(add_residual),
          1.0 / math.sqrt(c))
-    window_sublayer_fused.launches += 1
+    profiling.count("win_sublayer.launches")
     return out
 
 
@@ -454,8 +458,8 @@ def _launch_ffn(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=Fal
         out = torch.empty_like(x_src)
         _run(fn, x_src.device, *(t.data_ptr() for t in tensors), out.data_ptr(), n_tokens,
              w0.shape[1], int(add_residual))
-        ffn_fused.launches += 1
-        ffn_fused.bf16_launches += 1
+        profiling.count("win_ffn.launches")
+        profiling.count("win_ffn.bf16_launches")
         return out
     fn = _kernel("win_ffn", "ffn_forward",
                  [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -466,7 +470,7 @@ def _launch_ffn(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=Fal
     out = torch.empty_like(x_src)
     _run(fn, x_src.device, *(t.data_ptr() for t in tensors),
          packed.data_ptr(), out.data_ptr(), n_tokens, w0.shape[1], int(add_residual))
-    ffn_fused.launches += 1
+    profiling.count("win_ffn.launches")
     return out
 
 
@@ -553,15 +557,3 @@ def ffn_fused(x_src, x_msg, w0, w2, norm_scale, norm_bias, *, add_residual=False
                          f"inconsistent with C={c}")
     return _Fused.apply(ffn_plain, _launch_ffn, {"add_residual": add_residual},
                         x_src, x_msg, w0, w2, norm_scale, norm_bias)
-
-
-window_attention_fused.launches = 0
-window_sublayer_fused.launches = 0
-ffn_fused.launches = 0
-# The launches of each op's bf16 kernel (counted in .launches too), and
-# B2a's and B2b's by route (attention_plan's).
-window_attention_fused.bf16_launches = 0
-window_sublayer_fused.bf16_launches = 0
-ffn_fused.bf16_launches = 0
-window_attention_fused.bf16_routes = dict.fromkeys(ROUTES, 0)
-window_sublayer_fused.bf16_routes = dict.fromkeys(ROUTES, 0)

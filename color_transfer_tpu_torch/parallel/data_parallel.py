@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from color_transfer_tpu_torch.parallel.mesh import Axis, axis_stack
 from color_transfer_tpu_torch.parallel.multihost import rank_world
+from color_transfer_tpu_torch.utils import profiling
 
 BUCKET_BYTES = 25 * 2**20  # gradients all-reduced per call (DDP's default bucket)
 
@@ -100,17 +101,15 @@ def rank_mean(x):
     shard = current_shard()
     if shard is None or shard.world == 1:
         return x
-    x = x.detach().clone()
-    dist.all_reduce(x)
+    with profiling.annotate("dp.allreduce.rank_mean", device=False):
+        x = x.detach().clone()
+        dist.all_reduce(x)
     return x / shard.world
 
 
-def average_gradients(params):
-    """Replace each parameter's ``.grad`` by its mean over the ranks: the
-    gradients are flattened into buckets of about ``BUCKET_BYTES`` (one
-    dtype and device a bucket), each bucket all-reduced once."""
-    _, world = rank_world()
-    grads = [p.grad for p in params if p.grad is not None]
+def gradient_buckets(grads):
+    """``grads`` in order, cut into buckets of about ``BUCKET_BYTES`` (one
+    dtype and device a bucket) -> a list of lists."""
     buckets, size = [], 0
     for g in grads:
         if (not buckets or size + g.numel() * g.element_size() > BUCKET_BYTES
@@ -119,9 +118,18 @@ def average_gradients(params):
             size = 0
         buckets[-1].append(g)
         size += g.numel() * g.element_size()
-    for bucket in buckets:
-        flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
+    return buckets
+
+
+def average_gradients(params):
+    """Replace each parameter's ``.grad`` by its mean over the ranks: the
+    gradients are flattened into ``gradient_buckets``, each bucket
+    all-reduced once."""
+    _, world = rank_world()
+    for bucket in gradient_buckets([p.grad for p in params if p.grad is not None]):
+        with profiling.annotate("dp.allreduce.grads", device=False):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat)
         flat /= world
         offset = 0
         for g in bucket:
@@ -133,8 +141,9 @@ def average_logs(logs):
     """Each logged 0-d tensor's mean over the ranks, in one all-reduce."""
     _, world = rank_world()
     keys = sorted(logs)
-    flat = torch.stack([logs[k].detach().float().reshape(()) for k in keys])
-    dist.all_reduce(flat)
+    with profiling.annotate("dp.allreduce.logs", device=False):
+        flat = torch.stack([logs[k].detach().float().reshape(()) for k in keys])
+        dist.all_reduce(flat)
     flat /= world
     return dict(zip(keys, flat.unbind()))
 

@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from color_transfer_tpu_torch.utils import profiling
+
 
 def create_mesh(devices=None):
     """``devices`` as a list of torch.device; None means every visible card
@@ -132,8 +134,9 @@ class _AxisAllReduce(torch.autograd.Function):
         import torch.distributed as dist
 
         ctx.group = group
-        x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x, group=group)
+        with profiling.annotate("dp.allreduce.moments", device=False):
+            x = x.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(x, group=group)
         return x
 
     @staticmethod

@@ -55,6 +55,7 @@ from color_transfer_tpu_torch.parallel.data_parallel import (
     step_shard,
 )
 from color_transfer_tpu_torch.run.trainer import derive_seed
+from color_transfer_tpu_torch.utils import profiling
 
 
 def quality_metrics(out, gt, prefix="", heavy=True):
@@ -120,17 +121,19 @@ def _finish_step(module, state, shard, result, batch, total, parts, metrics):
     the ranks too: each is a batch mean over equal row counts, or a masked
     mean made one (parallel/data_parallel.py), so the average is the global
     batch's value."""
-    if shard is not None:
-        average_gradients([p for group in state.optimizer.param_groups
-                           for p in group["params"]])
-    module.apply_gradients(state)
-    logs = {f"Training {k}": v.detach() for k, v in parts.items()}
-    if metrics:
-        with torch.no_grad():
-            logs.update(quality_metrics(result.detach(), batch["gt"], "Training ",
-                                        module.heavy_metrics))
-    logs["Training Total Loss"] = total.detach()
-    return logs if shard is None else average_logs(logs)
+    with profiling.annotate("train.update"):
+        if shard is not None:
+            average_gradients([p for group in state.optimizer.param_groups
+                               for p in group["params"]])
+        module.apply_gradients(state)
+    with profiling.annotate("train.logs"):
+        logs = {f"Training {k}": v.detach() for k, v in parts.items()}
+        if metrics:
+            with torch.no_grad():
+                logs.update(quality_metrics(result.detach(), batch["gt"], "Training ",
+                                            module.heavy_metrics))
+        logs["Training Total Loss"] = total.detach()
+        return logs if shard is None else average_logs(logs)
 
 
 class DMSCTModule:
@@ -272,13 +275,16 @@ class DMSCTModule:
         Under a process group ``batch`` is this rank's rows of the global
         batch, and the step is the global batch's (``_finish_step``)."""
         device = batch["gt"].device
-        with full_f32(), step_shard(batch["gt"].shape[0]) as shard:
-            batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
-            drop = torch.Generator(device=device).manual_seed(seed)
-            result, total, parts = self.forward_loss(state, batch, drop)
+        with (profiling.annotate("train.step", unit=state.step), full_f32(),
+              step_shard(batch["gt"].shape[0]) as shard):
+            with profiling.annotate("train.distort"):
+                batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
+            with profiling.annotate("train.forward"):
+                drop = torch.Generator(device=device).manual_seed(seed)
+                result, total, parts = self.forward_loss(state, batch, drop)
             # The backward's convolutions take ``backward_cudnn``'s route;
             # only the decoder's forward leaves cuDNN (models/dmsct.py).
-            with conv_route(self.backward_cudnn):
+            with conv_route(self.backward_cudnn), profiling.annotate("train.backward"):
                 total.backward()
             logs = _finish_step(self, state, shard, result, batch, total, parts, metrics)
         return state, logs
@@ -459,16 +465,18 @@ class DCMCS3DIModule:
         ``reduced_cudnn``'s route, losses, step; TF32 off. Returns (state, logs) under the JAX
         package's names; the quality metrics only when ``metrics``. Under a
         process group ``batch`` is this rank's rows of the global batch."""
-        with (full_f32(), reduced_conv_route(self.reduced_cudnn),
+        with (profiling.annotate("train.step", unit=state.step), full_f32(),
+              reduced_conv_route(self.reduced_cudnn),
               step_shard(batch["gt"].shape[0]) as shard):
-            batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
+            with profiling.annotate("train.distort"):
+                batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
             # The forward's convs run through ATen, not cuDNN: with cuDNN's
             # f32 forward algorithms the step's gradients lie up to 1.5e-4 of
             # their scale from a float64 run, with ATen's 1.4e-6; ATen costs
             # 3-10% of a recipe step (chip_smoke.py phase 10, PERF.md).
-            with conv_route(False):
+            with conv_route(False), profiling.annotate("train.forward"):
                 corrected, total, parts = self.forward_loss(state, batch)
-            with conv_route(self.backward_cudnn):
+            with conv_route(self.backward_cudnn), profiling.annotate("train.backward"):
                 total.backward()
             logs = _finish_step(self, state, shard, corrected, batch, total, parts, metrics)
         return state, logs

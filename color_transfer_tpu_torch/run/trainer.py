@@ -27,7 +27,6 @@ JAX package validates (``sharded=False``); the other ranks wait at a
 barrier. Every rank resumes from the checkpoint.
 """
 
-import contextlib
 import time
 import traceback
 import warnings
@@ -53,38 +52,6 @@ from color_transfer_tpu_torch.utils import profiling
 def derive_seed(*entropy):
     """A 31-bit generator seed from integers, e.g. (seed, step)."""
     return int(np.random.SeedSequence(entropy).generate_state(1)[0] >> 1)
-
-
-class Spans:
-    """Device time of named spans, from CUDA events around the work each
-    span enqueues (host time while the stream idles counts too); records
-    nothing on the CPU."""
-
-    def __init__(self, device):
-        self.enabled = torch.device(device).type == "cuda"
-        self._events = []
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        if not self.enabled:
-            yield
-            return
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self._events.append((name, start, end))
-
-    def ms(self):
-        """{name: [ms of each span, in order]}; synchronises."""
-        if self._events:
-            torch.cuda.synchronize()
-        out = {}
-        for name, start, end in self._events:
-            out.setdefault(name, []).append(start.elapsed_time(end))
-        return out
 
 
 class _SilentLogger:
@@ -113,7 +80,6 @@ class Trainer:
             self.ckpt = CheckpointManager(self.log_dir / "checkpoints", monitor=monitor)
         else:
             self.logger, self.ckpt = _SilentLogger(), None
-        self.test_spans = {}  # the last test's spans per item (Spans.ms)
         self.profile_dir = profile_dir
         self.profile_steps = tuple(profile_steps)
 
@@ -267,8 +233,9 @@ class Trainer:
         ``eval_buckets``: pad each item to a multiple of it and score the
         true region (run/bucketing.py); only a module that can mask the
         padded width (``supports_valid_w``) runs so, the others warn and run
-        at native shapes. Each item's ``data``, ``forward`` and ``metrics``
-        spans are kept in ``self.test_spans`` (on the card)."""
+        at native shapes. Each item's spans, ``test.data``, ``test.forward``
+        and ``test.metrics``, go to the recorder when it is on
+        (utils/profiling.py)."""
         grid = setup_grid_distortions()
         if variables is None and hasattr(module, "init_eval_variables"):
             variables = module.init_eval_variables(self.seed, device=self.device)
@@ -286,14 +253,13 @@ class Trainer:
                 from color_transfer_tpu_torch.run.bucketing import BucketedEvaluator
 
                 bucketed = BucketedEvaluator(module, multiple=eval_buckets)
-        spans = Spans(self.device)
         results = {}
         for idx, loader in enumerate(datamodule.test_loaders()):
             acc = MeanAccumulator()
             for b_i, batch in enumerate(loader):
                 if max_batches is not None and b_i >= max_batches:
                     break
-                with spans("data"):
+                with profiling.annotate("test.data"):
                     dist_idx = batch.pop("distortion_idx", None)
                     batch = self.device_batch(batch)
                     if "target" not in batch:
@@ -301,12 +267,12 @@ class Trainer:
                         idxs = np.atleast_1d(np.asarray(dist_idx)).tolist()
                         batch["target"] = torch.stack(
                             [grid[int(d)](batch["gt"][j]) for j, d in enumerate(idxs)])
-                with spans("forward"):
+                with profiling.annotate("test.forward"):
                     if bucketed is None:
                         out = module.eval_forward(variables, batch)
                     else:
                         out, padded = bucketed.forward(variables, batch)
-                with spans("metrics"), torch.no_grad():
+                with profiling.annotate("test.metrics"), torch.no_grad():
                     if bucketed is None:
                         logs = module.eval_metrics(out, batch["gt"])
                     else:
@@ -314,6 +280,5 @@ class Trainer:
                     acc.update({k: float(v) for k, v in logs.items()})
             results.update({f"Test {k}/dataloader_idx_{idx}": v
                             for k, v in acc.means().items()})
-        self.test_spans = spans.ms()
         self.logger.log(results, step=0)
         return results

@@ -42,6 +42,7 @@ from color_transfer_tpu_torch.ops import regrain_stencil as rs
 from color_transfer_tpu_torch.ops import row_attention as ra
 from color_transfer_tpu_torch.ops import warp_adjoint as wa
 from color_transfer_tpu_torch.ops import win_attention as wn
+from color_transfer_tpu_torch.utils.profiling import counter
 
 pytestmark = pytest.mark.cuda
 
@@ -61,16 +62,21 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
+def _route_counts(kernel):
+    """B2a's or B2b's bf16 launches by route (utils/profiling.py's counters)."""
+    return {r: counter(f"{kernel}.bf16_route.{r}") for r in wn.ROUTES}
+
+
 @pytest.mark.parametrize("shape", [(1, 13, 37, 16, 1), (2, 9, 20, 128, 4)])
 def test_local_corr(gen, shape):
     b, h, w, c, r = shape
     f0, f1 = _randn(gen, b, h, w, c), _randn(gen, b, h, w, c)
     flow = _randn(gen, b, h, w, 2, scale=3.0)
-    before = lc.local_correlation_with_flow.launches
+    before = counter("local_corr.launches")
     with torch.no_grad():
         got = lc.local_correlation_with_flow(f0, f1, flow, r)
         want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
-    assert lc.local_correlation_with_flow.launches == before + 1
+    assert counter("local_corr.launches") == before + 1
     assert _rel_err(got, want) <= 1e-4
 
 
@@ -144,11 +150,11 @@ def test_resb_chain(gen, dtype, shape):
     x = _randn(gen, *shape)
     k = _randn(gen, layers, 2, 3, 3, c, c, scale=(9 * c) ** -0.5)
     b = _randn(gen, layers, 2, c, scale=0.05)
-    before = cc.resb_chain.launches
+    before = counter("resb_chain.launches")
     with torch.no_grad():
         got = cc.resb_chain(x, k, b, dtype)
         want = cc.resb_chain_plain(x, k, b, dtype)
-    assert cc.resb_chain.launches == before + 2 * layers
+    assert counter("resb_chain.launches") == before + 2 * layers
     assert got.dtype == torch.float32 and got.shape == shape
     scale = max(1.0, float(want.abs().max()))
     if dtype == torch.float32:
@@ -166,12 +172,12 @@ def test_row_attention(gen, precise, shape):
     q, k = _randn(gen, *shape, scale=3.0), _randn(gen, *shape, scale=3.0)
     v = _randn(gen, *shape)
     scale = 1.0 / shape[-1]
-    before = ra.row_attention_warp.launches
+    before = counter("row_attention.launches")
     with torch.no_grad():
         out, cs = ra.row_attention_warp(q, k, v, scale, precise)
         none, cs_only = ra.row_attention_warp(q, k, None, scale, precise)
         want_out, want_cs = ra.row_attention_warp_plain(q, k, v, scale, precise)
-    assert ra.row_attention_warp.launches == before + 2 and none is None
+    assert counter("row_attention.launches") == before + 2 and none is None
     line = 1e-4 * max(1.0, float(want_out.abs().max())) if precise else \
         2.0 ** -8 * float(v.abs().max())
     assert float((out - want_out).abs().max()) <= line
@@ -190,14 +196,14 @@ def test_row_attention_instantiations(gen, precise, shape):
     q, k = _randn(gen, *shape, scale=3.0), _randn(gen, *shape, scale=3.0)
     v = _randn(gen, *shape)
     scale = 1.0 / shape[-1]
-    before = ra.row_attention_warp.launches
+    before = counter("row_attention.launches")
     with torch.no_grad():
         out, cs = ra.row_attention_warp(q, k, v, scale, precise)
         _, cs_only = ra.row_attention_warp(q, k, None, scale, precise)
         out_only, no_cs = ra._attend(q, k, v, scale, precise, colsum=False)
         again = ra.row_attention_warp(q, k, v, scale, precise)
         want_out, want_cs = ra.row_attention_warp_plain(q, k, v, scale, precise)
-    assert ra.row_attention_warp.launches == before + 4 and no_cs is None
+    assert counter("row_attention.launches") == before + 4 and no_cs is None
     assert torch.equal(out, again[0]) and torch.equal(cs, again[1])
     assert torch.equal(out_only, out)  # the same products in the same order
     line = 1e-4 * max(1.0, float(want_out.abs().max())) if precise else \
@@ -334,10 +340,10 @@ def test_idt_apply(gen, frames, n, bins):
     x[:, 0], x[:, 1] = grid_lo, right_edge
     shape = (frames, 3)
     args = [t.reshape(*shape, *t.shape[1:]) for t in (x, grid_lo, step, fp, right_edge)]
-    before = ia.transport_apply.launches
+    before = counter("idt_apply.launches")
     got = ia.transport_apply(*args)
     want = ia.transport_apply_plain(*args)
-    assert ia.transport_apply.launches == before + 1
+    assert counter("idt_apply.launches") == before + 1
     assert float((got - want).abs().max()) <= 1e-6 * bins
 
 
@@ -350,10 +356,10 @@ def test_regrain_sweeps(gen, frames, h, w, nbit):
     const = torch.rand(frames, h, w, 3, generator=gen).cuda()
     phis = (torch.rand(frames, 4, h, w, generator=gen) * 15).cuda()
     invd = (0.8 / (phis.sum(1) + torch.rand(frames, h, w, generator=gen).cuda() + 1e-6))
-    before = rs.regrain_sweeps.launches
+    before = counter("regrain_stencil.launches")
     got = rs.regrain_sweeps(out0, const, phis, invd.contiguous(), nbit)
     want = rs.regrain_sweeps_plain(out0, const, phis, invd, nbit)
-    assert rs.regrain_sweeps.launches == before + 1
+    assert counter("regrain_stencil.launches") == before + 1
     assert float((got - want).abs().max()) <= 1e-6 * max(1.0, float(want.abs().max()))
 
 
@@ -423,10 +429,10 @@ def test_warp_adjoint(gen, shape):
     b, h, w, c = shape
     g = _randn(gen, *shape)
     flow = _mixed_flow(gen, b, h, w)
-    before = wa.warp_adjoint.launches
+    before = counter("warp_adjoint.launches")
     got = wa.warp_adjoint(g, flow)
     want = wa.warp_adjoint_plain(g, flow)
-    assert wa.warp_adjoint.launches == before + 1 and got.shape == shape
+    assert counter("warp_adjoint.launches") == before + 1 and got.shape == shape
     assert _rel_err(got, want) <= 1e-5
 
 
@@ -452,11 +458,11 @@ def test_warp_adjoint_flows(gen, shape, kind):
     b, h, w, c = shape
     g = _randn(gen, *shape)
     flow = _flow(gen, kind, b, h, w)
-    before, vec_before = wa.warp_adjoint.launches, wa.warp_adjoint.vector_launches
+    before, vec_before = counter("warp_adjoint.launches"), counter("warp_adjoint.vector_launches")
     got = wa.warp_adjoint(g, flow)
     want = wa.warp_adjoint_plain(g, flow)
-    assert wa.warp_adjoint.launches == before + 1
-    assert wa.warp_adjoint.vector_launches == vec_before + (c % 4 == 0)
+    assert counter("warp_adjoint.launches") == before + 1
+    assert counter("warp_adjoint.vector_launches") == vec_before + (c % 4 == 0)
     assert _rel_err(got, want) <= 1e-5
 
 
@@ -481,9 +487,9 @@ def test_flow_warp_batched_backward_on_the_card(gen):
     flow = _randn(gen, 2, 24, 40, 2, scale=2.0)
     g = _randn(gen, 2, 24, 40, 16)
     f1, fl1 = feat.clone().requires_grad_(True), flow.clone().requires_grad_(True)
-    before = wa.warp_adjoint.launches
+    before = counter("warp_adjoint.launches")
     (flow_warp_batched(f1, fl1) * g).sum().backward()
-    assert wa.warp_adjoint.launches == before + 1
+    assert counter("warp_adjoint.launches") == before + 1
     f2, fl2 = feat.clone().requires_grad_(True), flow.clone().requires_grad_(True)
     (flow_warp(f2, fl2) * g).sum().backward()
     assert _rel_err(f1.grad, f2.grad) <= 1e-5
@@ -533,12 +539,12 @@ def test_dmsct_train_step_on_the_card():
             apply_gradients(st)
 
         module.apply_gradients = record
-        before = wa.warp_adjoint.launches
+        before = counter("warp_adjoint.launches")
         _, logs = module.train_step(state, b, seed=0, metrics=False)
         if device == "cuda":
             torch.cuda.synchronize()
         results[device, dtype] = (float(logs["Training Total Loss"]), grads,
-                                  wa.warp_adjoint.launches - before)
+                                  counter("warp_adjoint.launches") - before)
     _, g64, _ = results["cpu", torch.float64]
     loss_cpu, g_cpu, launches_cpu = results["cpu", torch.float32]
     loss_card, g_card, launches_card = results["cuda", torch.float32]
@@ -573,11 +579,11 @@ def test_window_attention(gen, shape, geom, mode):
         kwargs["shift_windows"] = geom
     elif mode == "mask":
         kwargs["mask"] = wn.geometry_mask(*geom, device="cuda")
-    before = wn.window_attention_fused.launches
+    before = counter("win_attention.launches")
     with torch.no_grad():
         got = wn.window_attention_fused(q, k, v, **kwargs)
         want = wn.window_attention_plain(q, k, v, **kwargs)
-    assert wn.window_attention_fused.launches == before + 1
+    assert counter("win_attention.launches") == before + 1
     assert _rel_err(got, want) <= 1e-4
 
 
@@ -610,11 +616,11 @@ def test_window_sublayer(gen, shape, geom, self_attn):
     xt = xs if self_attn else _randn(gen, *shape)
     w = _sublayer_weights(gen, shape[-1])
     kwargs = {"shift_windows": geom, "add_residual": True} if self_attn else {}
-    before = wn.window_sublayer_fused.launches
+    before = counter("win_sublayer.launches")
     with torch.no_grad():
         got = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
         want = wn.window_sublayer_plain(xs, xt, *w, **kwargs)
-    assert wn.window_sublayer_fused.launches == before + 1
+    assert counter("win_sublayer.launches") == before + 1
     assert _rel_err(got, want) <= 1e-4
 
 
@@ -625,11 +631,11 @@ def test_ffn(gen, shape, f):
     xs, xm = _randn(gen, *shape), _randn(gen, *shape)
     w0, w2 = _randn(gen, 2 * c, f, scale=(2 * c) ** -0.5), _randn(gen, f, c, scale=f**-0.5)
     ns, nb = 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1)
-    before = wn.ffn_fused.launches
+    before = counter("win_ffn.launches")
     with torch.no_grad():
         got = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=True)
         want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=True)
-    assert wn.ffn_fused.launches == before + 1
+    assert counter("win_ffn.launches") == before + 1
     assert _rel_err(got, want) <= 1e-4
 
 
@@ -676,11 +682,11 @@ def test_window_sublayer_gradient_on_the_card(gen):
     grads = {}
     for device in ("cuda", "cpu"):
         ins = [t.to(device).clone().requires_grad_(True) for t in (xs, *w)]
-        before = wn.window_sublayer_fused.launches
+        before = counter("win_sublayer.launches")
         out = wn.window_sublayer_fused(ins[0], ins[0], *ins[1:], shift_windows=geom,
                                        add_residual=True)
         (out * g.to(device)).sum().backward()
-        assert wn.window_sublayer_fused.launches == before + (device == "cuda")
+        assert counter("win_sublayer.launches") == before + (device == "cuda")
         grads[device] = [t.grad.cpu() for t in ins]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert _rel_err(got, want) <= 1e-4
@@ -837,12 +843,12 @@ def test_local_corr_bf16(gen, shape, r, kind):
         flow = torch.where(_randn(gen, b, h, w, 1) > 0.5, flow * 40, flow).contiguous()
     else:
         flow = _b1_flow(gen, kind, b, h, w).contiguous()
-    before = lc.local_correlation_with_flow.bf16_launches
+    before = counter("local_corr.bf16_launches")
     with torch.no_grad():
         got = lc.local_correlation_with_flow(f0, f1, flow, r, corr_dtype=torch.bfloat16)
         again, routes = lc._launch(f0, f1, flow, r, routes=True)
         want = lc.local_correlation_with_flow_plain(f0, f1, flow, r)
-    assert lc.local_correlation_with_flow.bf16_launches == before + 2
+    assert counter("local_corr.bf16_launches") == before + 2
     assert got.dtype == torch.float32 and torch.equal(got, again)
     staged = lc.tile_boxes(flow, r, lc.launch_plan(c, r, 2))["staged"]
     assert torch.equal(routes.bool(), staged)
@@ -897,17 +903,17 @@ def test_window_attention_bf16(gen, shape, geom, mode):
     geom = geom if mode == "shift" else None
     kwargs = {} if mask is None else {"mask": mask}
     routes = _routes(shape, False)
-    before = wn.window_attention_fused.bf16_launches
-    by_route = dict(wn.window_attention_fused.bf16_routes)
+    before = counter("win_attention.bf16_launches")
+    by_route = _route_counts("win_attention")
     with torch.no_grad():
         got = wn.window_attention_fused(q, k, v, shift_windows=geom, **kwargs)
         again = wn.window_attention_fused(q, k, v, shift_windows=geom, **kwargs)
         forced = [wn._launch_attention(q, k, v, mask, shift_windows=geom, route=r)
                   for r in routes]
         want = wn.window_attention_plain(q, k, v, shift_windows=geom, **kwargs)
-    assert wn.window_attention_fused.bf16_launches == before + 2 + len(routes)
+    assert counter("win_attention.bf16_launches") == before + 2 + len(routes)
     plan = wn.attention_plan(shape[1], shape[0]).route
-    assert {r: n - by_route[r] for r, n in wn.window_attention_fused.bf16_routes.items()} == {
+    assert {r: n - by_route[r] for r, n in _route_counts("win_attention").items()} == {
         r: 2 * (r == plan) + (r in routes) for r in wn.ROUTES}
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
     assert all(torch.equal(got, f) for f in forced)
@@ -924,16 +930,16 @@ def test_window_sublayer_bf16(gen, shape, geom, self_attn):
     w = [t.to(torch.bfloat16) if t.ndim == 2 else t for t in _sublayer_weights(gen, shape[-1])]
     kwargs = {"shift_windows": geom, "add_residual": True} if self_attn else {}
     routes = _routes(shape, True)
-    before = wn.window_sublayer_fused.bf16_launches
-    by_route = dict(wn.window_sublayer_fused.bf16_routes)
+    before = counter("win_sublayer.bf16_launches")
+    by_route = _route_counts("win_sublayer")
     with torch.no_grad():
         got = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
         again = wn.window_sublayer_fused(xs, xt, *w, **kwargs)
         forced = [wn._launch_sublayer(xs, xt, *w, route=r, **kwargs) for r in routes]
         want = wn.window_sublayer_plain(xs, xt, *w, **kwargs)
-    assert wn.window_sublayer_fused.bf16_launches == before + 2 + len(routes)
+    assert counter("win_sublayer.bf16_launches") == before + 2 + len(routes)
     plan = wn.attention_plan(shape[1], shape[0], sublayer=True).route
-    assert {r: n - by_route[r] for r, n in wn.window_sublayer_fused.bf16_routes.items()} == {
+    assert {r: n - by_route[r] for r, n in _route_counts("win_sublayer").items()} == {
         r: 2 * (r == plan) + (r in routes) for r in wn.ROUTES}
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
     assert all(torch.equal(got, f) for f in forced)
@@ -985,12 +991,12 @@ def test_ffn_bf16(gen, shape, f, residual):
     w0 = _randn(gen, 2 * c, f, scale=(2 * c) ** -0.5).to(bf)
     w2 = _randn(gen, f, c, scale=f**-0.5).to(bf)
     ns, nb = 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1)
-    before = wn.ffn_fused.bf16_launches
+    before = counter("win_ffn.bf16_launches")
     with torch.no_grad():
         got = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=residual)
         again = wn.ffn_fused(xs, xm, w0, w2, ns, nb, add_residual=residual)
         want = wn.ffn_plain(xs, xm, w0, w2, ns, nb, add_residual=residual)
-    assert wn.ffn_fused.bf16_launches == before + 2
+    assert counter("win_ffn.bf16_launches") == before + 2
     assert got.dtype == bf and torch.equal(got, again)
     assert _bf16_ulps(got, want) <= 2
 
@@ -1006,12 +1012,12 @@ def test_ffn_plan_matches_the_library(gen):
     w0 = _randn(gen, 256, 96).to(torch.bfloat16)
     w2 = _randn(gen, 96, 128).to(torch.bfloat16)
     ns, nb = _randn(gen, 128), _randn(gen, 128)
-    before = wn.ffn_fused.launches
+    before = counter("win_ffn.launches")
     with pytest.raises(ValueError, match="multiple of 64"):
         wn.ffn_fused(x, x, w0, w2, ns, nb)
     with pytest.raises(ValueError, match="multiple of 64"):
         wn.ffn_plan(70, 96)
-    assert wn.ffn_fused.launches == before
+    assert counter("win_ffn.launches") == before
 
 
 def _ffn_probe(symbol, argtypes):
@@ -1063,14 +1069,14 @@ def test_bf16_tokens_need_bf16_weights(gen):
     fall back to the plain version."""
     x = _randn(gen, 8, 35, 128).to(torch.bfloat16)
     w = _sublayer_weights(gen, 128)  # f32 weights
-    before = wn.window_sublayer_fused.launches
+    before = counter("win_sublayer.launches")
     with pytest.raises(ValueError):
         wn.window_sublayer_fused(x, x, *w)
     with pytest.raises(ValueError, match="multiple of 8"):
         f = _randn(gen, 1, 4, 6, 12).to(torch.bfloat16)
         lc.local_correlation_with_flow(f, f, _randn(gen, 1, 4, 6, 2), 1,
                                        corr_dtype=torch.bfloat16)
-    assert wn.window_sublayer_fused.launches == before
+    assert counter("win_sublayer.launches") == before
 
 
 # -- the row-sharded evaluation's halo conv and DCMCS3DI's bf16 train step ----------

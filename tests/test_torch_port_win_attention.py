@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from color_transfer_tpu.ops import win_attention as jw
 from color_transfer_tpu_torch.ops import win_attention as tw
+from color_transfer_tpu_torch.utils.profiling import counter
 from test_torch_port_core import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 ATOL = 1e-5
@@ -440,11 +441,10 @@ def test_guards_route_the_1080p_and_train_scales():
 
 
 def test_cpu_route_launches_no_kernel(rng):
-    counts = [f.launches for f in (tw.window_attention_fused, tw.window_sublayer_fused,
-                                   tw.ffn_fused)]
+    names = [f"{k}.launches" for k in ("win_attention", "win_sublayer", "win_ffn")]
+    counts = [counter(n) for n in names]
     x = _t(_tokens(rng, 4, 8, 32))
     tw.window_attention_fused(x, x, x)
     tw.window_sublayer_fused(x, x, *map(_t, _sublayer_weights(rng, 32)))
     tw.ffn_fused(x, x, *map(_t, _ffn_weights(rng, 32, 64)))
-    assert [f.launches for f in (tw.window_attention_fused, tw.window_sublayer_fused,
-                                 tw.ffn_fused)] == counts
+    assert [counter(n) for n in names] == counts

@@ -7,8 +7,8 @@ fallback):
   1. probe    — card name and power limit, CUDA/nvcc versions; TF32 off.
   2. build    — nvcc builds csrc/local_corr.cu, resb_chain.cu,
                 row_attention.cu, idt_apply.cu, regrain_stencil.cu,
-                warp_adjoint.cu, win_attention.cu, win_sublayer.cu and
-                win_ffn.cu for sm_90a, all nine at once.
+                warp_adjoint.cu, win_attention.cu, win_sublayer.cu,
+                win_ffn.cu and conv3x3.cu for sm_90a, all ten at once.
   3. kernels  — each kernel against its plain torch version on the card,
                 at the main paths' shapes and at a ragged small shape, with
                 timings (CUDA events, warmed up): B1 local correlation at
@@ -94,7 +94,11 @@ fallback):
                 weights of seeds 1 and 2); the
                 fused route's drift stage by stage (transformer, flow, image).
                 A gate verdict is reported, not asserted; every gate row must
-                be finite.
+                be finite. Then conv3x3 (DCMCS3DI's f32 training convs,
+                csrc/conv3x3.cu): forward, input gradient and weight and bias
+                gradients against float64 at the two path shapes and ragged
+                ones (line C3_LINE), two runs bit-equal, each pass timed at
+                the path shapes beside its bound, ATen's route and cuDNN.
  10. train dcmcs3di — runs before phase 9, which reads its checkpoint:
                 ``fit --config configs/dcmcs3di.yaml`` through the CLI at the
                 recipe's full width (18 extraction and 6 transfer ResB
@@ -102,11 +106,13 @@ fallback):
                 off) on a synthetic set of 16 train and 4 validation pairs at
                 288x512 (2 steps an epoch, 3 epochs), once with the chunked
                 training matcher and once with the materialised one: warm
-                ms/step (steps 2-6; step 1 apart), peak memory, no kernel
-                launched, finite losses, every parameter moved, the
+                ms/step (steps 2-6; step 1 apart), peak memory, 50 conv3x3
+                launches of each pass a step and no other kernel, finite
+                losses, every parameter moved, the
                 checkpoints; device ms by span (targets, forward+loss,
                 backward, optimizer), busy share and top kernels of one
-                step; each f32 conv's cuDNN time at the recipe's shape; the
+                step; each f32 conv's cuDNN time at the recipe's shape and
+                its forward on the training route; the
                 two matchers on one batch (the loss 1e-5 relative, each
                 gradient rtol 2e-4 atol 1e-5, JAX's lines); the step at (2,
                 32, 64) against float64 (phase 7's rule); then the bf16
@@ -206,8 +212,11 @@ fallback):
                 losses, the matcher bit-unchanged, the corrector and its BN
                 statistics moved). Prints its time.
 Phases 7 and 10 also hold every distinct f32 conv of their recipe's train
-step, at the recipe's shape, to float64 (tools/conv_grads.py) and time the
-step with the backward through cuDNN and through ATen.
+step, at the recipe's shape, to float64 (tools/conv_grads.py; phase 10 both
+DCMCS3DI recipes, whose 3x3 64 -> 64 f32 convs, the bf16 recipe's matcher
+head's two among them, also through conv3x3's kernels, their own route);
+phase 7 times DMSCT's step with the backward through cuDNN and through
+ATen.
 ``python3 chip_smoke.py --scaling`` (several cards, not part of the
 one-card run) times the NCCL fit over every card against one card, serving
 split over every card against one card, the row-sharded DCMCS3DI evaluation
@@ -244,7 +253,7 @@ KERNEL_RTOL = 1e-4
 STAGE_RTOL = 1e-4
 FRAMES, HEIGHT, WIDTH = 2, 1080, 1920
 KERNELS = ("local_corr", "resb_chain", "row_attention", "idt_apply", "regrain_stencil",
-           "warp_adjoint", "win_attention", "win_sublayer", "win_ffn")
+           "warp_adjoint", "win_attention", "win_sublayer", "win_ffn", "conv3x3")
 # DCMCS3DI at the reference recipe's full width.
 EXTRACTION_LAYERS, TRANSFER_LAYERS, CHANNELS = 18, 6, 64
 # B6 in bf16 against its plain version: both round to bf16 at the same
@@ -383,7 +392,8 @@ def build():
                                   r"kv_projection_kernel|ffn_kernel|pack_weights_kernel|"
                                   r"window_attention_bf16_kernel|sublayer_bf16_kernel|"
                                   r"kv_projection_bf16_kernel|ffn_bf16_kernel|"
-                                  r"warp_adjoint_kernel)((?:I(?:L[ib]\d+E)+)?)", line)
+                                  r"warp_adjoint_kernel|conv3x3_kernel|conv3x3_wgrad_kernel|"
+                                  r"conv3x3_reduce_kernel)((?:I(?:L[ib]\d+E)+)?)", line)
                 if entry:  # e.g. row_attention_bf16 ILi64ELb1ELb0E: <C = 64, out, no colsum>
                     _log(f"  {entry.group(1)} {entry.group(2)}")
                 if "Used" in line or "spill" in line:
@@ -1470,6 +1480,100 @@ def _b7_flow(g, kind, b, h, w):
         60.0 + torch.rand(b, h, w, 2, generator=g) * 500.0)).cuda()
 
 
+# conv3x3 (DCMCS3DI's f32 training convolutions): the extractor's and the
+# matcher head's shape (both views), the transfer net's, ragged ones (H and W
+# off the kernel's 8 x 32 tile, batch 1, narrower than a tile); each pass
+# against float64 within C3_LINE of max|float64| (the float64 rule's ATOL;
+# tests/test_torch_port_kernels_cuda.py states why it holds), two runs
+# bit-equal. Launches a DCMCS3DI f32 train step: 50 of each pass (38 convs at
+# the two-view shape, 12 at the one-view shape), which phase 10 counts and
+# checks.
+C3_SHAPES = ((16, 160, 320, 64), (8, 160, 320, 64), (2, 37, 45, 64), (1, 13, 37, 64),
+             (3, 17, 20, 64))
+C3_LINE = 1e-5
+C3_PER_STEP = 50
+C3_COUNTERS = ("launches", "dgrad_launches", "wgrad_launches")
+
+
+def check_conv3x3(g):
+    """conv3x3's forward, input gradient and weight and bias gradients on
+    the card against float64 F.conv2d and autograd at C3_SHAPES; at the two
+    path shapes each pass timed beside its bound, its plain version (the
+    same call on ATen's route: F.conv2d and ``aten.convolution_backward``
+    with cuDNN off) and cuDNN's f32 conv (TF32 off; the library, which the
+    port never calls for this work). Returns the row at the extractor's
+    shape (ms: the three passes; phase 10 fills in its launches a step,
+    counted in its training run)."""
+    import torch.nn.functional as F
+
+    from color_transfer_tpu_torch.core.precision import conv_route
+    from color_transfer_tpu_torch.ops import conv3x3 as c3
+
+    row = None
+    for shape in C3_SHAPES:
+        x = torch.randn(*shape, generator=g).cuda()
+        gy = torch.randn(*shape, generator=g).cuda()
+        w = (torch.randn(64, 64, 3, 3, generator=g) / 24).cuda()
+        b = torch.randn(64, generator=g).cuda()
+        got = (c3.forward_kernel(x, w, b), c3.input_grad_kernel(gy, w),
+               *c3.weight_grad_kernel(x, gy))
+        again = (c3.forward_kernel(x, w, b), c3.input_grad_kernel(gy, w),
+                 *c3.weight_grad_kernel(x, gy))
+        ref = [t.double().requires_grad_(True) for t in (x, w, b)]
+        y64 = c3.conv3x3_plain(*ref)
+        want = (y64.detach(), *torch.autograd.grad(y64, ref, gy.double()))
+        errs = [float((a.double() - r).abs().max() / r.abs().max()) for a, r in zip(got, want)]
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        _log(f"conv3x3 {shape}: of max|float64| forward {errs[0]:.2e}, input gradient "
+             f"{errs[1]:.2e}, weight gradient {errs[2]:.2e}, bias gradient {errs[3]:.2e} (line "
+             f"{C3_LINE}); two runs bit-equal {same}")
+        if max(errs) > C3_LINE or not same:
+            raise AssertionError(f"conv3x3 {shape} against float64")
+        del ref, y64, want, got, again
+        if shape[1:3] != (160, 320):
+            continue
+        xn, gn = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+
+        def passes():
+            return (lambda: F.conv2d(xn, w, b, padding=1),
+                    lambda: torch.ops.aten.convolution_backward(
+                        gn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                        [True, False, False]),
+                    lambda: torch.ops.aten.convolution_backward(
+                        gn, xn, w, [64], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                        [False, True, True]))
+
+        kernel = [_time_ms(fn) for fn in (lambda: c3.forward_kernel(x, w, b),
+                                          lambda: c3.input_grad_kernel(gy, w),
+                                          lambda: c3.weight_grad_kernel(x, gy))]
+        with conv_route(False):
+            plain = [_time_ms(fn, iters=5) for fn in passes()]
+        with conv_route(True):
+            library = [_time_ms(fn, iters=5) for fn in passes()]
+        bound_ms = c3.flops(*shape[:3]) / PEAK_OPS_PER_S["f32"] * 1e3
+        _log(f"conv3x3 {shape} ms (forward, input gradient, weight gradient): kernel "
+             f"{', '.join(f'{t:.4f}' for t in kernel)}; plain (ATen's route) "
+             f"{', '.join(f'{t:.4f}' for t in plain)}; cuDNN f32 "
+             f"{', '.join(f'{t:.4f}' for t in library)}; bound {bound_ms:.4f} a pass "
+             f"(operations); the kernel at {', '.join(f'{100 * bound_ms / t:.1f}' for t in kernel)}"
+             f"% of it")
+        if row is None:
+            row = {"name": "conv3x3", "route": "cuda",
+                   "source": "color_transfer_tpu_torch/csrc/conv3x3.cu",
+                   "replaces": "none (the JAX package leaves its training convs to XLA)",
+                   "shape": list(shape), "max_rel_err": max(errs), "ms": sum(kernel),
+                   "plain_ms": sum(plain), "pass_ms": kernel, "pass_plain_ms": plain,
+                   "pass_library_ms": library, "launches": None}
+            # the forward and the input gradient each read one (B, H, W, 64)
+            # tensor and write one, the weight gradient reads two (its 147 KB
+            # output and the weights aside)
+            moved = 6 * x.numel() * 4
+            _with_bound(row, moved, {"f32": 3 * c3.flops(*shape[:3])}, sum(library))
+        del x, gy, xn, gn
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_warp_adjoint(g):
     """B7 against its plain version at the four training levels and at
     ragged shapes (C = 5 and 7: the scalar path) on mixed sub-pixel, zero and
@@ -1894,30 +1998,46 @@ def check_conv_grads(recipe):
     of ``recipe`` at its config's batch and crop, full width, and every
     distinct f32 conv of it (tools/conv_grads.py: the step's own input,
     weight and output gradient, its layout) has its input, weight and bias
-    gradients recomputed on the card through cuDNN and through ATen and
-    held to float64 on the CPU: the module's own route (``backward_cudnn``)
-    within TRAIN_F64_RATIO times the CPU float32 error plus 1e-5 of scale,
-    the other route reported. Then the step's cost through each route."""
+    gradients recomputed on the card through cuDNN, through ATen and, for
+    the convs the step ran through ops/conv3x3.py, through its kernels, and
+    held to float64 on the CPU: the module's own route (conv3x3's kernels
+    where the step took them, else ``backward_cudnn``'s) within
+    TRAIN_F64_RATIO times the CPU float32 error plus 1e-5 of scale, the
+    other routes reported. Then, for a step none of whose convs took conv3x3
+    (DMSCT's), the step's cost with its backward through each route; where
+    the 3x3 64 -> 64 convs took the kernels, they keep them on either route,
+    and the comparison would time only the few convs left."""
     from color_transfer_tpu_torch.tools import conv_grads as cg
 
     t0 = time.perf_counter()
     module, state, batch = cg.recipe_step(recipe)
     cases = cg.capture(module, state, batch)
-    routes = {"cudnn": True, "aten": False}
-    own = "cudnn" if module.backward_cudnn else "aten"
-    rows = cg.check(cases, routes)
+    routes = cg.ROUTES
+    rows = cg.check(cases, routes, module)
+    kernel = any(c.kernel for c in cases)
+
+    def shown(row, r):
+        return (f"{r} n/a" if row[r] is None
+                else f"{r} {row[r]:.2e} (excess {row['excess ' + r]:.3f})")
+
     for row in rows:
         _log(f"{recipe} conv grads: {row['case'].describe()} {row['grad']}: CPU f32 "
-             f"{row['cpu']:.2e}, cuDNN {row['cudnn']:.2e} (excess {row['excess cudnn']:.3f}), "
-             f"ATen {row['aten']:.2e} (excess {row['excess aten']:.3f})")
-    worst = {r: max(rows, key=lambda row: row["excess " + r]) for r in routes}
+             f"{row['cpu']:.2e}, " + ", ".join(shown(row, r) for r in routes))
+    worst = {r: max((row for row in rows if row["excess " + r] is not None),
+                    key=lambda row: row["excess " + r], default=None) for r in routes}
     _log(f"{recipe} conv grads: {len(cases)} distinct convs at batch {batch['gt'].shape[0]} x "
          f"{batch['gt'].shape[1]}x{batch['gt'].shape[2]}, {len(rows)} gradients "
-         f"({time.perf_counter() - t0:.1f} s); the step's route {own}; worst excess "
+         f"({time.perf_counter() - t0:.1f} s); worst excess "
          + ", ".join(f"{r} {w['excess ' + r]:.3f} ({w['case'].name} {w['grad']})"
-                     for r, w in worst.items()) + f" (line 1, ratio {cg.RATIO})")
+                     for r, w in worst.items() if w is not None)
+         + f" (line 1, ratio {cg.RATIO})")
     del cases, rows
     torch.cuda.empty_cache()
+    if worst["own"]["excess own"] > 1.0:
+        raise AssertionError(f"{recipe}: a training conv's gradient on the card is further "
+                             "from float64 than the rule allows")
+    if kernel:
+        return
     times = {True: [], False: []}
     for on in (True, False, False, True):
         module.backward_cudnn = on
@@ -1930,9 +2050,6 @@ def check_conv_grads(recipe):
     _log(f"{recipe} conv grads: one recipe step (no quality metrics), backward through "
          f"cuDNN {', '.join(f'{t:.1f}' for t in times[True])} ms, through ATen "
          f"{', '.join(f'{t:.1f}' for t in times[False])} ms (order cuDNN, ATen, ATen, cuDNN)")
-    if worst[own]["excess " + own] > 1.0:
-        raise AssertionError(f"{recipe}: a training conv's gradient on the card is further "
-                             "from float64 than the rule allows")
 
 
 def check_win_kernels(g):
@@ -2313,6 +2430,7 @@ def _fit_dcmcs3di(root, data, fused):
 
     log_dir = root / f"dc_{label}"
     _reset_launches()
+    c3_before = [_total(f"conv3x3.{k}") for k in C3_COUNTERS]
     torch.cuda.reset_peak_memory_stats()
     modules.DCMCS3DIModule.train_step = timed_step
     t0 = time.perf_counter()
@@ -2327,6 +2445,7 @@ def _fit_dcmcs3di(root, data, fused):
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = _launches()
+    c3 = [_total(f"conv3x3.{k}") - n for k, n in zip(C3_COUNTERS, c3_before)]
     if rc != 0:
         raise AssertionError(f"fit ({label}) returned {rc}")
     module, state = held["module"], held["state"]
@@ -2340,11 +2459,15 @@ def _fit_dcmcs3di(root, data, fused):
          f"{DC_BATCH} x {DC_CROP[0]}x{DC_CROP[1]}; step 1 {ms[0]:.1f} ms (logs the quality "
          f"metrics), steps 2-{len(ms)} {', '.join(f'{t:.1f}' for t in warm)}: warm "
          f"{sum(warm) / len(warm):.1f} ms/step; peak memory {peak:.2f} GiB; losses "
-         f"{', '.join(f'{v:.5f}' for v in losses)}; launches {counts}")
+         f"{', '.join(f'{v:.5f}' for v in losses)}; launches {counts}; conv3x3 "
+         f"(forward, input gradient, weight gradient) {c3}")
     if len(steps) != DC_STEPS:
         raise AssertionError(f"fit ({label}) ran {len(steps)} steps, expected {DC_STEPS}")
     if any(counts.values()):
-        raise AssertionError("DCMCS3DI training launched a kernel (it runs none)")
+        raise AssertionError("DCMCS3DI training launched a kernel other than conv3x3")
+    if c3 != [C3_PER_STEP * DC_STEPS] * 3:
+        raise AssertionError(f"fit ({label}): conv3x3 launched {c3}, expected "
+                             f"{C3_PER_STEP} of each pass a step")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
     unmoved = [k for k, v in state.variables.items() if torch.equal(v.detach(), held["start"][k])]
@@ -2362,7 +2485,8 @@ def _fit_dcmcs3di(root, data, fused):
     val = [r["Validation PSNR/dataloader_idx_0"] for r in records
            if "Validation PSNR/dataloader_idx_0" in r]
     _log(f"dcmcs3di train ({label}): validation PSNR by epoch {[round(v, 4) for v in val]}")
-    return module, state, held["batch"], held["seed"], log_dir, sum(warm) / len(warm)
+    return (module, state, held["batch"], held["seed"], log_dir, sum(warm) / len(warm),
+            [n // DC_STEPS for n in c3])
 
 
 def _dc_profile(module, state, batch, seed):
@@ -2397,7 +2521,9 @@ def _dc_profile(module, state, batch, seed):
 def _dc_conv_times():
     """Each f32 conv of a DCMCS3DI train step at the recipe's crop through
     cuDNN with TF32 off, in the path's NHWC layout: forward, and backward
-    (input and weight gradients), beside its operations' rate."""
+    (input and weight gradients), beside its operations' rate; and its
+    forward on the training route (cuDNN off: conv3x3's kernel for the 3x3
+    64 -> 64 convs, ATen for the others)."""
     from color_transfer_tpu_torch.core.precision import full_f32
     from color_transfer_tpu_torch.models.layers import conv
 
@@ -2424,11 +2550,11 @@ def _dc_conv_times():
             total += count * (aten + bwd)
             _log(f"dcmcs3di conv {name} ({b}, {h}, {w}, {c_in}) -> {c_out}, x{count} a step: "
                  f"cuDNN f32 forward {fwd:.3f} ms ({flops / fwd / 1e9:.1f} TFLOP/s), backward "
-                 f"{bwd:.3f} ms ({2 * flops / bwd / 1e9:.1f} TFLOP/s); ATen forward (the "
-                 f"training route) {aten:.3f} ms ({flops / aten / 1e9:.1f} TFLOP/s)")
+                 f"{bwd:.3f} ms ({2 * flops / bwd / 1e9:.1f} TFLOP/s); the training route's "
+                 f"forward {aten:.3f} ms ({flops / aten / 1e9:.1f} TFLOP/s)")
             del x, wt, bias, y, gy
-    _log(f"dcmcs3di conv: a step's convs by these times (ATen forward, cuDNN backward) "
-         f"{total:.1f} ms")
+    _log(f"dcmcs3di conv: a step's convs by these times (the training route's forward, "
+         f"cuDNN's backward) {total:.1f} ms")
 
 
 def _dc_grads(module, state, batch, fused):
@@ -2706,7 +2832,8 @@ def train_dcmcs3di_bf16(root, data, f32_ms):
 def train_dcmcs3di(root):
     """Phase 10: `fit` of configs/dcmcs3di.yaml at its full width through the
     CLI, once with each training matcher; checked and measured. Returns the
-    chunked run's best checkpoint (phase 9 evaluates it)."""
+    chunked run's best checkpoint (phase 9 evaluates it) and its conv3x3
+    launches a step ({forward, input_grad, weight_grad})."""
     from PIL import Image
 
     from color_transfer_tpu_torch.run import cli
@@ -2716,7 +2843,7 @@ def train_dcmcs3di(root):
     _write_dataset(data, splits=(("Train", 16), ("Validation", 4)))
     fitted = {fused: _fit_dcmcs3di(root, data, fused) for fused in (True, False)}
     f32_ms = {fused: fitted[fused][5] for fused in fitted}
-    module, state, batch, seed, log_dir, _ = fitted[True]
+    module, state, batch, seed, log_dir, _, c3_per_step = fitted[True]
     del fitted[False]
     _dc_profile(module, state, batch, seed)
     del module, state
@@ -2726,6 +2853,7 @@ def train_dcmcs3di(root):
     torch.cuda.empty_cache()
     check_dc_train_small()
     check_conv_grads("dcmcs3di")
+    check_conv_grads("dcmcs3di_bf16")
     train_dcmcs3di_bf16(root, data, f32_ms)
     best = log_dir / "checkpoints" / "best"
     pair = root / "dc_pair"
@@ -2743,7 +2871,7 @@ def train_dcmcs3di(root):
          f"{time.perf_counter() - t_phase:.1f} s")
     if rc != 0 or size != (240, 135):
         raise AssertionError("predict from the DCMCS3DI checkpoint failed")
-    return best
+    return best, dict(zip(("forward", "input_grad", "weight_grad"), c3_per_step))
 
 
 def _write_eval_set(root, hw, extra_scene=None, seed=7):
@@ -4649,13 +4777,15 @@ def main():
     check_conv_grads("dmsct")
     rows += check_win_kernels(torch.Generator().manual_seed(3))
     serve_fused(rows, unfused)
+    c3_row = check_conv3x3(torch.Generator().manual_seed(4))  # launches: phase 10's
+    rows.append(c3_row)
     f32 = {k: unfused[k] for k in ("out", "ms_frame", "peak", "stages", "busy")}
     del unfused
     matcher_train_shape()
     gates()
     with tempfile.TemporaryDirectory() as tmp:
         # Phase 10 before phase 9: the evaluation reads its checkpoint.
-        dc_ckpt = train_dcmcs3di(Path(tmp))
+        dc_ckpt, c3_row["launches"] = train_dcmcs3di(Path(tmp))
         evaluate(Path(tmp), dc_ckpt)
         assets(Path(tmp))
     torch.cuda.empty_cache()

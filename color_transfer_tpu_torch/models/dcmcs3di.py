@@ -70,7 +70,13 @@ class Extractor(nn.Sequential):
         self.remat = remat
 
     def forward(self, x):
-        return _blocks(list(self)[1:], self[0](x), self.remat)
+        # The stem's output as a contiguous NHWC tensor: on ATen's route
+        # (f32 training, cuDNN off) it comes back NCHW in memory, and the
+        # residual stream would carry that layout through all 18 blocks and
+        # the matcher head, into every residual add and every conv3x3 call
+        # (a copy a call). Early in the forward, the copy leaves the step's
+        # peak memory as it is (the transfer net's entry, late, would not).
+        return _blocks(list(self)[1:], self[0](x).contiguous(), self.remat)
 
     def fused(self, x):
         """Extraction with the ResB stack through the conv-chain kernel:

@@ -24,6 +24,7 @@ from color_transfer_tpu_torch.core.precision import (
     reduced_conv_route,
     routed_conv2d,
 )
+from color_transfer_tpu_torch.ops.conv3x3 import WEIGHT_SHAPE, conv3x3
 from color_transfer_tpu_torch.parallel.row_attention_sp import conv2d_rows, current_row_shard
 
 
@@ -56,11 +57,14 @@ def conv(x, weight, bias, padding, compute_dtype=None):
     ``parallel.row_attention_sp.row_shard`` ``x`` holds this rank's rows of
     the image and the conv takes its row halos from the neighbours; a
     reduced-precision conv takes ``core.precision.reduced_conv_route``'s
-    backend."""
+    backend. A call that ``takes_conv3x3`` goes to ``ops.conv3x3``."""
+    if compute_dtype in (None, torch.float32):
+        x = x.to(weight.dtype)
+        if takes_conv3x3(x, weight, padding):
+            return conv3x3(x, weight, bias)
     x = x.permute(0, 3, 1, 2)
     rows = current_row_shard()
     if compute_dtype in (None, torch.float32):
-        x = x.to(weight.dtype)
         if rows is None:
             return F.conv2d(x, weight, bias, padding=padding).permute(0, 2, 3, 1)
         y = conv2d_rows(x, weight, padding, rows)
@@ -70,6 +74,20 @@ def conv(x, weight, bias, padding, compute_dtype=None):
     y = (routed_conv2d(x, weight, padding) if rows is None
          else conv2d_rows(x, weight, padding, rows))
     return (y + bias.to(cd)[:, None, None]).permute(0, 2, 3, 1)
+
+
+def takes_conv3x3(x, weight, padding):
+    """Whether ``conv`` runs a float32 call through ``ops.conv3x3.conv3x3``
+    (the implicit-GEMM kernels on a CUDA tensor, their plain version on a
+    CPU tensor): float32 weights of (64, 64, 3, 3), padding 1, no row shard,
+    and cuDNN off, which is ATen's route, the one both training steps set
+    for their f32 convolutions. A float64 reference run, cuDNN's route (f32
+    inference) and every other shape keep F.conv2d. ``padding`` as F.conv2d
+    takes it: an int or a pair."""
+    pad = tuple(padding) if isinstance(padding, (tuple, list)) else (padding, padding)
+    return (x.device.type in ("cuda", "cpu") and weight.dtype == torch.float32
+            and tuple(weight.shape) == WEIGHT_SHAPE and pad == (1, 1)
+            and current_row_shard() is None and not torch.backends.cudnn.enabled)
 
 
 REDUCED = (torch.bfloat16, torch.float16)

@@ -383,18 +383,21 @@ class DCMCS3DIModule:
     backward."""
 
     name = "dcmcs3di"
-    # The train step's backward convolutions through ATen (cuDNN off): at
-    # the recipe's shape cuDNN's weight gradient of the matcher head's
-    # channels-last 3x3 conv lies at 0.83 of the float64 rule's line,
-    # ATen's every gradient under 0.05 of it, for 27-38% of a step
-    # (tools/conv_grads.py; chip_smoke.py phase 10; PERF.md).
+    # The train step's backward convolutions off cuDNN: at the recipe's
+    # shape cuDNN's weight gradient of the matcher head's channels-last 3x3
+    # conv lies at 0.83 of the float64 rule's line. Off cuDNN, the 3x3
+    # 64 -> 64 convs (the ResB stacks and the matcher head's; the bf16
+    # recipe's head too) take the conv3x3 kernels
+    # (models/layers.py::takes_conv3x3), whose worst gradient lies at
+    # 0.048 of the line (the bf16 recipe's head 0.060), and the others
+    # ATen's route, under 0.05 (tools/conv_grads.py on the card; PERF.md).
     backward_cudnn = False
     # The bf16 recipe's bf16 convs (the extraction and transfer stacks),
-    # forward and backward, through cuDNN; its f32 convs (the matcher head,
-    # q/k/v) keep the two routes above. At the recipe's shape cuDNN's bf16
-    # step takes 319 ms against ATen's 631 (chunked matcher), and both keep
-    # the card's step within its lines of the CPU's (chip_smoke.py phase
-    # 10, PERF.md).
+    # forward and backward, through cuDNN; its f32 convs (the matcher
+    # head's on conv3x3, q/k/v through ATen) keep the routes above. At the
+    # recipe's shape cuDNN's bf16 step takes 319 ms against ATen's 631
+    # (chunked matcher), and both keep the card's step within its lines of
+    # the CPU's (chip_smoke.py phase 10, PERF.md).
     reduced_cudnn = True
     # Bucketed evaluation may pass the true width (run/bucketing.py).
     supports_valid_w = True
@@ -460,8 +463,9 @@ class DCMCS3DIModule:
     def train_step(self, state, batch, seed, metrics=True):
         """One Adam update on ``batch`` ({'gt', 'reference'} (B, H, W, 3) on
         the state's device): distort the gt into the target (a CPU generator
-        seeded with ``seed``), forward and backward with the f32 convs
-        through ATen (``backward_cudnn``) and the bf16 recipe's bf16 convs on
+        seeded with ``seed``), forward and backward with the f32 convs off
+        cuDNN (``backward_cudnn``: the 3x3 64 -> 64 convs on the conv3x3
+        kernels, the others through ATen) and the bf16 recipe's bf16 convs on
         ``reduced_cudnn``'s route, losses, step; TF32 off. Returns (state, logs) under the JAX
         package's names; the quality metrics only when ``metrics``. Under a
         process group ``batch`` is this rank's rows of the global batch."""
@@ -470,10 +474,12 @@ class DCMCS3DIModule:
               step_shard(batch["gt"].shape[0]) as shard):
             with profiling.annotate("train.distort"):
                 batch = self.synthesize_targets(batch, torch.Generator().manual_seed(seed))
-            # The forward's convs run through ATen, not cuDNN: with cuDNN's
-            # f32 forward algorithms the step's gradients lie up to 1.5e-4 of
-            # their scale from a float64 run, with ATen's 1.4e-6; ATen costs
-            # 3-10% of a recipe step (chip_smoke.py phase 10, PERF.md).
+            # The forward's f32 convs stay off cuDNN: with cuDNN's f32
+            # forward algorithms the step's gradients lie up to 1.5e-4 of
+            # their scale from a float64 run, off it 1.4e-6 through ATen,
+            # 7.1e-7 with conv3x3 (chip_smoke.py phase 10, PERF.md). Off
+            # cuDNN the 3x3 64 -> 64 convs take the conv3x3 kernel, which
+            # sums in the order of ATen's GEMM, the others ATen.
             with conv_route(False), profiling.annotate("train.forward"):
                 corrected, total, parts = self.forward_loss(state, batch)
             with conv_route(self.backward_cudnn), profiling.annotate("train.backward"):

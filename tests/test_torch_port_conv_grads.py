@@ -12,6 +12,8 @@ the CPU against float64 under the rule; each module's train step runs its
 backward convolutions through the route its ``backward_cudnn`` names.
 """
 
+import types
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -22,6 +24,7 @@ from color_transfer_tpu_torch.tools import conv_grads as cg
 from test_torch_port_core import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 SMALL = {"dcmcs3di": dict(extraction_layers=2, transfer_layers=1, channels=8),
+         "dcmcs3di_bf16": dict(extraction_layers=2, transfer_layers=1, channels=8),
          "dmsct": dict(matcher_num_layers=1, matcher_num_reg_refine=1)}
 CROP = dict(batch_size=2, crop=(32, 64))
 
@@ -61,21 +64,42 @@ def test_gradients_are_autograds(groups, stride):
     want = torch.autograd.grad(y, (x, w, b), gy)
     case = cg.ConvCase("conv", x.detach(), w.detach(), True, (stride, stride), (1, 1), (1, 1),
                        groups, gy=gy)
-    for got, ref in zip(cg.gradients(case, "cpu", torch.float32, True), want):
+    for got, ref in zip(cg.gradients(case, "cpu", torch.float32, "cudnn"), want):
         assert torch.equal(got, ref)
     assert (f"groups {groups}" in case.describe()) == (groups > 1)
     assert (f"stride {stride}" in case.describe()) == (stride > 1)
 
 
-@pytest.mark.parametrize("recipe", ["dcmcs3di", "dmsct"])
+@pytest.mark.parametrize("recipe", ["dcmcs3di", "dcmcs3di_bf16", "dmsct"])
 def test_check_holds_the_cpu_to_float64(recipe):
     module, state, batch = _step(recipe)
     cases = cg.capture(module, state, batch)[:6]
-    rows = cg.check(cases, {"cpu": True}, device="cpu")
+    rows = cg.check(cases, ("cudnn",), device="cpu")
     assert {r["grad"] for r in rows} <= set(cg.GRADS) and len(rows) >= 2 * len(cases)
     for r in rows:
         assert r["cpu"] == r["cpu"] and r["cpu"] < 1e-5  # float32 against float64
-        assert r["excess cpu"] <= 1.0 / cg.RATIO
+        assert r["excess cudnn"] <= 1.0 / cg.RATIO
+
+
+def test_capture_skips_reduced_precision_convs():
+    """The bf16 recipe's cases are its f32 convs, the matcher's: its head's
+    ResB (two calls of one shape) and its query (both views) and value 1x1
+    convs."""
+    module, state, batch = _step("dcmcs3di_bf16")
+    cases = cg.capture(module, state, batch)
+    assert all(c.x.dtype == torch.float32 for c in cases)
+    assert {c.name: c.calls for c in cases} == {"matcher.head.body.0": 2, "matcher.query": 2,
+                                                "matcher.value": 1}
+
+
+@pytest.mark.parametrize("kernel,cudnn,want", [(True, False, "kernel"), (True, True, "kernel"),
+                                               (False, False, "aten"), (False, True, "cudnn")])
+def test_own_route(kernel, cudnn, want):
+    """The module's own route of a case: the kernels for a call that ran
+    through conv3x3, else its ``backward_cudnn``'s."""
+    case = cg.ConvCase("conv", torch.zeros(1, 1, 3, 3), torch.zeros(1, 1, 3, 3), False,
+                       (1, 1), (1, 1), (1, 1), 1, kernel=kernel)
+    assert cg.own_route(case, types.SimpleNamespace(backward_cudnn=cudnn)) == want
 
 
 class _Backends(TorchDispatchMode):

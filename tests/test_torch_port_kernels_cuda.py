@@ -28,6 +28,10 @@ global BatchNorm moments), exactly. The row-sharded evaluation's halo
 conv (two gloo ranks, 8 rows each) against the unsharded conv: f32 1e-5
 of scale, bf16 one ulp. DCMCS3DI's bf16 train step, the card against the
 CPU stage by stage on each conv route (chip_smoke.py's DC_BF16_ULPS).
+conv3x3 (DCMCS3DI's f32 training convs): the output and the input, weight
+and bias gradients against float64 within 1e-5 of max|float64| (C3_LINE
+says why it holds), on contiguous NHWC inputs and permuted views, two runs
+bit-equal, one launch of each kernel a call.
 """
 
 import math
@@ -35,6 +39,7 @@ import math
 import pytest
 import torch
 
+from color_transfer_tpu_torch.ops import conv3x3 as c3
 from color_transfer_tpu_torch.ops import conv_chain as cc
 from color_transfer_tpu_torch.ops import idt_apply as ia
 from color_transfer_tpu_torch.ops import local_corr as lc
@@ -713,27 +718,111 @@ def test_no_fallback_on_bad_input(gen):
     tokens = torch.zeros(4, 8, 32, device="cuda")
     with pytest.raises(ValueError):  # the kernels take C = 128
         wn.window_attention_fused(tokens, tokens, tokens)
+    with pytest.raises(ValueError):  # conv3x3 takes 64 channels
+        c3.conv3x3(torch.zeros(1, 4, 5, 32, device="cuda"),
+                   torch.zeros(64, 64, 3, 3, device="cuda"))
+    with pytest.raises(ValueError):  # and float32 only
+        c3.conv3x3(torch.zeros(1, 4, 5, 64, device="cuda", dtype=torch.float64),
+                   torch.zeros(64, 64, 3, 3, device="cuda", dtype=torch.float64))
     with pytest.raises(ValueError):  # and float32 only
         wn.ffn_fused(*(torch.zeros(4, 8, 128, device="cuda", dtype=torch.bfloat16),) * 2,
                      torch.zeros(256, 64, device="cuda"), torch.zeros(64, 128, device="cuda"),
                      torch.ones(128, device="cuda"), torch.zeros(128, device="cuda"))
 
 
-@pytest.mark.parametrize("recipe", ["dcmcs3di", "dmsct"])
+@pytest.mark.parametrize("recipe", ["dcmcs3di", "dcmcs3di_bf16", "dmsct"])
 def test_training_conv_gradients_float64_rule(gen, recipe):
     """One full-width train step of each recipe at its config's batch and
     crop: every distinct f32 conv's gradients, recomputed through the
-    module's backward route from the step's own tensors, against float64 on
-    the CPU."""
+    module's backward route (DCMCS3DI's 3x3 64 -> 64 convs through the
+    conv3x3 kernels) from the step's own tensors, against float64 on the
+    CPU."""
     from color_transfer_tpu_torch.tools import conv_grads as cg
 
     module, state, batch = cg.recipe_step(recipe)
     cases = cg.capture(module, state, batch)
     del state, batch
-    rows = cg.check(cases, {"own": module.backward_cudnn})
+    rows = cg.check(cases, ("own",), module)
     worst = max(rows, key=lambda r: r["excess own"])
     assert worst["excess own"] <= 1.0, (worst["case"].describe(), worst["grad"],
                                         worst["own"], worst["cpu"])
+
+
+# -- conv3x3: DCMCS3DI's f32 training convolutions -----------------------------
+
+# The extractor's and the matcher head's shape (both views stacked), the
+# transfer net's, and ragged ones: H and W off the 8 x 32 tile, batch 1, an
+# image narrower than a tile.
+C3_SHAPES = [(16, 160, 320, 64), (8, 160, 320, 64), (2, 37, 45, 64), (1, 13, 37, 64),
+             (3, 17, 20, 64), (1, 5, 7, 64)]
+# Each output of the forward is one f32 sum of 576 products in ATen's order,
+# of the input gradient four sums of 144 added in order, each weight
+# gradient a thread's f32 sum over a band of pixels (~9,300 at the
+# extractor's shape) and then the bands' sums: rounding of ~sqrt(n) eps of
+# the terms. Measured on the card (PERF.md): at most 1.8e-6 of max|float64|
+# at the full shapes, the forward's as ATen's own f32 GEMM. The line is the
+# float64 rule's ATOL (tools/conv_grads.py), 1e-5 of max|float64|.
+C3_LINE = 1e-5
+
+
+def _c3_inputs(gen, shape, layout):
+    b, h, w, c = shape
+    if layout == "nhwc":
+        x = _randn(gen, *shape)
+        gy = _randn(gen, *shape)
+    else:  # NCHW tensors seen as NHWC
+        x = _randn(gen, b, c, h, w).permute(0, 2, 3, 1)
+        gy = _randn(gen, b, c, h, w).permute(0, 2, 3, 1)
+    return x, _randn(gen, 64, 64, 3, 3, scale=1 / 24), _randn(gen, 64), gy
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "permuted"])
+@pytest.mark.parametrize("shape", C3_SHAPES)
+def test_conv3x3(gen, shape, layout):
+    """The output, input, weight and bias gradients of conv3x3 (its
+    autograd Function on the card) against float64 F.conv2d and autograd;
+    one launch of each kernel a call."""
+    x, w, b, gy = _c3_inputs(gen, shape, layout)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    before = [counter(n) for n in ("conv3x3.launches", "conv3x3.dgrad_launches",
+                                   "conv3x3.wgrad_launches")]
+    y = c3.conv3x3(*leaves)
+    got = (y, *torch.autograd.grad(y, leaves, gy))
+    after = [counter(n) for n in ("conv3x3.launches", "conv3x3.dgrad_launches",
+                                  "conv3x3.wgrad_launches")]
+    assert [a - c for a, c in zip(after, before)] == [1, 1, 1]
+    ref = [t.double().requires_grad_(True) for t in (x, w, b)]
+    y64 = c3.conv3x3_plain(*ref)
+    want = (y64, *torch.autograd.grad(y64, ref, gy.double()))
+    for name, a, r in zip(("y", "gx", "gw", "gb"), got, want):
+        assert a.shape == r.shape and a.dtype == torch.float32
+        err = float((a.detach().double() - r.detach()).abs().max() / r.detach().abs().max())
+        assert err <= C3_LINE, (name, err)
+
+
+@pytest.mark.parametrize("shape", [(16, 160, 320, 64), (8, 160, 320, 64)])
+def test_conv3x3_forward_is_atens(gen, shape):
+    """The forward sums each output's products in the order of ATen's
+    im2col GEMM, the route it replaces (cuDNN off, TF32 off): the same bits
+    at the training step's two shapes. Not at every shape: at (3, 17, 20,
+    64) (340 pixels an image) the two differ, cuBLAS summing there in
+    another order."""
+    from color_transfer_tpu_torch.core.precision import conv_route, full_f32
+
+    x, w, b, _ = _c3_inputs(gen, shape, "nhwc")
+    with full_f32(), conv_route(False):
+        want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1)
+    assert torch.equal(c3.forward_kernel(x, w, b), want.permute(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("shape", [(16, 160, 320, 64), (3, 17, 20, 64)])
+def test_conv3x3_runs_bit_equal(gen, shape):
+    """No float atomics: two calls of each kernel give the same bits."""
+    x, w, b, gy = _c3_inputs(gen, shape, "nhwc")
+    runs = [(c3.forward_kernel(x, w, b), c3.input_grad_kernel(gy, w),
+             *c3.weight_grad_kernel(x, gy)) for _ in range(2)]
+    for a, r in zip(*runs):
+        assert torch.equal(a, r)
 
 
 # -- data parallelism on the card ---------------------------------------------

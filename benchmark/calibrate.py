@@ -29,7 +29,7 @@ from benchmark.traffic import fit_pool, serve_clip
 
 def serve_seed(cell, seed, device):
     config, mix = cell.config, cell.traffic
-    weights = serve.setup_weights(config, seed, device)
+    weights = serve.setup_weights(cell, seed, device)
     module, serve_fn = serve.program(config, weights, device)
     clip = serve_clip(mix, seed, device)
     capture = serve.Capture(module.model, config["capture"])
@@ -39,10 +39,10 @@ def serve_seed(cell, seed, device):
     capture.close()
     del module, serve_fn
     free(device)
-    program = serve.gaps(kept, clip, config, weights, device)
+    program = serve.gaps(kept, clip, cell, weights, device)
     del kept
-    control_kept = serve.reference_frames(config, weights, clip, idxs, device, tf32=True)
-    control = serve.gaps(control_kept, clip, config, weights, device)
+    control_kept = serve.reference_frames(cell, weights, clip, idxs, device, tf32=True)
+    control = serve.gaps(control_kept, clip, cell, weights, device)
     return {"program": program, "control": control}
 
 
@@ -52,14 +52,14 @@ def fit_seed(cell, seed, device):
     ranks in the cell's own runs, reads the fault in the reference put in
     the program's place."""
     config, mix = cell.config, cell.traffic
-    weights = serve.setup_weights(config, seed, device)
+    weights = serve.setup_weights(cell, seed, device)
     pool = fit_pool(mix, seed, device)
     n = mix["check_steps"]
-    ref = fit.reference_steps(config, weights, pool, seed, n, device)
+    ref = fit.reference_steps(cell, weights, pool, seed, n, device)
     out = {}
     if cell.chips == 1:
         for name, fault in (("program", None), ("half_batch", "half_batch")):
-            with plant(fault):
+            with plant(fault, config):
                 module, state = fit.program_state(config, weights, pool[0])
                 step = fit.stepper(module, state, pool, seed, mix)
                 out[name] = fit.compare(fit.check_steps(step, state, weights, n), ref)
@@ -68,8 +68,8 @@ def fit_seed(cell, seed, device):
     else:
         half = [{k: v[:v.shape[0] // 2] for k, v in b.items()} for b in pool]
         out["half_batch"] = fit.compare(
-            fit.reference_steps(config, weights, half, seed, n, device), ref)
-    control = fit.reference_steps(config, weights, pool, seed, n, device, tf32=True)
+            fit.reference_steps(cell, weights, half, seed, n, device), ref)
+    control = fit.reference_steps(cell, weights, pool, seed, n, device, tf32=True)
     out["control"] = fit.compare(control, ref)
     return out
 

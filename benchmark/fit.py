@@ -19,7 +19,6 @@ are held to the cell's limits:
     under a thousandth of the median leaf's: Adam moves them by round-off.
 """
 
-import importlib
 import math
 import time
 from contextlib import nullcontext
@@ -73,12 +72,12 @@ def _gap(prog, ref, names):
     return max(abs(prog[k] - ref[k]) / max(ref[k], median, 1e-30) for k in names)
 
 
-def reference_steps(config, weights, pool, seed, steps, device, tf32=False):
+def reference_steps(cell, weights, pool, seed, steps, device, tf32=False):
     """The reference's first ``steps`` steps -> (losses, first gradients,
     changes, running statistics' changes)."""
-    ref_mod = importlib.import_module(f"benchmark.reference.{config['reference']}")
     from benchmark.reference.distortions import distort_batch
 
+    ref_mod, config = cell.reference(), cell.config
     model = ref_mod.build(config).to(device)
     model.load_state_dict(weights)
     model.train()
@@ -199,7 +198,7 @@ def run(cell, seed, seconds, trace_on, device, t_process, readers=None):
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if world > 1 else 0
     marks = [("start", t_process), ("imports", time.perf_counter())]
-    weights = setup_weights(config, seed, device)
+    weights = setup_weights(cell, seed, device)
     sync(device)
     marks.append(("weights", time.perf_counter()))
     pool = fit_pool(mix, seed, device)
@@ -267,7 +266,7 @@ def run(cell, seed, seconds, trace_on, device, t_process, readers=None):
     if rank != 0:
         return None
 
-    ref = reference_steps(config, weights, pool, seed, mix["check_steps"], device)
+    ref = reference_steps(cell, weights, pool, seed, mix["check_steps"], device)
     numbers = compare(prog, ref)
     if world > 1:
         numbers["ranks_differ"] = differ

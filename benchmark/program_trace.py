@@ -8,10 +8,11 @@ untraced runs that decide the end-to-end metrics run with the recorder off.
 
 The recorder stamps a span's host start and end with ``time.time_ns()``;
 torch.profiler stamps its device events on the same clock (in us in
-``run.digest["device_events"]``). One snapshot a run, shared by every
-reader: the records whose host interval overlaps [first start, last end] of
-the window's device events, which leaves out set-up's spans and those of
-the labelling pass after the window. Two readings of it:
+``run.digest["device_events"]``). A run's view (``run.RunView``) carries the
+records, taken once the run has ended; a reader reads the window's: those
+whose host interval overlaps [first start, last end] of the window's device
+events, which leaves out set-up's spans and those of the labelling pass
+after the window. Two readings of them:
 
   * ``device_ms``: a span's device ms (its CUDA event pair), summed;
   * ``idle_ms``: the device's idle time (the gaps in the union of the
@@ -50,8 +51,6 @@ if _profiling is not None and hasattr(_profiling, "records"):
 else:  # a program that has no recorder
     records = _no_records
 
-_snapshot = {}  # id(digest) -> (digest, every record, the window's records)
-
 
 def window(recs, device_events):
     """The records whose host interval overlaps [first start, last end] of
@@ -63,18 +62,9 @@ def window(recs, device_events):
     return [r for r in recs if r.end_ns / 1e3 > lo and r.start_ns / 1e3 < hi]
 
 
-def _take(run):
-    digest = run.digest
-    if id(digest) not in _snapshot:
-        _snapshot.clear()
-        recs = records()
-        _snapshot[id(digest)] = (digest, recs, window(recs, digest["device_events"]))
-    return _snapshot[id(digest)]
-
-
 def snapshot(run):
-    """The run's window of the port's records, taken once a run."""
-    return _take(run)[2]
+    """The run's records inside its window."""
+    return window(run.records, run.digest["device_events"])
 
 
 def _merged(intervals):
@@ -151,5 +141,5 @@ def calls_per_unit(run, prefix, root):
     over those units; the window's edges cut no unit's spans. None where
     there is none."""
     units = {r.unit for r in snapshot(run) if r.name == root}
-    n = sum(r.name.startswith(prefix) and r.unit in units for r in _take(run)[1])
+    n = sum(r.name.startswith(prefix) and r.unit in units for r in run.records)
     return n / len(units) if n else None

@@ -37,7 +37,7 @@ def _worker(rank, port, cell, seed, seconds, trace_on, t_process, device, fault)
     device = f"cuda:{rank}" if device == "cuda" else device
     initialize_distributed(f"localhost:{port}", cell.chips, rank, device=device,
                            timeout=COLLECTIVE_TIMEOUT_S)
-    with plant(fault):
+    with plant(fault, cell.config):
         result, notes = execute(cell, seed, seconds, trace_on, device, t_process)
     return report(result, notes) if rank == 0 else 0
 

@@ -12,12 +12,14 @@ def idle_pct(run):
 
 
 def mfu_pct(run):
-    """Model FLOPs utilisation of the whole step, in percent: the
-    configuration's FLOPs a frame or a training step (stored in its file:
-    ``torch.utils.flop_counter`` over the plain reference at the cell's shape,
+    """Model FLOPs utilisation of the whole step, in percent: the cell's
+    FLOPs a frame or a training step (``flops/<cell>.json``:
+    ``peaks.reference_flops``, the plain reference at the cell's shape,
     recounted by a test; a training step counts its forward and backward, no
-    recomputation; a cell without a count fails) times
-    the window's rate, over the data-sheet float32 peak of the chips used
-    (67 TFLOP/s each, the recipe's precision with TF32 off)."""
+    recomputation; None for a cell without a count) times the window's
+    rate, over the data-sheet float32 peak of the chips used (67 TFLOP/s
+    each, the recipe's precision with TF32 off)."""
+    if run.flops_per_unit is None:
+        return None
     rate = run.units / run.window_s
     return 100.0 * run.flops_per_unit * rate / (PEAK_OPS_PER_S["f32"] * run.chips)

@@ -243,7 +243,15 @@ def build(config):
 
 
 def serve(model, target, reference):
+    """-> (corrected frame, the matcher's outputs)."""
     return model(target, reference)
+
+
+# The serving outputs the output check compares beside the corrected frame,
+# where the configuration captures them: {number: (output, rule of
+# benchmark/serve.py's RULES)}. The flow's widest gap in pixels, and the
+# share of forward-occlusion pixels that differ.
+SERVE_OUTPUTS = {"flow_max_px": ("flow", "max_abs"), "occ_mismatch": ("fwd_occ", "differ_share")}
 
 
 def trainable(name):

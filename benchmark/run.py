@@ -68,7 +68,11 @@ def execute(cell, seed, seconds, trace_on, device, t_process=None):
         return None, []
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     if trace_on:
-        run = RunView(cell, out)
+        # The port's span records: the readers that read them imported
+        # program_trace before set-up, which turned the recorder on.
+        from benchmark import program_trace
+
+        run = RunView(cell, out, program_trace.records())
         values = {name: r.read(run) for name, r in readers.items()}
     else:
         values = {m["name"]: out.e2e[m["name"]] for m in cell.end_to_end}
@@ -92,13 +96,16 @@ def execute(cell, seed, seconds, trace_on, device, t_process=None):
 
 
 class RunView:
-    """What a per-layer reader sees of a traced run."""
+    """What a per-layer reader sees of a traced run: the cell's FLOPs a frame
+    or step (None where the cell has no count), the spans recorded from
+    outside, the device trace's digest and the port's own span records."""
 
-    def __init__(self, cell, out):
+    def __init__(self, cell, out, records=()):
         self.chips, self.units, self.window_s = cell.chips, out.units, out.window_s
         self.spans, self.span_shapes = out.spans or {}, out.span_shapes or {}
         self.digest = out.digest
-        self.flops_per_unit = cell.config["flops"][cell.traffic_name]["flops"]
+        self.records = list(records)
+        self.flops_per_unit = cell.flops["flops"] if cell.flops else None
 
 
 def main(argv=None):

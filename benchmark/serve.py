@@ -6,12 +6,15 @@ corrected frame back to host memory, as a video job does.
 Set-up draws the weights and the clip from the seed and serves
 ``warmup_frames`` frames. The window serves the clip's frames in turn until
 ``--seconds`` have passed. A seeded reservoir keeps ``check_frames`` of the
-window's frames, with what the matcher gave for them; once the window has
-closed, the reference recomputes those frames from the same inputs and
-weights and the gaps are held to the cell's limits."""
+window's frames, with the outputs the configuration captures (its
+``capture``: {submodule: [output, ...]}, which may be empty); once the
+window has closed, the reference recomputes those frames from the same
+inputs and weights and the gaps are held to the cell's limits: the
+corrected frame's always, and each captured output that the reference
+module's ``SERVE_OUTPUTS`` names ({number: (output, rule)}, a rule of
+``RULES``)."""
 
 import contextlib
-import importlib
 import time
 import numpy as np
 import torch
@@ -23,15 +26,10 @@ from benchmark.traffic import serve_clip
 from benchmark.weights import derive, draw, shapes_of
 
 
-def reference_module(config):
-    return importlib.import_module(f"benchmark.reference.{config['reference']}")
-
-
-def setup_weights(config, seed, device):
-    ref = reference_module(config)
+def setup_weights(cell, seed, device):
     with torch.device("meta"):
-        shapes = shapes_of(ref.build(config))
-    return draw(shapes, config["init"], seed, device)
+        shapes = shapes_of(cell.reference().build(cell.config))
+    return draw(shapes, cell.config["init"], seed, device)
 
 
 class Capture:
@@ -72,12 +70,12 @@ def program(config, weights, device):
     return module, serve
 
 
-def reference_frames(config, weights, clip, idxs, device, tf32=False):
-    """The reference's own [(clip index, corrected frame, matcher outputs)]
-    for the clip frames ``idxs``. In TF32 it stands in for the program as
-    the control."""
-    ref_mod = reference_module(config)
-    ref = ref_mod.build(config).to(device)
+def reference_frames(cell, weights, clip, idxs, device, tf32=False):
+    """The reference's own [(clip index, corrected frame, its outputs)] for
+    the clip frames ``idxs``. In TF32 it stands in for the program as the
+    control."""
+    ref_mod = cell.reference()
+    ref = ref_mod.build(cell.config).to(device)
     ref.load_state_dict(weights)
     ref.eval()
     kept = []
@@ -85,32 +83,42 @@ def reference_frames(config, weights, clip, idxs, device, tf32=False):
         t = torch.from_numpy(clip[0][idx:idx + 1]).to(device)
         r = torch.from_numpy(clip[1][idx:idx + 1]).to(device)
         with torch.no_grad(), precision(tf32):
-            out, match = ref_mod.serve(ref, t, r)
-        kept.append((idx, out.cpu().numpy(), match))
+            out, outputs = ref_mod.serve(ref, t, r)
+        kept.append((idx, out.cpu().numpy(), outputs))
     return kept
 
 
-def gaps(kept, clip, config, weights, device):
-    """The reference on the kept frames -> {number: value}. ``kept``:
-    [(clip index, corrected frame, matcher outputs)] of the program (or of
-    the control)."""
-    want = reference_frames(config, weights, clip, [k[0] for k in kept], device)
-    frame, frame_mean, flow, occ = 0.0, [], 0.0, 0.0
-    for (_, out, match), (_, ref_out, ref_match) in zip(kept, want):
+# How a captured output is held to the reference's, worst frame first.
+RULES = {
+    "max_abs": lambda got, want: float((got - want).abs().max()),  # the widest gap
+    "differ_share": lambda got, want: float((got != want).float().mean()),  # elements that differ
+}
+
+
+def gaps(kept, clip, cell, weights, device):
+    """The reference on the kept frames -> {number: value}: the corrected
+    frame's widest and mean gap, and each output the reference module's
+    ``SERVE_OUTPUTS`` compares where the configuration captures it, by its
+    rule, the worst kept frame's. ``kept``: [(clip index, corrected frame,
+    captured outputs)] of the program (or of the control)."""
+    want = reference_frames(cell, weights, clip, [k[0] for k in kept], device)
+    captured = {k for keys in cell.config["capture"].values() for k in keys}
+    compared = {number: (output, RULES[rule]) for number, (output, rule)
+                in getattr(cell.reference(), "SERVE_OUTPUTS", {}).items() if output in captured}
+    frame, frame_mean, outputs = 0.0, [], dict.fromkeys(compared, 0.0)
+    for (_, out, got), (_, ref_out, ref_got) in zip(kept, want):
         d = np.abs(out - ref_out)
         frame = max(frame, float(d.max()))
         frame_mean.append(float(d.mean()))
-        flow = max(flow, float((match["flow"] - ref_match["flow"]).abs().max()))
-        occ = max(occ, float((match["fwd_occ"] != ref_match["fwd_occ"]).float().mean()))
-    numbers = {"frame_max_abs": frame, "frame_mean_abs": float(np.mean(frame_mean)),
-               "flow_max_px": flow, "occ_mismatch": occ}
-    return numbers
+        for number, (output, rule) in compared.items():
+            outputs[number] = max(outputs[number], rule(got[output], ref_got[output]))
+    return {"frame_max_abs": frame, "frame_mean_abs": float(np.mean(frame_mean)), **outputs}
 
 
 def run(cell, seed, seconds, trace_on, device, t_process, readers=None):
     config, mix = cell.config, cell.traffic
     marks = [("start", t_process), ("imports", time.perf_counter())]
-    weights = setup_weights(config, seed, device)
+    weights = setup_weights(cell, seed, device)
     sync(device)
     marks.append(("weights", time.perf_counter()))
     module, serve = program(config, weights, device)
@@ -171,7 +179,7 @@ def run(cell, seed, seconds, trace_on, device, t_process, readers=None):
     free(device)
 
     kept = [k for k in kept if k is not None]
-    numbers = gaps(kept, clip, config, weights, device)
+    numbers = gaps(kept, clip, cell, weights, device)
     lat_ms = np.asarray(latencies) * 1e3
     frames = len(latencies)
     return Outcome(

@@ -42,6 +42,7 @@ def test_control_and_faults_fail(name, seed):
     cell = cell_mod.load(name)
     read = {"serve": calibrate.serve_seed, "fit": calibrate.fit_seed}[cell.traffic["kind"]]
     out = read(cell, seed, device)
+    print(json.dumps({"workload": name, "seed": seed, **out}))
     if "program" in out:
         assert _passes(out["program"], cell.limits), out
     assert not _passes(out["control"], cell.limits), out

@@ -1,15 +1,15 @@
 """The benchmark's files against its own rules: what it imports, the layout
-``BENCHMARK.json`` names, and the FLOP counts the configurations keep."""
+``BENCHMARK.json`` names, and the FLOP counts the cells keep."""
 
 import ast
 import json
 import re
 
 import pytest
-import torch
 
 from benchmark import cell as cell_mod
 from benchmark.cell import HERE, ROOT
+from benchmark.peaks import reference_flops
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -80,44 +80,33 @@ def test_every_cell_finds_its_files(cell):
     for m in c.per_layer:
         assert m["moves"] in {e["name"] for e in c.end_to_end}
     assert set(c.readers()) == {m["name"] for m in c.per_layer}
+    if any(m["name"].startswith("mfu") for m in c.per_layer):  # the count it reads
+        assert c.flops is not None
+
+
+def _sizes(data):
+    """A configuration's keys and those of its ``sizes``."""
+    return {**data, **data.get("sizes", {})}
 
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file(config):
+    """The file is the entry's, and every key ``reduced`` lists is in it with
+    its published value beside it (``published``), which it departs from."""
     data = json.loads((ROOT / config["file"]).read_text())
     assert data["name"] == config["name"] and data["source"] == config["source"]
-    assert data["reduced"] == config["reduced"] == []
-
-
-def _count(config, traffic, entry):
-    """FLOPs of one frame or step of the reference at the stored shape, on
-    fake tensors (nothing allocated)."""
-    import importlib
-
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.utils.flop_counter import FlopCounterMode
-
-    ref = importlib.import_module(f"benchmark.reference.{config['reference']}")
-    with FakeTensorMode():
-        model = ref.build(config)
-        x = {k: torch.rand(*entry["shape"]) for k in ("gt", "target", "reference")}
-        with FlopCounterMode(display=False) as counter:
-            if traffic["kind"] == "serve":
-                model.eval()
-                with torch.no_grad():
-                    ref.serve(model, x["target"], x["reference"])
-            else:
-                model.train()
-                loss = ref.train_loss(model, x, None)
-                torch.autograd.grad(loss, [p for n, p in model.named_parameters()
-                                           if ref.trainable(n)])
-    return counter.get_total_flops()
+    assert data["reduced"] == config["reduced"]
+    published = data.get("published", {})
+    for key in config["reduced"]:
+        assert key in _sizes(data) and key in published, key
+        assert _sizes(data)[key] != published[key], key
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_stored_flops_recount(cell):
     c = cell_mod.load(cell)
-    entry = c.config["flops"][c.traffic_name]
+    entry = c.flops
+    assert entry["per"] == {"serve": "frame", "fit": "step"}[c.traffic["kind"]]
     b = c.traffic.get("batch", 1)  # serving hands over one frame pair a call
     assert entry["shape"] == [b, c.traffic["height"], c.traffic["width"], 3]
-    assert _count(c.config, c.traffic, entry) == entry["flops"]
+    assert reference_flops(c, entry["shape"]) == entry["flops"]

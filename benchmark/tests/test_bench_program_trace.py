@@ -22,9 +22,8 @@ READERS = {  # metric -> the span names it reads
 
 
 @pytest.fixture(autouse=True)
-def fresh(monkeypatch):
-    """Each test's own snapshot; the recorder off again after it."""
-    monkeypatch.setattr(pt, "_snapshot", {})
+def fresh():
+    """The recorder off again after each test."""
     yield
     if pt._profiling is not None and hasattr(pt._profiling, "disable"):
         pt._profiling.disable()
@@ -73,12 +72,13 @@ def test_a_gap_no_span_covers_goes_to_the_caller():
     assert pt.idle_under(recs, events, "video.call") == pytest.approx(0.1)
 
 
-def _run(events, units=2):
+def _run(events, records, units=2):
     return SimpleNamespace(digest={"device_events": events, "busy_s": 0.0, "window_s": 1.0},
-                           units=units, chips=1, window_s=1.0, spans={}, span_shapes={})
+                           units=units, chips=1, window_s=1.0, spans={}, span_shapes={},
+                           records=records)
 
 
-def test_calls_count_whole_units(monkeypatch):
+def test_calls_count_whole_units():
     """Two steps in the window: the second's last all-reduce starts after
     the device trace's last event and still counts; set-up's step does not."""
     events = dev((0, 1000), (3000, 4000))
@@ -88,19 +88,17 @@ def test_calls_count_whole_units(monkeypatch):
              for u in (1, 2) for i in range(3)]
     recs += [rec("dp.allreduce.logs", 1900, 1950, unit=1),
              rec("dp.allreduce.logs", 4100, 4150, unit=2)]
-    monkeypatch.setattr(pt, "records", lambda: recs)
-    assert pt.calls_per_unit(_run(events), "dp.allreduce.", "train.step") == 4.0
+    assert pt.calls_per_unit(_run(events, recs), "dp.allreduce.", "train.step") == 4.0
 
 
 @pytest.mark.parametrize("metric", sorted(READERS))
-def test_readers_read_the_port_s_spans(metric, monkeypatch):
+def test_readers_read_the_port_s_spans(metric):
     reader = cell_mod.reader(metric)
     events = dev((0, 1000), (3000, 4000))
     recs = [rec(name, 500 + 100 * i, 3500, device_ms=6.0, unit=i % 2)
             for i, name in enumerate(READERS[metric])]
     recs += [rec("train.step", 400, 3600, unit=u) for u in (0, 1)]
-    monkeypatch.setattr(pt, "records", lambda: recs + [rec("set-up", -900, -100, device_ms=1.0)])
-    value = reader.read(_run(events))
+    value = reader.read(_run(events, recs + [rec("set-up", -900, -100, device_ms=1.0)]))
     n = len(READERS[metric])
     want = {"ms": 6.0 * n / 2, "calls": n / 2, "idle": 2.0 / 2}  # 2 units a run
     kind = "calls" if "calls" in metric else "idle" if "idle" in metric else "ms"
@@ -108,11 +106,8 @@ def test_readers_read_the_port_s_spans(metric, monkeypatch):
 
 
 @pytest.mark.parametrize("metric", sorted(READERS))
-def test_readers_return_none_without_their_spans(metric, monkeypatch):
+def test_readers_return_none_without_their_spans(metric):
     reader = cell_mod.reader(metric)
     events = dev((0, 1000), (3000, 4000))
-    monkeypatch.setattr(pt, "records", lambda: [rec("something.else", 500, 3500, device_ms=5.0)])
-    assert reader.read(_run(events)) is None
-    monkeypatch.setattr(pt, "_snapshot", {})
-    monkeypatch.setattr(pt, "records", lambda: [])  # a program without the recorder
-    assert reader.read(_run(events)) is None
+    assert reader.read(_run(events, [rec("something.else", 500, 3500, device_ms=5.0)])) is None
+    assert reader.read(_run(events, [])) is None  # a program without the recorder

@@ -40,8 +40,10 @@ fallback):
   5. dcmcs3di — full-width DCMCS3DI (18 extraction and 6 transfer ResB
                 blocks, 64 channels, seeded random weights) serves the same
                 2 pairs through the kernel route (``inference=True,
-                use_kernels=True``) in the f32 recipe (TF32 off; B5 only)
-                and the bf16 recipe (B5 and B6); launch counts, output
+                use_kernels=True``, the route ``eval_forward`` takes where
+                the volumes do not fit) in the f32 recipe (TF32 off; B5
+                only, on float32 operands) and the bf16 recipe (B5 on bf16
+                operands and B6); launch counts, output
                 checks, warm ms/frame, peak memory, device ms by stage,
                 busy share, the bf16-against-f32 pair PSNR; then the f32
                 model with precise row attention on a small pair, stage by
@@ -825,7 +827,7 @@ def _total(name):
 def _reset_launches():
     from color_transfer_tpu_torch.ops.win_attention import ROUTES
 
-    kinds = ("launches", "vector_launches", "bf16_launches",
+    kinds = ("launches", "vector_launches", "bf16_launches", "f32_launches",
              *(f"bf16_route.{r}" for r in ROUTES))
     _COUNTED.update({f"{k}.{kind}": _total(f"{k}.{kind}")
                      for k in _KERNELS.values() for kind in kinds})
@@ -1157,18 +1159,21 @@ def check_small(module, variables, target, reference):
 
 
 def _dcmcs3di_clip(module, variables, target, reference):
-    """DCMCS3DI at 1080p as the JAX package serves it (bench.py,
-    examples/deep_gate.py): the model called frame by frame with
-    ``inference=True`` on the kernel route, TF32 off."""
+    """DCMCS3DI at 1080p on the route ``eval_forward`` takes for a batch
+    whose volumes do not fit on the card: the model called frame by frame
+    with ``inference=True`` on the kernel route, TF32 off, B5 on float32
+    operands in the f32 recipe (``precise``) and on bf16 ones beside B6 in
+    the bf16 recipe."""
     from color_transfer_tpu_torch.run.modules import full_f32_inference
 
+    precise = module.model.compute_dtype is None
     outs = []
     with full_f32_inference():
         for i in range(target.shape[0]):
             out, _ = torch.func.functional_call(
                 module.model, variables,
                 (target[i : i + 1].cuda(), reference[i : i + 1].cuda()),
-                {"inference": True, "use_kernels": True}, strict=True,
+                {"inference": True, "use_kernels": True, "precise": precise}, strict=True,
             )
             outs.append(out)
     return torch.cat(outs)
@@ -1196,12 +1201,14 @@ def serve_dcmcs3di(rows, target, reference):
         out = clip()
         torch.cuda.synchronize()
         counts = _launches()
-        _log(f"{label}: output {tuple(out.shape)}, launches {counts}")
+        f32 = _count("row_attention.f32_launches")
+        _log(f"{label}: output {tuple(out.shape)}, launches {counts}, B5 on float32 "
+             f"operands {f32}")
         b6 = 0 if recipe is None else 2 * (EXTRACTION_LAYERS + TRANSFER_LAYERS) * FRAMES
         want = dict.fromkeys(counts, 0)
         want.update(resb_chain=b6, row_attention_warp=2 * FRAMES)
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        if counts != want or f32 != (2 * FRAMES if recipe is None else 0):
+            raise AssertionError(f"{label}: launches {counts}, B5 f32 {f32}, expected {want}")
         if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3):
             raise AssertionError(f"{label}: output shape {tuple(out.shape)}")
         if not bool(torch.isfinite(out).all()):

@@ -21,6 +21,9 @@ Inference routes, as in the JAX package:
     ``fused_extraction`` the ResB stacks go through the conv-chain kernel
     B6 (ops/conv_chain.py). None means auto: on for the kernel route under
     bf16.
+On either route the matcher (the head, Q/K/V and the attention) runs in the
+span ``dcmcs3di.attention`` and the transfer net in ``dcmcs3di.transfer``,
+beside the extractor's ``dcmcs3di.extraction``.
 A CPU tensor takes each kernel's plain torch version. Training runs the
 materialised matcher (``inference=False``) or the chunked one
 (``fused_train_forward``, ops/parallax_train.py).
@@ -166,27 +169,32 @@ class DCMCS3DI(nn.Module):
 
         if inference and use_kernels:
             m = self.matcher
-            head = m.head(torch.cat([fea_left, fea_right], dim=0))
-            q_l, q_r = m.query(head).chunk(2, dim=0)
-            k_l, k_r = m.key(head).chunk(2, dim=0)
-            warped, valid_mask_left = fused_parallax_inference(
-                q_l, k_r, m.value(fea_right), q_r, k_l,
-                scale=1.0 / self.channels, precise=precise,
-            )
-            cat = torch.cat([fea_left, warped, valid_mask_left.float()], dim=-1)
-            corrected = transfer(cat)
+            with profiling.annotate("dcmcs3di.attention"):
+                head = m.head(torch.cat([fea_left, fea_right], dim=0))
+                q_l, q_r = m.query(head).chunk(2, dim=0)
+                k_l, k_r = m.key(head).chunk(2, dim=0)
+                warped, valid_mask_left = fused_parallax_inference(
+                    q_l, k_r, m.value(fea_right), q_r, k_l,
+                    scale=1.0 / self.channels, precise=precise,
+                )
+            with profiling.annotate("dcmcs3di.transfer"):
+                cat = torch.cat([fea_left, warped, valid_mask_left.float()], dim=-1)
+                corrected = transfer(cat)
             return corrected.float().clamp(0.0, 1.0), (
                 (None, None), (None, None), (valid_mask_left, None), None,
             )
 
-        costs = self.matcher(fea_left, fea_right)
-        if valid_w is not None:
-            col = torch.arange(costs[0].shape[-1], device=left.device)
-            costs = tuple(torch.where(col < valid_w, c, -1e30) for c in costs)
-        att, att_cycle, valid_mask = pasm.output(costs, inference, valid_w=valid_w)
-        fea_warped_right = pasm.warp(self.matcher.value_features(fea_right), att[0])
-        cat = torch.cat([fea_left, fea_warped_right, valid_mask[0].to(fea_left.dtype)], dim=-1)
-        corrected = transfer(cat)
+        with profiling.annotate("dcmcs3di.attention"):
+            costs = self.matcher(fea_left, fea_right)
+            if valid_w is not None:
+                col = torch.arange(costs[0].shape[-1], device=left.device)
+                costs = tuple(torch.where(col < valid_w, c, -1e30) for c in costs)
+            att, att_cycle, valid_mask = pasm.output(costs, inference, valid_w=valid_w)
+            fea_warped_right = pasm.warp(self.matcher.value_features(fea_right), att[0])
+        with profiling.annotate("dcmcs3di.transfer"):
+            cat = torch.cat([fea_left, fea_warped_right, valid_mask[0].to(fea_left.dtype)],
+                            dim=-1)
+            corrected = transfer(cat)
         return corrected.to(fea_left.dtype).clamp(0.0, 1.0), (
             att, att_cycle, valid_mask, pasm.warp(right, att[0]),
         )

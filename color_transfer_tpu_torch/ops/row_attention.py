@@ -19,7 +19,8 @@ Two implementations of one function:
 
 ``row_attention_warp`` routes by device: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. The counter
-``row_attention.launches`` (utils/profiling.py) counts kernel launches.
+``row_attention.launches`` (utils/profiling.py) counts kernel launches,
+``row_attention.f32_launches`` those of the precise (float32) operands.
 """
 
 import ctypes
@@ -146,6 +147,8 @@ def _launch(q, k, v, scale, precise, colsum=True, splits=None):
     if err != 0:
         raise RuntimeError(f"row_attention_forward launch failed: CUDA error {err}")
     profiling.count("row_attention.launches")
+    if precise:
+        profiling.count("row_attention.f32_launches")
     return out, sums
 
 

@@ -19,8 +19,9 @@ convs' summation order. GSPMD inserts the same halos in the JAX package.
 ``sharded_eval_forward`` shards frames over a ``data`` axis and rows over a
 ``seq`` axis of a ``parallel.mesh.process_mesh``; both entry points return
 the whole result on every rank, gathered the same way, as JAX returns one
-global array. The path is the materialised one (kernel B5 is the one-card
-route), and bucketed evaluation's ``valid_w`` is not on it, as in JAX.
+global array. The path is the materialised one, which ``eval_forward`` takes
+on one card wherever the volumes fit (kernel B5 is its one-card route where
+they do not), and bucketed evaluation's ``valid_w`` is not on it, as in JAX.
 """
 
 import contextlib
@@ -121,8 +122,8 @@ def _frames(b, axis):
 
 
 def sharded_eval_forward(module, variables, batch, mesh=None):
-    """DCMCS3DI evaluation (``DCMCS3DIModule.eval_forward``: the
-    materialised matcher at inference, TF32 off) with frames over the
+    """DCMCS3DI evaluation (``DCMCS3DIModule.eval_forward``'s materialised
+    matcher at inference, TF32 off) with frames over the
     mesh's ``data`` axis and image rows over its ``seq`` axis: every rank
     holds its rows of the cost volumes, the convs trade row halos, and
     every rank returns the whole (B, H, W, 3) output. ``batch`` holds the

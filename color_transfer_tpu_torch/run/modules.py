@@ -369,6 +369,27 @@ def _dtype(name):
     return dtype
 
 
+# Headroom over the materialised matcher's four volumes: the features, the
+# transfer net's input and the softmax's scratch. An H100 serving one
+# 1080x1920 frame peaks at 64.4 GiB against 59.3 GiB of volumes (PERF.md).
+_MATCHER_HEADROOM = 9 / 8
+
+
+def materialised_matcher_fits(target):
+    """Whether DCMCS3DI's materialised matcher fits a batch shaped like
+    ``target`` (B, H, W, 3) on its device: its four float32 (B, H, W, W)
+    volumes (cost and attention, both directions), with headroom, within
+    the card's free memory, the blocks the caching allocator holds idle
+    counted free. A CPU batch always fits."""
+    device = target.device
+    if device.type != "cuda":
+        return True
+    b, h, w = target.shape[:3]
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return 4 * 4 * b * h * w * w * _MATCHER_HEADROOM <= free
+
+
 class DCMCS3DIModule:
     """Croci et al. corrector: Adam(1e-4) on L1 + MSE + SSIM + 0.005 x the
     PAM losses (reference methods/dcmcs3di.py:68-92, :146-147).
@@ -416,6 +437,7 @@ class DCMCS3DIModule:
         self.heavy_metrics = heavy_metrics
         self.fused_attention = fused_attention
         self.attention_chunk = attention_chunk
+        self._row_attention = {}  # (device, batch shape) -> eval_forward's route
         self.hparams = {
             "extraction_layers": extraction_layers,
             "transfer_layers": transfer_layers,
@@ -516,19 +538,37 @@ class DCMCS3DIModule:
         return {k: v.detach().clone().to(device)
                 for k, v in self.model.state_dict().items()}
 
+    def _takes_row_attention(self, target):
+        """Whether a batch shaped like ``target`` takes the row-attention
+        route: ``materialised_matcher_fits`` decides on the first batch of
+        each shape and device, and the answer is kept (its query of the
+        card's free memory waits on the card: ~3 ms of idle a 1080p frame
+        when asked every frame, PERF.md)."""
+        key = (target.device, tuple(target.shape))
+        if key not in self._row_attention:
+            self._row_attention[key] = not materialised_matcher_fits(target)
+        return self._row_attention[key]
+
     def eval_forward(self, variables, batch, valid_w=None):
         """batch: {'target', 'reference'} (B, H, W, 3) in [0, 1] on the
         variables' device -> corrected (B, H, W, 3).
 
-        The JAX module's call: ``inference=True`` on the materialised
-        matcher, no kernel route; ``valid_w`` masks the columns of a padded
-        batch (run/bucketing.py). cuDNN's TF32 is off for the call
+        ``inference=True`` on the JAX module's materialised matcher, which
+        ``valid_w`` masks the columns of a padded batch for
+        (run/bucketing.py); a batch whose volumes do not fit on its card
+        (``_takes_row_attention``) takes the row-attention kernel B5 instead
+        (no (B, H, W, W) tensor), on float32 operands in the float32 recipe
+        (``precise``) and on bf16 ones beside B6 in the bf16 recipe, as the
+        JAX package's bf16 serving. cuDNN's TF32 is off for the call
         (``full_f32_inference``), so the float32 recipe and the float32
         matcher of the bf16 recipe compute in full float32."""
+        kwargs = {"inference": True, "valid_w": valid_w}
+        if valid_w is None and self._takes_row_attention(batch["target"]):
+            kwargs.update(use_kernels=True, precise=self.model.compute_dtype is None)
         with full_f32_inference():
             out, _ = torch.func.functional_call(
-                self.model, variables, (batch["target"], batch["reference"]),
-                {"inference": True, "valid_w": valid_w}, strict=True,
+                self.model, variables, (batch["target"], batch["reference"]), kwargs,
+                strict=True,
             )
             return out
 

@@ -248,6 +248,38 @@ def test_row_attention_scale_sign(gen, scale):
     assert _rel_err(cs, want_cs) <= 1e-4
 
 
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_dcmcs3di_serving_route(gen, compute_dtype, monkeypatch):
+    """DCMCS3DIModule.eval_forward on a CUDA batch takes the materialised
+    matcher where its volumes fit (no B5 launch), else the row-attention
+    route: two B5 launches a frame, on float32 operands in the f32 recipe
+    (which then matches the materialised matcher on the f32 line) and on
+    bf16 ones beside B6 in the bf16 recipe."""
+    from color_transfer_tpu_torch.run import modules
+
+    kw = dict(extraction_layers=2, transfer_layers=1, channels=64, compute_dtype=compute_dtype)
+    variables = modules.DCMCS3DIModule(**kw).init_eval_variables(seed=3, device="cuda")
+    t = torch.rand(1, 24, 200, 3, generator=gen).cuda()
+    batch = {"target": t, "reference": (t * 0.9 + 0.05).roll(7, dims=2)}
+    names = ("row_attention.launches", "row_attention.f32_launches", "resb_chain.launches")
+
+    def launches():  # a new module: each keeps its route by shape
+        before = [counter(n) for n in names]
+        out = modules.DCMCS3DIModule(**kw).eval_forward(variables, batch)
+        torch.cuda.synchronize()
+        return out, [counter(n) - b for n, b in zip(names, before)]
+
+    assert modules.materialised_matcher_fits(t)
+    want, got = launches()
+    assert got == [0, 0, 0]
+    monkeypatch.setattr(modules, "materialised_matcher_fits", lambda target: False)
+    out, got = launches()
+    f32 = compute_dtype is None
+    assert got == [2, 2 if f32 else 0, 0 if f32 else 2 * 3]
+    if f32:
+        assert _rel_err(out, want) <= 1e-4
+
+
 def test_mma_fragment_maps(gen):
     """One m16n8k16 MMA through the kernels' ldmatrix and mma helpers
     against torch.matmul: the fragment maps the bf16 kernels are built on.

@@ -43,7 +43,10 @@ fallback):
                 use_kernels=True``, the route ``eval_forward`` takes where
                 the volumes do not fit) in the f32 recipe (TF32 off; B5
                 only, on float32 operands) and the bf16 recipe (B5 on bf16
-                operands and B6); launch counts, output
+                operands and B6); launch counts (the f32 ResB blocks on
+                conv3x3's epilogue launches, two a block, counted by input
+                shape: 38 a frame at (2, 1080, 1920, 64) and 12 at (1,
+                1080, 1920, 64) in f32, the matcher head's 2 in bf16), output
                 checks, warm ms/frame, peak memory, device ms by stage,
                 busy share, the bf16-against-f32 pair PSNR; then the f32
                 model with precise row attention on a small pair, stage by
@@ -100,7 +103,13 @@ fallback):
                 csrc/conv3x3.cu): forward, input gradient and weight and bias
                 gradients against float64 at the two path shapes and ragged
                 ones (line C3_LINE), two runs bit-equal, each pass timed at
-                the path shapes beside its bound, ATen's route and cuDNN.
+                the path shapes beside its bound, ATen's route and cuDNN;
+                its inference epilogues (a ResB block as two launches) at
+                the served frame's two shapes: ``resb`` against float64
+                (line C3_LINE) and bit-equal to its launches, which are
+                bit-equal to the forward, LeakyReLU and add; each launch
+                timed beside the FMA bound and the block beside its former
+                cuDNN route; launches a frame as phase 5 counted them.
  10. train dcmcs3di — runs before phase 9, which reads its checkpoint:
                 ``fit --config configs/dcmcs3di.yaml`` through the CLI at the
                 recipe's full width (18 extraction and 6 transfer ResB
@@ -838,6 +847,32 @@ def _count(name):
     return _total(name) - _COUNTED.get(name, 0)
 
 
+def _epilogue_shapes(tally):
+    """A stand-in for ``ops.conv3x3.epilogue_kernel`` that tallies its
+    launches by input shape in ``tally`` and launches (the counter
+    ``conv3x3.resb_launches`` counts every shape as one); put it in place
+    with ``_swapped``."""
+    from color_transfer_tpu_torch.ops import conv3x3 as c3
+
+    launch = c3.epilogue_kernel
+
+    def counted(x, *args, **kwargs):
+        tally[tuple(x.shape)] = tally.get(tuple(x.shape), 0) + 1
+        return launch(x, *args, **kwargs)
+
+    return counted
+
+
+def _swapped(obj, name, value, fn):
+    """fn() with ``obj.name`` set to ``value``, restored afterwards."""
+    kept = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(obj, name, kept)
+
+
 def _bf16_launches():
     return {fn: _count(f"{_KERNELS[fn]}.bf16_launches") for fn in _BF16}
 
@@ -1183,11 +1218,13 @@ def serve_dcmcs3di(rows, target, reference):
     """Full-width DCMCS3DI on the two 1080p pairs in the f32 and the bf16
     recipe: launch counts, output checks, warm ms/frame, peak memory,
     device ms by stage, busy share; then the bf16-against-f32 pair PSNR.
-    Returns the f32 module and variables."""
+    Returns the f32 module and variables, and the f32 recipe's conv3x3
+    epilogue launches a frame by shape, as counted."""
     from color_transfer_tpu_torch.models import dcmcs3di as dc_models
+    from color_transfer_tpu_torch.ops import conv3x3 as c3
     from color_transfer_tpu_torch.run.modules import DCMCS3DIModule
 
-    outputs, kept = {}, None
+    outputs, kept, resb_a_frame = {}, None, None
     for recipe in (None, "bfloat16"):
         label = f"dcmcs3di {recipe or 'float32'}"
         module = DCMCS3DIModule(EXTRACTION_LAYERS, TRANSFER_LAYERS, CHANNELS,
@@ -1198,17 +1235,29 @@ def serve_dcmcs3di(rows, target, reference):
             return _dcmcs3di_clip(module, variables, target, reference)
 
         _reset_launches()
-        out = clip()
+        resb_before, shapes = _total("conv3x3.resb_launches"), {}
+        out = _swapped(c3, "epilogue_kernel", _epilogue_shapes(shapes), clip)
         torch.cuda.synchronize()
         counts = _launches()
         f32 = _count("row_attention.f32_launches")
+        resb = _total("conv3x3.resb_launches") - resb_before
         _log(f"{label}: output {tuple(out.shape)}, launches {counts}, B5 on float32 "
-             f"operands {f32}")
+             f"operands {f32}, conv3x3's ResB epilogues {resb} (by input shape {shapes})")
         b6 = 0 if recipe is None else 2 * (EXTRACTION_LAYERS + TRANSFER_LAYERS) * FRAMES
+        # the f32 ResB blocks, two launches each: the matcher head (both
+        # views) in either recipe; in f32 the extraction stack (both views)
+        # and the transfer stack (one view) too
+        two, one = ((2, HEIGHT, WIDTH, CHANNELS), (1, HEIGHT, WIDTH, CHANNELS))
+        want_shapes = ({two: 2 * (1 + EXTRACTION_LAYERS) * FRAMES,
+                        one: 2 * TRANSFER_LAYERS * FRAMES} if recipe is None else {two: 2 * FRAMES})
         want = dict.fromkeys(counts, 0)
         want.update(resb_chain=b6, row_attention_warp=2 * FRAMES)
-        if counts != want or f32 != (2 * FRAMES if recipe is None else 0):
-            raise AssertionError(f"{label}: launches {counts}, B5 f32 {f32}, expected {want}")
+        if (counts != want or f32 != (2 * FRAMES if recipe is None else 0)
+                or shapes != want_shapes or resb != sum(want_shapes.values())):
+            raise AssertionError(f"{label}: launches {counts}, B5 f32 {f32}, ResB epilogues "
+                                 f"{resb} by shape {shapes}, expected {want}, {want_shapes}")
+        if recipe is None:
+            resb_a_frame = {k: n / FRAMES for k, n in shapes.items()}
         if tuple(out.shape) != (FRAMES, HEIGHT, WIDTH, 3):
             raise AssertionError(f"{label}: output shape {tuple(out.shape)}")
         if not bool(torch.isfinite(out).all()):
@@ -1264,7 +1313,7 @@ def serve_dcmcs3di(rows, target, reference):
     _log(f"dcmcs3di bf16 against f32 on identical weights: pair PSNR {psnr:.2f} dB, "
          f"max|d|={float(d.abs().max()):.3e} (reported; the JAX TPU gate's "
          "record is 61.0 dB)")
-    return kept
+    return (*kept, resb_a_frame)
 
 
 def check_small_dcmcs3di(module, variables, target, reference):
@@ -1578,6 +1627,82 @@ def check_conv3x3(g):
             _with_bound(row, moved, {"f32": 3 * c3.flops(*shape[:3])}, sum(library))
         del x, gy, xn, gn
     torch.cuda.empty_cache()
+    return row
+
+
+# conv3x3's inference epilogues (a ResB block as two launches): the served
+# frame's extractor and matcher-head shape (both views) and its transfer
+# net's (one view). Phase 5 counts the launches a frame at each (38 and 12 in
+# DCMCS3DI f32 serving: 18 extraction blocks and the matcher head, 6
+# transfer blocks).
+RESB_SHAPES = ((2, 1080, 1920, 64), (1, 1080, 1920, 64))
+
+
+def check_resb_epilogues(g, row, a_frame):
+    """``ops.conv3x3.resb`` at RESB_SHAPES: against its plain version in
+    float64 (``resb_plain``) within C3_LINE of max|float64|, and bit-equal
+    to its two epilogue launches, which are bit-equal to conv3x3's forward,
+    then ``leaky_relu`` and the residual add; each launch timed beside the
+    FMA bound, the whole block against the block's former serving route
+    (cuDNN's f32 NCHW convs on the NHWC tensors, ATen's LeakyReLU and add,
+    TF32 off; its float64 gap and whether it gives the same bits reported)
+    and cuDNN's conv alone. ``a_frame``: phase 5's launches a served frame
+    by shape. Fills ``row['resb']`` (conv3x3's row) and returns it."""
+    import torch.nn.functional as F
+
+    from color_transfer_tpu_torch.core.precision import conv_route, full_f32
+    from color_transfer_tpu_torch.models.layers import leaky_relu
+    from color_transfer_tpu_torch.ops import conv3x3 as c3
+
+    out = {}
+    for shape in RESB_SHAPES:
+        x = torch.randn(*shape, generator=g).cuda()
+        w0, w1 = ((torch.randn(64, 64, 3, 3, generator=g) / 24).cuda() for _ in range(2))
+        b0, b1 = ((torch.randn(64, generator=g) * 0.1).cuda() for _ in range(2))
+        params = (w0, b0, w1, b1)
+        y1 = c3.epilogue_kernel(x, w0, b0, c3.LEAKY_RELU)
+        y = c3.epilogue_kernel(y1, w1, b1, c3.RESIDUAL, x)
+        same = (torch.equal(y1, leaky_relu(c3.forward_kernel(x, w0, b0)))
+                and torch.equal(y, x + c3.forward_kernel(y1, w1, b1)))
+        if not same:
+            raise AssertionError(f"resb {shape}: the epilogues differ from conv3x3 + "
+                                 f"leaky_relu + add")
+        got = c3.resb(x, *params)
+        if not torch.equal(got, y):
+            raise AssertionError(f"resb {shape}: the block differs from its two launches")
+        with full_f32(), conv_route(True):
+            former = c3.resb_plain(x, *params)
+        want = c3.resb_plain(x.double(), *(p.double() for p in params))
+        scale = want.abs().max()
+        err = float((got.double() - want).abs().max() / scale)
+        former_err = float((former.double() - want).abs().max() / scale)
+        former_same = torch.equal(got, former)
+        del want, former
+        _log(f"resb {shape}: against float64 {err:.3e} of max|float64| (line {C3_LINE}; "
+             f"the former cuDNN route {former_err:.3e}, the same bits {former_same})")
+        if err > C3_LINE:
+            raise AssertionError(f"resb {shape} against float64: {err:.3e}")
+        leaky_ms = _time_ms(lambda: c3.epilogue_kernel(x, w0, b0, c3.LEAKY_RELU), iters=10)
+        res_ms = _time_ms(lambda: c3.epilogue_kernel(y1, w1, b1, c3.RESIDUAL, x), iters=10)
+        block_ms = _time_ms(lambda: c3.resb(x, *params), iters=10)
+        with full_f32(), conv_route(True):
+            former_ms = _time_ms(lambda: c3.resb_plain(x, *params), iters=10)
+            xn = x.permute(0, 3, 1, 2)
+            cudnn_ms = _time_ms(lambda: F.conv2d(xn, w0, b0, padding=1), iters=10)
+        bound_ms = c3.flops(*shape[:3]) / PEAK_OPS_PER_S["f32"] * 1e3
+        out[str(shape)] = {
+            "max_rel_err": err, "former_max_rel_err": former_err,
+            "leaky_relu_ms": leaky_ms, "residual_ms": res_ms, "bound_ms": bound_ms,
+            "block_ms": block_ms, "former_block_ms": former_ms, "cudnn_conv_ms": cudnn_ms,
+            "launches_a_frame": a_frame[shape], "bit_equal_to_former_route": former_same}
+        _log(f"resb {shape}: launch ms: LeakyReLU epilogue {leaky_ms:.4f} "
+             f"({100 * bound_ms / leaky_ms:.1f}% of the FMA bound {bound_ms:.4f}), residual "
+             f"epilogue {res_ms:.4f} ({100 * bound_ms / res_ms:.1f}%); block {block_ms:.4f} "
+             f"against the former route's {former_ms:.4f} (cuDNN's conv alone "
+             f"{cudnn_ms:.4f}); {a_frame[shape]} launches a served frame (phase 5)")
+        del x, y1, y, got
+        torch.cuda.empty_cache()
+    row["resb"] = out
     return row
 
 
@@ -4772,7 +4897,9 @@ def main():
     check_small(module, variables, target, reference)
     del module, variables
     torch.cuda.empty_cache()
-    check_small_dcmcs3di(*serve_dcmcs3di(rows, target, reference), target, reference)
+    module, variables, resb_a_frame = serve_dcmcs3di(rows, target, reference)
+    check_small_dcmcs3di(module, variables, target, reference)
+    del module, variables
     del target, reference
     torch.cuda.empty_cache()
     rows += check_classical_kernels(torch.Generator().manual_seed(1))
@@ -4785,7 +4912,7 @@ def main():
     rows += check_win_kernels(torch.Generator().manual_seed(3))
     serve_fused(rows, unfused)
     c3_row = check_conv3x3(torch.Generator().manual_seed(4))  # launches: phase 10's
-    rows.append(c3_row)
+    rows.append(check_resb_epilogues(torch.Generator().manual_seed(5), c3_row, resb_a_frame))
     f32 = {k: unfused[k] for k in ("out", "ms_frame", "peak", "stages", "busy")}
     del unfused
     matcher_train_shape()

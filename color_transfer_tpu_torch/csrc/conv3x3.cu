@@ -3,11 +3,15 @@
 // gradient and the weight and bias gradients, as implicit GEMMs on FFMA with
 // no column buffer.
 //
-// Replaces no TPU kernel: the JAX package leaves its training convolutions
-// to XLA. Added for DCMCS3DI's f32 training step, whose 50 ResB convolutions
-// ran on ATen's im2col / cuBLAS / col2im route (cuDNN's f32 algorithms miss
-// the float64 rule there; PERF.md). Plain statement: F.conv2d and its
-// autograd, ``conv3x3_plain`` and ``_Conv3x3.backward`` in ../ops/conv3x3.py.
+// Replaces no TPU kernel: the JAX package leaves its convolutions to XLA.
+// Added for DCMCS3DI's f32 training step, whose 50 ResB convolutions ran on
+// ATen's im2col / cuBLAS / col2im route (cuDNN's f32 algorithms miss the
+// float64 rule there; PERF.md). Its forward also runs DCMCS3DI's f32 ResB
+// blocks at inference, two launches a block with the block's elementwise
+// work in the epilogue (below), in place of cuDNN's NCHW convolutions, their
+// layout transposes and ATen's LeakyReLU and residual passes. Plain
+// statement: F.conv2d and its autograd, ``conv3x3_plain``,
+// ``_Conv3x3.backward`` and ``resb_plain`` in ../ops/conv3x3.py.
 //
 //   y[b, p, co]  = bias[co] + sum_{t, ci} x[b, p + t, ci] W[co, ci, t]
 //   gx[b, p, ci] = sum_{t, co} g[b, p - t, co] W[co, ci, t]
@@ -57,6 +61,18 @@
 //     written as 16-byte stores that cover 128 contiguous bytes a warp.
 //     Two blocks an SM (61.7 KB of shared memory and 128 registers a
 //     thread each): the registers allow no third.
+//   * Inference epilogues (a template parameter; one chain): a ResB block
+//     x + conv(LeakyReLU(conv(x, W0) + b0), W1) + b1 is two launches, the
+//     first applying LeakyReLU(0.01) to acc + bias, the second adding the
+//     block's input pixel to acc + bias (read with the same 16-byte pattern
+//     as the store). The order is that of conv3x3, leaky_relu and ATen's
+//     add, so a block gives their bits; the only tensor between the two
+//     launches is the activation. At the served frame's shapes, (2, 1080,
+//     1920, 64) and (1, 1080, 1920, 64), the grid is 60 x 135 x 2 = 16,200
+//     and 8,100 blocks with no ragged tile (1080 = 135 x 8, 1920 = 60 x
+//     32); offsets are 64-bit products (265 M elements at batch 2). The
+//     residual's read adds 1.06 GB a launch at batch 2, 0.32 ms of bytes
+//     beside the launch's 4.56 ms bound of operations (306 GFLOP).
 //
 // Weight and bias gradients (conv3x3_wgrad_kernel, then conv3x3_reduce_kernel):
 //   * The pixels are cut into row segments of 64 (one image row), and the
@@ -182,12 +198,23 @@ __device__ __forceinline__ void load_slice(float* stage, const float* __restrict
   for (int e = t; e < kWFloats / 4; e += kThreads) cp_async16(w_s + 16 * e, wsrc + 4 * e, true);
 }
 
+// What the forward does to an output after its sum: add the bias (the
+// training convolutions), then, at inference inside a ResB block, either
+// LeakyReLU(0.01) (the block's first conv) or the block's input pixel added
+// (its second). Each in the order of the operations it replaces (conv3x3,
+// models/layers.py::leaky_relu, ATen's add), so the bits are theirs.
+enum Epilogue { kBias = 0, kLeakyRelu = 1, kResidual = 2 };
+
+__device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : v * 0.01f; }
+
 // A thread's 8 pixels x 8 channels of the output, row `dst` (pixel ox0 + j
 // at dst + j * kC), columns below w: acc (plus what the row holds, when
-// `add`) plus the bias, stored.
-__device__ __forceinline__ void store_block(const float (&acc)[8][8], float* dst, int ox0,
-                                            int w, bool add, const float4& bias0,
-                                            const float4& bias1) {
+// `add`) plus the bias, then the epilogue (kResidual reads the block input's
+// row `res`, laid out as `dst`), stored.
+template <int kEpi>
+__device__ __forceinline__ void store_block(const float (&acc)[8][8], float* dst,
+                                            const float* res, int ox0, int w, bool add,
+                                            const float4& bias0, const float4& bias1) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (ox0 + j < w) {
@@ -199,23 +226,39 @@ __device__ __forceinline__ void store_block(const float (&acc)[8][8], float* dst
         v0 = make_float4(p0.x + v0.x, p0.y + v0.y, p0.z + v0.z, p0.w + v0.w);
         v1 = make_float4(p1.x + v1.x, p1.y + v1.y, p1.z + v1.z, p1.w + v1.w);
       }
-      out[0] = make_float4(v0.x + bias0.x, v0.y + bias0.y, v0.z + bias0.z, v0.w + bias0.w);
-      out[8] = make_float4(v1.x + bias1.x, v1.y + bias1.y, v1.z + bias1.z, v1.w + bias1.w);
+      v0 = make_float4(v0.x + bias0.x, v0.y + bias0.y, v0.z + bias0.z, v0.w + bias0.w);
+      v1 = make_float4(v1.x + bias1.x, v1.y + bias1.y, v1.z + bias1.z, v1.w + bias1.w);
+      if (kEpi == kLeakyRelu) {
+        v0 = make_float4(leaky(v0.x), leaky(v0.y), leaky(v0.z), leaky(v0.w));
+        v1 = make_float4(leaky(v1.x), leaky(v1.y), leaky(v1.z), leaky(v1.w));
+      } else if (kEpi == kResidual) {
+        const float4* r = reinterpret_cast<const float4*>(res + j * kC);
+        const float4 r0 = r[0], r1 = r[8];
+        v0 = make_float4(r0.x + v0.x, r0.y + v0.y, r0.z + v0.z, r0.w + v0.w);
+        v1 = make_float4(r1.x + v1.x, r1.y + v1.y, r1.z + v1.z, r1.w + v1.w);
+      }
+      out[0] = v0;
+      out[8] = v1;
     }
   }
 }
 
-template <int kParts>
+// `res` (kResidual only) is the block's input, laid out as y; it comes last
+// so that the training instantiations keep their parameters' places.
+template <int kParts, int kEpi>
 __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wk,
-               const float* __restrict__ bias, float* __restrict__ y, int h, int w) {
+               const float* __restrict__ bias, float* __restrict__ y, int h, int w,
+               const float* __restrict__ res) {
   static_assert(kSlices % kParts == 0, "a chain: whole slices");
+  static_assert(kParts == 1 || kEpi == kBias, "an inference epilogue: one chain");
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, ty0 = blockIdx.y * kTileH, tx0 = blockIdx.x * kTileW;
   const int lane = threadIdx.x % 32, r = threadIdx.x / 32;
   const int cg = lane % 8, px = (lane / 8) * 8;
   const int oy = ty0 + r, ox0 = tx0 + px;
-  float* const dst = y + ((static_cast<long long>(b) * h + oy) * w + ox0) * kC + cg * 4;
+  const long long at = ((static_cast<long long>(b) * h + oy) * w + ox0) * kC + cg * 4;
+  float* const dst = y + at;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
   float acc[8][8];
@@ -259,7 +302,8 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wk,
     }
     if (kParts > 1 && (s + 1) % (kSlices / kParts) == 0 && s + 1 < kSlices) {
       // the end of a chain that is not the last: fold it into the stored sum
-      if (oy < h) store_block(acc, dst, ox0, w, s + 1 > kSlices / kParts, zero, zero);
+      if (oy < h)
+        store_block<kBias>(acc, dst, nullptr, ox0, w, s + 1 > kSlices / kParts, zero, zero);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -273,7 +317,8 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wk,
     bias0 = *reinterpret_cast<const float4*>(bias + cg * 4);
     bias1 = *reinterpret_cast<const float4*>(bias + 32 + cg * 4);
   }
-  store_block(acc, dst, ox0, w, kParts > 1, bias0, bias1);
+  store_block<kEpi>(acc, dst, kEpi == kResidual ? res + at : nullptr, ox0, w, kParts > 1,
+                    bias0, bias1);
 }
 
 // Stage segment `seg` (64 pixels of one image row) for the tap row dy: g's
@@ -389,25 +434,41 @@ __global__ void conv3x3_reduce_kernel(const float* __restrict__ partial, float* 
   }
 }
 
+// The forward's launch: grid, shared memory, the launch's error.
+template <int kParts, int kEpi>
+int launch_forward(const float* x, const float* wk, const float* bias, const float* res,
+                   float* y, int b, int h, int w, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<kParts, kEpi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, b);
+  conv3x3_kernel<kParts, kEpi><<<grid, kThreads, kSmemBytes, stream>>>(x, wk, bias, y, h, w, res);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// y = conv(x, W) + bias on NHWC (b, h, w, 64) tensors; wk is W as [ci][dy][dx][co]
-// (the input gradient passes g, the flipped and transposed W and no bias);
-// each output's sum in `parts` chains: 1 (the forward) or 4 (the input
-// gradient).
-int conv3x3_forward(const float* x, const float* wk, const float* bias, float* y, int b, int h,
-                    int w, int parts, cudaStream_t stream) {
-  void (*kernel)(const float*, const float*, const float*, float*, int, int) =
-      parts == 1 ? conv3x3_kernel<1> : parts == 4 ? conv3x3_kernel<4> : nullptr;
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, b);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(x, wk, bias, y, h, w);
-  return static_cast<int>(cudaGetLastError());
+// y = conv(x, W) + bias on NHWC (b, h, w, 64) tensors, then the epilogue;
+// wk is W as [ci][dy][dx][co] (the input gradient passes g, the flipped and
+// transposed W and no bias); each output's sum in `parts` chains: 1 (the
+// forward) or 4 (the input gradient). The epilogue: kBias (the training
+// passes), or at inference, one chain, kLeakyRelu (y = LeakyReLU(conv(x, W)
+// + bias)) or kResidual (y = res + (conv(x, W) + bias), res a (b, h, w, 64)
+// tensor, the block's input).
+int conv3x3_forward(const float* x, const float* wk, const float* bias, const float* res,
+                    float* y, int b, int h, int w, int parts, int epilogue,
+                    cudaStream_t stream) {
+  if (epilogue == kBias && parts == 1)
+    return launch_forward<1, kBias>(x, wk, bias, nullptr, y, b, h, w, stream);
+  if (epilogue == kBias && parts == 4)
+    return launch_forward<4, kBias>(x, wk, bias, nullptr, y, b, h, w, stream);
+  if (epilogue == kLeakyRelu && parts == 1)
+    return launch_forward<1, kLeakyRelu>(x, wk, bias, nullptr, y, b, h, w, stream);
+  if (epilogue == kResidual && parts == 1 && res != nullptr)
+    return launch_forward<1, kResidual>(x, wk, bias, res, y, b, h, w, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The weight gradient's band count on the current device: its resident

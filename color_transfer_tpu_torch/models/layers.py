@@ -24,7 +24,7 @@ from color_transfer_tpu_torch.core.precision import (
     reduced_conv_route,
     routed_conv2d,
 )
-from color_transfer_tpu_torch.ops.conv3x3 import WEIGHT_SHAPE, conv3x3
+from color_transfer_tpu_torch.ops.conv3x3 import LEAKY_SLOPE, WEIGHT_SHAPE, conv3x3, resb
 from color_transfer_tpu_torch.parallel.row_attention_sp import conv2d_rows, current_row_shard
 
 
@@ -82,12 +82,31 @@ def takes_conv3x3(x, weight, padding):
     CPU tensor): float32 weights of (64, 64, 3, 3), padding 1, no row shard,
     and cuDNN off, which is ATen's route, the one both training steps set
     for their f32 convolutions. A float64 reference run, cuDNN's route (f32
-    inference) and every other shape keep F.conv2d. ``padding`` as F.conv2d
-    takes it: an int or a pair."""
+    inference outside ``takes_resb``'s blocks) and every other shape keep
+    F.conv2d. ``padding`` as F.conv2d takes it: an int or a pair."""
     pad = tuple(padding) if isinstance(padding, (tuple, list)) else (padding, padding)
     return (x.device.type in ("cuda", "cpu") and weight.dtype == torch.float32
             and tuple(weight.shape) == WEIGHT_SHAPE and pad == (1, 1)
             and current_row_shard() is None and not torch.backends.cudnn.enabled)
+
+
+def takes_resb(x, c0, c1):
+    """Whether ``ResB.forward`` runs its block through ``ops.conv3x3.resb``
+    (on a CUDA tensor two conv3x3 launches with the LeakyReLU and the
+    residual add in their epilogues, on a CPU tensor its plain version):
+    autograd records nothing for the block (grad mode off, or neither ``x``
+    nor a weight or bias requires grad), ``x`` and both convs float32 with
+    no reduced compute dtype, both (64, 64, 3, 3) with padding 1, no row
+    shard. Training, a float64 reference run, a bf16 stack and the
+    row-sharded evaluation keep ``conv``'s route."""
+    leaves = (x, c0.weight, c0.bias, c1.weight, c1.bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return False
+    return (x.device.type in ("cuda", "cpu") and all(t.dtype == torch.float32 for t in leaves)
+            and all(c.compute_dtype in (None, torch.float32)
+                    and tuple(c.weight.shape) == WEIGHT_SHAPE and tuple(c.padding) == (1, 1)
+                    for c in (c0, c1))
+            and current_row_shard() is None)
 
 
 REDUCED = (torch.bfloat16, torch.float16)
@@ -131,7 +150,7 @@ def dense_in(lin, x, dtype):
 def leaky_relu(x):
     """LeakyReLU(0.01) in the input's dtype, with the slope rounded to it,
     as jax.nn.leaky_relu computes on a bf16 array."""
-    return torch.where(x >= 0, x, x * x.new_tensor(0.01))
+    return torch.where(x >= 0, x, x * x.new_tensor(LEAKY_SLOPE))
 
 
 class LeakyReLU(nn.Module):
@@ -141,7 +160,8 @@ class LeakyReLU(nn.Module):
 
 class ResB(nn.Module):
     """Residual block: conv3 -> LeakyReLU(0.01) -> conv3 -> + identity
-    (reference pasmnet/backbone.py:4-15)."""
+    (reference pasmnet/backbone.py:4-15). Where autograd records nothing
+    for a float32 block (``takes_resb``) it runs as ``ops.conv3x3.resb``."""
 
     def __init__(self, channels, dtype=None):
         super().__init__()
@@ -151,6 +171,9 @@ class ResB(nn.Module):
         )
 
     def forward(self, x):
+        c0, c1 = self.body[0], self.body[2]
+        if takes_resb(x, c0, c1):
+            return resb(x, c0.weight, c0.bias, c1.weight, c1.bias)
         return x + self.body(x)
 
     def forward_remat(self, x):

@@ -1,28 +1,35 @@
 """3x3, stride-1, 'same'-padded f32 convolution at 64 -> 64 channels on NHWC
 tensors, forward and backward, on a hand-written implicit-GEMM kernel.
 
-Replaces no TPU kernel: the JAX package leaves its training convolutions to
-XLA. It takes DCMCS3DI's f32 training convolutions (its ResB stacks and the
-matcher head's ResB) off ATen's im2col / cuBLAS / col2im route, which the
-training step chose over cuDNN because cuDNN's f32 algorithms miss the
-float64 rule there (tools/conv_grads.py). csrc/conv3x3.cu's header says what
-bounds the kernels and how they are laid out.
+Replaces no TPU kernel: the JAX package leaves its convolutions to XLA. It
+takes DCMCS3DI's f32 training convolutions (its ResB stacks and the matcher
+head's ResB) off ATen's im2col / cuBLAS / col2im route, which the training
+step chose over cuDNN because cuDNN's f32 algorithms miss the float64 rule
+there (tools/conv_grads.py), and its f32 ResB blocks at inference off
+cuDNN's NCHW convolutions. csrc/conv3x3.cu's header says what bounds the
+kernels and how they are laid out.
 
-Two implementations of one function:
-  * the plain version: ``conv3x3_plain`` (F.conv2d) and, for the backward,
+Two implementations of each function:
+  * the plain versions: ``conv3x3_plain`` (F.conv2d) and, for the backward,
     ``aten.convolution_backward``, the call autograd makes for F.conv2d;
+    ``resb_plain``, a ResB block at inference (F.conv2d, LeakyReLU, add);
   * the CUDA kernels: the forward, the input gradient (the same kernel on
     the output gradient with the weights flipped and their channel roles
     swapped) and the weight and bias gradients (partial sums a band of
-    pixels, then a reduce in a fixed order).
+    pixels, then a reduce in a fixed order); a ResB block at inference as
+    two forward launches whose epilogues apply the LeakyReLU and add the
+    block's input, with the bits of conv3x3's forward, ``leaky_relu`` and
+    ATen's add.
 
 ``conv3x3`` is one ``torch.autograd.Function`` that saves what ATen's
-convolution saves (the input and the weight). A CPU tensor takes the plain
-version, forward and backward; a CUDA tensor launches the kernels or raises,
-with no fallback. The counters ``conv3x3.launches``, ``.dgrad_launches``
-and ``.wgrad_launches`` (utils/profiling.py) count the forward, input
-gradient and weight gradient calls that ran the kernels. The kernels use no
-float atomics: two calls give the same bits.
+convolution saves (the input and the weight); ``resb`` has no gradient
+(``models/layers.py::ResB`` calls it only where autograd records nothing).
+A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
+raises, with no fallback. The counters ``conv3x3.launches``,
+``.dgrad_launches`` and ``.wgrad_launches`` (utils/profiling.py) count the
+Function's forward, input gradient and weight gradient calls that ran the
+kernels, ``conv3x3.resb_launches`` the epilogue launches (two a block). The
+kernels use no float atomics: two calls give the same bits.
 """
 
 import ctypes
@@ -46,12 +53,28 @@ PARTIAL_FLOATS = 9 * CHANNELS * CHANNELS + 3 * CHANNELS
 # which sums 64 products and then the 9 taps, reads 0.024, and 4 read 0.035
 # (tools/conv_grads.py on the card; PERF.md).
 FORWARD_PARTS, INPUT_GRAD_PARTS = 1, 4
+# The forward's epilogues (csrc/conv3x3.cu's ``Epilogue``): the training passes' and
+# the two of a ResB block at inference.
+BIAS, LEAKY_RELU, RESIDUAL = 0, 1, 2
+# LeakyReLU's slope, for resb_plain and models/layers.py::leaky_relu alike
+# (the kernel's epilogue writes it as 0.01f).
+LEAKY_SLOPE = 0.01
 
 
 def conv3x3_plain(x, weight, bias=None):
     """Plain torch version: NHWC x (B, H, W, 64), an OIHW weight (64, 64,
     3, 3) and a bias (64) or None -> NHWC (B, H, W, 64)."""
     return F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=1).permute(0, 2, 3, 1)
+
+
+def resb_plain(x, w0, b0, w1, b1):
+    """Plain torch version of a ResB block at inference: NHWC x (B, H, W,
+    64) -> x + conv(LeakyReLU(conv(x, W0) + b0), W1) + b1, each step as
+    ``models/layers.py``'s ``conv``, ``leaky_relu`` and the residual add
+    compute it."""
+    y = conv3x3_plain(x, w0, b0)
+    y = torch.where(y >= 0, y, y * y.new_tensor(LEAKY_SLOPE))
+    return x + conv3x3_plain(y, w1, b1)
 
 
 def flops(b, h, w):
@@ -91,7 +114,7 @@ def _lib():
     from color_transfer_tpu_torch.ops import _build
 
     lib = _build.load("conv3x3")
-    lib.conv3x3_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.conv3x3_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.conv3x3_wgrad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.conv3x3_wgrad_bands.argtypes = [ctypes.c_void_p]
     for fn in (lib.conv3x3_forward, lib.conv3x3_wgrad, lib.conv3x3_wgrad_bands):
@@ -115,25 +138,67 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _run_forward(x, wk, bias, parts):
+def _run_forward(x, wk, bias, parts, epilogue=BIAS, residual=None):
+    """One launch of the forward kernel, with its epilogue (``BIAS`` for
+    the training passes)."""
     b, h, w, _ = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _lib().conv3x3_forward(x.data_ptr(), wk.data_ptr(),
-                                     None if bias is None else bias.data_ptr(), y.data_ptr(),
-                                     b, h, w, parts, _stream(x))
+                                     None if bias is None else bias.data_ptr(),
+                                     None if residual is None else residual.data_ptr(),
+                                     y.data_ptr(), b, h, w, parts, epilogue, _stream(x))
     if err != 0:
         raise RuntimeError(f"conv3x3_forward launch failed: CUDA error {err}")
     return y
 
 
+def _forward_weights(weight):
+    return weight.permute(1, 2, 3, 0).contiguous()  # [ci][dy][dx][co]
+
+
 def forward_kernel(x, weight, bias=None):
     """The forward on the card: x (B, H, W, 64) NHWC -> (B, H, W, 64)."""
     check_kernel_inputs(x, weight, bias)
-    wk = weight.permute(1, 2, 3, 0).contiguous()  # [ci][dy][dx][co]
-    y = _run_forward(_dense(x), wk, None if bias is None else bias.contiguous(), FORWARD_PARTS)
+    y = _run_forward(_dense(x), _forward_weights(weight),
+                     None if bias is None else bias.contiguous(), FORWARD_PARTS)
     profiling.count("conv3x3.launches")
     return y
+
+
+def epilogue_kernel(x, weight, bias, epilogue, residual=None):
+    """One forward launch with an inference epilogue on the card, x (B, H,
+    W, 64) NHWC -> (B, H, W, 64): ``LEAKY_RELU``, LeakyReLU(conv(x, W) +
+    b); ``RESIDUAL``, residual + (conv(x, W) + b), ``residual`` shaped as
+    x (a ResB block's input)."""
+    check_kernel_inputs(x, weight, bias)
+    if epilogue == RESIDUAL:
+        check_kernel_inputs(residual)
+        if residual.shape != x.shape or residual.device != x.device:
+            raise ValueError(f"residual {tuple(residual.shape)} on {residual.device} and x "
+                             f"{tuple(x.shape)} on {x.device} differ")
+        residual = _dense(residual)
+    elif epilogue != LEAKY_RELU:
+        raise ValueError(f"unknown epilogue {epilogue}")
+    y = _run_forward(_dense(x), _forward_weights(weight),
+                     None if bias is None else bias.contiguous(), FORWARD_PARTS, epilogue,
+                     residual)
+    profiling.count("conv3x3.resb_launches")
+    return y
+
+
+def resb(x, w0, b0, w1, b1):
+    """A ResB block at inference, x + conv(LeakyReLU(conv(x, W0) + b0), W1)
+    + b1, on NHWC x (B, H, W, 64) with OIHW weights (64, 64, 3, 3) and
+    biases (64); no gradient. A CPU tensor takes ``resb_plain``; a CUDA
+    tensor runs the two epilogue launches (the activation between them is
+    the only temporary) with no fallback."""
+    if x.device.type == "cpu":
+        return resb_plain(x, w0, b0, w1, b1)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = _dense(x)
+    return epilogue_kernel(epilogue_kernel(x, w0, b0, LEAKY_RELU), w1, b1, RESIDUAL, x)
 
 
 def input_grad_kernel(g, weight):

@@ -16,7 +16,16 @@ plain version, so these tests reach its wiring:
     for bit, and the kernels' counters unmoved; the same for the bf16
     recipe, whose only f32 3x3 64 -> 64 convs, the matcher head's two, take
     the route;
-  * DMSCT's train step and evaluation forward never reach the route.
+  * DMSCT's train step and evaluation forward never reach the route;
+  * ``layers.takes_resb``, case by case: a float32 ResB block for which
+    autograd records nothing takes ``conv3x3.resb``; recording autograd,
+    float64 weights, a bf16 compute dtype and a row shard keep the block's
+    convs on ``layers.conv``;
+  * ``resb_plain`` (the CPU's side of ``resb``) bit-equal to the block's
+    own forward, on either conv route;
+  * DCMCS3DI's inference forward (the materialised matcher, the kernel
+    route, ``valid_w``) bit-equal with ``resb`` taken and not, every ResB
+    block through it; the train steps never reach it.
 """
 
 import pytest
@@ -30,7 +39,8 @@ from color_transfer_tpu_torch.parallel.row_attention_sp import row_shard
 from color_transfer_tpu_torch.utils.profiling import counter
 from test_torch_port_core import one_torch_thread  # noqa: F401  (an autouse fixture)
 
-COUNTERS = ("conv3x3.launches", "conv3x3.dgrad_launches", "conv3x3.wgrad_launches")
+COUNTERS = ("conv3x3.launches", "conv3x3.dgrad_launches", "conv3x3.wgrad_launches",
+            "conv3x3.resb_launches")
 
 
 def _counts():
@@ -117,11 +127,13 @@ def test_function_is_conv2d_autograd(dtype, layout, with_bias):
 def _dc_step(monkeypatch, route, recipe="dcmcs3di"):
     """One train step of ``recipe`` (tools/conv_grads.py's RECIPES) at 64
     channels on the CPU -> (loss, gradients, the variables after the step,
-    conv3x3 calls); ``route`` False turns the route off."""
+    conv3x3 calls); ``route`` False turns the route off. The step never
+    runs a block through ``resb`` (autograd records every block)."""
     from color_transfer_tpu_torch.tools import conv_grads as cg
 
     calls = []
     monkeypatch.setattr(layers, "conv3x3", lambda *a: calls.append(1) or c3.conv3x3(*a))
+    monkeypatch.setattr(layers, "resb", lambda *a: pytest.fail("a train step took resb"))
     if not route:
         monkeypatch.setattr(layers, "takes_conv3x3", lambda *a: False)
     module, state, batch = cg.recipe_step(recipe, "cpu", batch_size=2, crop=(12, 24),
@@ -198,3 +210,91 @@ def test_dmsct_never_takes_conv3x3(monkeypatch):
     with conv_route(False):
         layers.conv(x, torch.zeros(64, 64, 3, 3), torch.zeros(64), (1, 1))
     assert calls == [1]
+
+
+# -- a ResB block at inference: ``conv3x3.resb`` ---------------------------------
+
+# (grad mode, what requires grad, weight dtype, compute dtype, row shard) ->
+# the block takes ``resb``
+RESB_CASES = {
+    "no_grad": (False, "params", torch.float32, None, False, True),
+    "nothing_requires_grad": (True, "nothing", torch.float32, None, False, True),
+    "input_requires_grad_under_no_grad": (False, "input", torch.float32, None, False, True),
+    "recording_params": (True, "params", torch.float32, None, False, False),
+    "recording_input": (True, "input", torch.float32, None, False, False),
+    "float64": (False, "params", torch.float64, None, False, False),
+    "bf16_compute": (False, "params", torch.float32, torch.bfloat16, False, False),
+    "row_shard": (False, "params", torch.float32, None, True, False),
+}
+
+
+def _resb_block(dtype=torch.float32, compute_dtype=None, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    blk = layers.ResB(64, dtype=compute_dtype)
+    for i in (0, 2):
+        layers.init_uniform_(blk.body[i], g)
+    return blk.to(dtype), g
+
+
+@pytest.mark.parametrize("case", sorted(RESB_CASES))
+def test_takes_resb(case):
+    grad, requires, dtype, compute, sharded, want = RESB_CASES[case]
+    blk, _ = _resb_block(dtype, compute)
+    blk.requires_grad_(requires == "params")
+    x = torch.zeros(1, 4, 5, 64, dtype=dtype, requires_grad=requires == "input")
+    with torch.set_grad_enabled(grad):
+        if sharded:
+            with row_shard(object()):
+                assert layers.takes_resb(x, blk.body[0], blk.body[2]) is want
+        else:
+            assert layers.takes_resb(x, blk.body[0], blk.body[2]) is want
+
+
+@pytest.mark.parametrize("cudnn", [True, False])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 64), (1, 5, 7, 64)])
+def test_resb_plain_is_the_block(shape, cudnn, monkeypatch):
+    """``resb_plain`` against the block's own forward (``x + body(x)``:
+    ``layers.conv``, ``leaky_relu``, the add), bit for bit, with cuDNN's
+    flag either way (off, the convs take conv3x3's plain version); the
+    block's forward without grad reaches ``resb`` once and counts no
+    launch."""
+    blk, g = _resb_block()
+    x = torch.randn(*shape, generator=g)
+    calls = []
+    monkeypatch.setattr(layers, "resb", lambda *a: calls.append(1) or c3.resb(*a))
+    before = _counts()
+    with torch.no_grad(), conv_route(cudnn):
+        want = x + blk.body(x)
+        got = c3.resb_plain(x, blk.body[0].weight, blk.body[0].bias, blk.body[2].weight,
+                            blk.body[2].bias)
+        routed = blk(x)
+    assert torch.equal(got, want) and torch.equal(routed, want)
+    assert len(calls) == 1 and _counts() == before
+
+
+@pytest.mark.parametrize("route", ["materialised", "kernels", "valid_w"])
+def test_dcmcs3di_inference_takes_resb(route, monkeypatch):
+    """DCMCS3DI's inference forward with every ResB block through ``resb``
+    (2 extraction and 1 transfer block, the matcher head's) against the same
+    forward with the route turned off: the same corrected frame and
+    auxiliary outputs, bit for bit."""
+    from color_transfer_tpu_torch.models import dcmcs3di as dc
+
+    torch.manual_seed(5)
+    model = dc.DCMCS3DI(extraction_layers=2, transfer_layers=1, channels=64)
+    g = torch.Generator().manual_seed(6)
+    left, right = torch.rand(1, 10, 36, 3, generator=g), torch.rand(1, 10, 36, 3, generator=g)
+    kw = {"materialised": {}, "kernels": {"use_kernels": True},
+          "valid_w": {"valid_w": 30}}[route]
+    calls = []
+    monkeypatch.setattr(layers, "resb", lambda *a: calls.append(1) or c3.resb(*a))
+    with torch.no_grad():
+        got = model(left, right, inference=True, **kw)
+        monkeypatch.setattr(layers, "takes_resb", lambda *a: False)
+        want = model(left, right, inference=True, **kw)
+    assert len(calls) == 2 + 1 + 1
+    got, want = ([t for t in torch.utils._pytree.tree_leaves(out) if t is not None]
+                 for out in (got, want))
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -31,7 +31,10 @@ CPU stage by stage on each conv route (chip_smoke.py's DC_BF16_ULPS).
 conv3x3 (DCMCS3DI's f32 training convs): the output and the input, weight
 and bias gradients against float64 within 1e-5 of max|float64| (C3_LINE
 says why it holds), on contiguous NHWC inputs and permuted views, two runs
-bit-equal, one launch of each kernel a call.
+bit-equal, one launch of each kernel a call. Its inference epilogues
+(a ResB block as two launches): bit-equal to conv3x3's forward, then
+``leaky_relu`` and ATen's add; a 1080x1920 batch-2 block within C3_LINE of
+float64, its gap reported beside cuDNN f32's.
 """
 
 import math
@@ -756,6 +759,10 @@ def test_no_fallback_on_bad_input(gen):
     with pytest.raises(ValueError):  # and float32 only
         c3.conv3x3(torch.zeros(1, 4, 5, 64, device="cuda", dtype=torch.float64),
                    torch.zeros(64, 64, 3, 3, device="cuda", dtype=torch.float64))
+    with pytest.raises(ValueError):  # a ResB block: float32 only
+        c3.resb(torch.zeros(1, 4, 5, 64, device="cuda", dtype=torch.float64),
+                *(torch.zeros(s, device="cuda", dtype=torch.float64)
+                  for s in ((64, 64, 3, 3), (64,), (64, 64, 3, 3), (64,))))
     with pytest.raises(ValueError):  # and float32 only
         wn.ffn_fused(*(torch.zeros(4, 8, 128, device="cuda", dtype=torch.bfloat16),) * 2,
                      torch.zeros(256, 64, device="cuda"), torch.zeros(64, 128, device="cuda"),
@@ -855,6 +862,78 @@ def test_conv3x3_runs_bit_equal(gen, shape):
              *c3.weight_grad_kernel(x, gy)) for _ in range(2)]
     for a, r in zip(*runs):
         assert torch.equal(a, r)
+
+
+def _resb_weights(gen):
+    return (_randn(gen, 64, 64, 3, 3, scale=1 / 24), _randn(gen, 64, scale=0.1),
+            _randn(gen, 64, 64, 3, 3, scale=1 / 24), _randn(gen, 64, scale=0.1))
+
+
+@pytest.mark.parametrize("shape", [(2, 72, 160, 64), (1, 67, 97, 64)])
+def test_resb_epilogues_bit_equal(gen, shape):
+    """Each epilogue launch against conv3x3's forward and the elementwise
+    step it takes in (``layers.leaky_relu``, ATen's add), bit for bit, on
+    the tiled and on a ragged shape; ``resb`` is the two launches, counted
+    in ``conv3x3.resb_launches`` and not in ``conv3x3.launches``."""
+    from color_transfer_tpu_torch.models.layers import leaky_relu
+
+    x = _randn(gen, *shape)
+    w0, b0, w1, b1 = _resb_weights(gen)
+    y1 = c3.epilogue_kernel(x, w0, b0, c3.LEAKY_RELU)
+    assert torch.equal(y1, leaky_relu(c3.forward_kernel(x, w0, b0)))
+    assert bool((y1 < 0).any())  # the slope was taken
+    out = c3.epilogue_kernel(y1, w1, b1, c3.RESIDUAL, x)
+    assert torch.equal(out, x + c3.forward_kernel(y1, w1, b1))
+    names = ("conv3x3.resb_launches", "conv3x3.launches")
+    before = [counter(n) for n in names]
+    got = c3.resb(x, w0, b0, w1, b1)
+    assert [counter(n) - b for n, b in zip(names, before)] == [2, 0]
+    assert torch.equal(got, out)
+
+
+def test_resb_at_1080p_against_float64(gen):
+    """A ResB block at the served extractor's shape, (2, 1080, 1920, 64)
+    (16,200 blocks a launch), against float64 on the card within C3_LINE of
+    max|float64|; cuDNN f32's gap (the route it replaces, TF32 off) beside
+    it."""
+    from color_transfer_tpu_torch.core.precision import conv_route, full_f32
+
+    x = _randn(gen, 2, 1080, 1920, 64)
+    params = _resb_weights(gen)
+    got = c3.resb(x, *params)
+    with full_f32(), conv_route(True):
+        library = c3.resb_plain(x, *params)
+    want = c3.resb_plain(x.double(), *(p.double() for p in params))
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max()) / scale
+    lib_err = float((library.double() - want).abs().max()) / scale
+    print(f"resb (2, 1080, 1920, 64) of max|float64|: conv3x3 {err:.3e}, cuDNN f32 {lib_err:.3e}")
+    assert err <= C3_LINE, (err, lib_err)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_dcmcs3di_inference_resb_launches(gen, compute_dtype, monkeypatch):
+    """DCMCS3DIModule.eval_forward on a CUDA batch runs every f32 ResB
+    block through ``resb``: two launches a block (the f32 recipe's 2 + 1
+    stack blocks and the matcher head; the bf16 recipe's head alone), none
+    of the training Function's; on the f32 line of the same forward with
+    the route off (cuDNN's convs)."""
+    from color_transfer_tpu_torch.models import layers
+    from color_transfer_tpu_torch.run import modules
+
+    kw = dict(extraction_layers=2, transfer_layers=1, channels=64, compute_dtype=compute_dtype)
+    variables = modules.DCMCS3DIModule(**kw).init_eval_variables(seed=3, device="cuda")
+    t = torch.rand(1, 24, 200, 3, generator=gen).cuda()
+    batch = {"target": t, "reference": (t * 0.9 + 0.05).roll(7, dims=2)}
+    names = ("conv3x3.resb_launches", "conv3x3.launches")
+    before = [counter(n) for n in names]
+    got = modules.DCMCS3DIModule(**kw).eval_forward(variables, batch)
+    torch.cuda.synchronize()
+    blocks = 2 + 1 + 1 if compute_dtype is None else 1
+    assert [counter(n) - b for n, b in zip(names, before)] == [2 * blocks, 0]
+    monkeypatch.setattr(layers, "takes_resb", lambda *a: False)
+    want = modules.DCMCS3DIModule(**kw).eval_forward(variables, batch)
+    assert _rel_err(got, want) <= 1e-4
 
 
 # -- data parallelism on the card ---------------------------------------------
